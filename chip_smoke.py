@@ -10,15 +10,21 @@ Phases (any failure exits non-zero; no phase's error is caught):
 1. print the card (nvidia-smi name and power limit, torch's device name);
 2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
    all started together) and print the build seconds and ptxas reports;
-3. per kernel (K1 sort, K2 compact, K3 gather, K4 segmented aggregate):
-   seeded inputs at the shapes the q1 main path gives it, the kernel held
-   against its plain PyTorch version on the card, and its time beside the
-   plain version's, one PyTorch library call's and the memory-bound floor;
+3. per kernel (K1 sort, K2 compact, K3 gather, K4 segmented aggregate;
+   K5 prepared-build probe, K6 rank ids, K7 join expansion): seeded inputs
+   at the shapes the q1 and q6 main paths give it, the kernel held against
+   its plain PyTorch version on the card, and its time beside the plain
+   version's, one PyTorch library call's and the memory-bound floor;
 4. generate TPC-H lineitem at SF10 into .bench_data/ (reused when there),
    run q1 through TorchSession() on cuda -- one cold run with every launch
    counter set to 0 just before it, then three warm runs -- and check the
    rows against an independent numpy/pyarrow evaluation of q1;
-5. print the kernel table as one JSON line, the card line, and last the
+5. the same for TPC-DS q6 at SF10 (seed 42, one parquet file per table):
+   every launch counter of K1-K7 (K4's boundary pass and K5's build-key
+   rewrite included) is set to 0 just before its cold run, and each must
+   be above 0 after it, but for K7's matched-build bitmap, which only a
+   full outer join runs;
+6. print the kernel table as one JSON line, the card line, and last the
    result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -328,6 +334,246 @@ def check_segmented(torch, dev, q1_batch, sorted_cols) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# join kernels (K5-K7) at q6's shapes
+# ---------------------------------------------------------------------------
+
+def _int_batch(torch, keys: np.ndarray, valid: np.ndarray, dev):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    keys = np.where(valid, keys, 0).astype(keys.dtype)
+    dt = T.from_numpy_dtype(keys.dtype)
+    col = DeviceColumn(torch.from_numpy(keys).to(dev),
+                       torch.from_numpy(valid).to(dev), dt)
+    return ColumnBatch([col], len(keys), T.Schema([T.StructField("k", dt)]),
+                       dev)
+
+
+def _assert_same_tensors(torch, got, want, what: str) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            if a is not None or b is not None:
+                raise AssertionError(f"{what}: item {i} None on one side")
+            continue
+        if a.shape != b.shape or not torch.equal(a.to(b.dtype), b):
+            raise AssertionError(f"{what}: item {i} differs from the plain "
+                                 "version")
+
+
+_STREAM_JOIN_TYPES = ("inner", "left", "semi", "anti", "full")
+
+
+def check_join_probe(torch, dev, rng) -> dict:
+    """K5 at q6's largest probe: a 2^20-row int32 stream batch (~4% null)
+    against customer's 501,187 build keys (~1% null), every join type."""
+    from spark_rapids_tpu_torch.ops import join as J
+    nb, ns = 501_187, 1 << 20
+    build = _int_batch(torch, np.arange(1, nb + 1, dtype=np.int32),
+                       rng.random(nb) >= 0.01, dev)
+    stream = _int_batch(torch, rng.integers(1, nb + 1, ns).astype(np.int32),
+                        rng.random(ns) >= 0.04, dev)
+    prep = J.build_prepare_fast(build, 0)
+    _assert_same_tensors(torch, prep, J.build_prepare_fast_plain(build, 0),
+                         "build_prepare_fast")
+    for jt in _STREAM_JOIN_TYPES:
+        got, total = J.probe_fast(stream, 0, *prep, jt)
+        want, wtotal = J.probe_fast_plain(stream, 0, *prep, jt)
+        _assert_same_tensors(torch, got + (total,), want + (wtotal,),
+                             f"probe_fast {jt}")
+    total = J.probe_fast(stream, 0, *prep, "inner")[1]
+    ms = _time_ms(torch, lambda: J.probe_fast(stream, 0, *prep, "inner"),
+                  reps=20)
+    plain_ms = _time_ms(torch, lambda: J.probe_fast_plain(
+        stream, 0, *prep, "inner"), reps=20)
+    skey, key = prep[0], stream.columns[0].data
+    lib_ms = _time_ms(torch, lambda: (torch.searchsorted(skey, key),
+                                      torch.searchsorted(skey, key,
+                                                         right=True)),
+                      reps=20)
+    # stream key + validity read, start/cnt/out_cnt written, build keys
+    # read once
+    nbytes = ns * (4 + 1) + ns * 12 + nb * 4 + 4 + 8
+    print(f"[K5 probe] stream={ns} build={nb} matched="
+          f"{int(total.item())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={_bound_ms(nbytes):.4f} "
+          f"(join types {list(_STREAM_JOIN_TYPES)}: equal)", flush=True)
+    return dict(name="join_probe_fast", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/join_probe.cu",
+                replaces="spark_rapids_tpu/ops/join.py:152",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+_CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry",
+               "Men", "Music", "Shoes", "Sports", "Women"]
+
+
+def _string_col(torch, words, valid, dev):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import strings_to_matrix
+    mat, lens = strings_to_matrix(pa.array(list(words), type=pa.string(),
+                                           mask=~valid))
+    return DeviceColumn(torch.from_numpy(mat).to(dev),
+                        torch.from_numpy(valid).to(dev), T.StringType(),
+                        torch.from_numpy(lens).to(dev))
+
+
+def _batch_of(torch, cols, dev):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    return ColumnBatch(cols, cols[0].capacity, T.Schema(
+        [T.StructField(f"c{i}", c.dtype) for i, c in enumerate(cols)]), dev)
+
+
+def _fuzz_sides(torch, rng, dev, nl: int, nr: int):
+    """(int64, string, float64) keys with duplicates on both sides, nulls
+    in every key, NaN and -0.0 in the float key."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    words = np.array(["", "a", "ab", "zz", "a\x00", "a longer string key"],
+                     dtype=object)
+    out = []
+    for n in (nl, nr):
+        v = [rng.random(n) >= 0.03 for _ in range(3)]
+        i64 = np.where(v[0], rng.integers(-500, 500, n) * (1 << 33), 0)
+        f64 = np.where(v[2], rng.choice([-0.0, 0.0, 1.5, np.nan, -2.0], n),
+                       0.0)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+        out.append(_batch_of(torch, [
+            DeviceColumn(t(i64.astype(np.int64)), t(v[0]), T.LongType()),
+            _string_col(torch, words[rng.integers(0, len(words), n)], v[1],
+                        dev),
+            DeviceColumn(t(f64), t(v[2]), T.DoubleType())], dev))
+    return out
+
+
+def check_key_ids(torch, dev, rng) -> dict:
+    """K6 at q6's rank join (56,920 item rows against the 11 category
+    groups on the nullable string key), and a 2^22-row three-key fuzz."""
+    from spark_rapids_tpu_torch.ops import join as J
+    ni = 56_920
+    item = _batch_of(torch, [_string_col(
+        torch, np.array(_CATEGORIES, dtype=object)[rng.integers(0, 10, ni)],
+        rng.random(ni) >= 0.005, dev)], dev)
+    cats = _batch_of(torch, [_string_col(
+        torch, np.array([""] + _CATEGORIES, dtype=object),
+        np.arange(11) > 0, dev)], dev)
+    got = J._key_ids(item, cats, [0], [0])
+    _assert_same_tensors(torch, got, J.key_ids_plain(item, cats, [0], [0]),
+                         "key_ids q6")
+    for jt in _STREAM_JOIN_TYPES:
+        g, gt = J.join_probe(item, cats, [0], [0], jt)
+        w, wt = J.join_probe_plain(item, cats, [0], [0], jt)
+        _assert_same_tensors(torch, g + (gt,), w + (wt,), f"join_probe {jt}")
+    left, right = _fuzz_sides(torch, rng, dev, 3 << 20, 1 << 20)
+    keys = [0, 1, 2]
+    _assert_same_tensors(torch, J._key_ids(left, right, keys, keys),
+                         J.key_ids_plain(left, right, keys, keys),
+                         "key_ids fuzz")
+    for jt in ("inner", "full"):
+        g, gt = J.join_probe(left, right, keys, keys, jt)
+        w, wt = J.join_probe_plain(left, right, keys, keys, jt)
+        _assert_same_tensors(torch, g + (gt,), w + (wt,),
+                             f"join_probe fuzz {jt}")
+    fuzz_ms = _time_ms(torch, lambda: J._key_ids(left, right, [0], [0]))
+    both = torch.cat([left.columns[0].data, right.columns[0].data])
+    fuzz_lib = _time_ms(torch, lambda: torch.unique(
+        both, sorted=True, return_inverse=True))
+    del left, right, both
+    ms = _time_ms(torch, lambda: J._key_ids(item, cats, [0], [0]), reps=20)
+    plain_ms = _time_ms(torch, lambda: J.key_ids_plain(item, cats, [0], [0]),
+                        reps=20)
+    mat = torch.cat([item.columns[0].data, cats.columns[0].data])
+    lib_ms = _time_ms(torch, lambda: torch.unique(
+        mat, dim=0, sorted=True, return_inverse=True), reps=20)
+    rows = ni + 11
+    # key bytes + validity + lengths read once, one int32 id written
+    nbytes = rows * (mat.shape[1] + 1 + 4) + rows * 4
+    print(f"[K6 key ids] q6 rows={rows} width={mat.shape[1]} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(torch.unique over the byte rows) "
+          f"bound_ms={_bound_ms(nbytes):.4f}; fuzz 2^22 rows, three keys "
+          f"(int64, string, float64 with NaN/-0.0/nulls): equal; one int64 "
+          f"key at 2^22 rows ms={fuzz_ms:.4f} torch.unique_ms="
+          f"{fuzz_lib:.4f}", flush=True)
+    return dict(name="join_key_ids", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/join_ids.cu",
+                replaces="spark_rapids_tpu/ops/join.py:62",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+def _check_expand(torch, J, lb, rb, jts, what):
+    for jt in jts:
+        keys = [] if jt == "cross" else [0]
+        arrays, total = J.join_probe_plain(lb, rb, keys, keys, jt)
+        n = int(total.item())
+        got = J.join_indices_from_probe(lb.num_rows, arrays, jt, n)
+        want = J.join_indices_plain(lb.num_rows, arrays, jt, n)
+        _assert_same_tensors(torch, got, want, f"expand {what} {jt}")
+        m = J.matched_build_rows(got[1], rb.num_rows)
+        mw = J.matched_build_rows_plain(got[1], torch.zeros_like(m))
+        _assert_same_tensors(torch, (m,), (mw,), f"matched {what} {jt}")
+
+
+def check_expand(torch, dev, rng) -> dict:
+    """K7 at q6's first join (2^20 stream rows, ~1.4% matched once each)
+    and a many-to-many shape (0-16 matches per row plus one key that
+    matches 2^16 build rows), every join type."""
+    from spark_rapids_tpu_torch.ops import join as J
+    ns = 1 << 20
+    stream = _int_batch(torch, rng.integers(0, 2192, ns).astype(np.int32),
+                        rng.random(ns) >= 0.02, dev)
+    dates = _int_batch(torch, np.arange(31, dtype=np.int32),
+                       np.ones(31, dtype=np.bool_), dev)
+    _check_expand(torch, J, stream, dates, _STREAM_JOIN_TYPES + ("cross",),
+                  "q6")
+    reps = rng.integers(0, 17, 10_000)
+    bkeys = np.concatenate([np.repeat(np.arange(10_000), reps),
+                            np.full(1 << 16, 10_000)]).astype(np.int32)
+    build = _int_batch(torch, rng.permutation(bkeys),
+                       np.ones(len(bkeys), dtype=np.bool_), dev)
+    skeys = rng.integers(0, 10_000, ns).astype(np.int32)
+    skeys[rng.choice(ns, 4, replace=False)] = 10_000
+    many = _int_batch(torch, skeys, np.ones(ns, dtype=np.bool_), dev)
+    _check_expand(torch, J, many, build, _STREAM_JOIN_TYPES, "many")
+    arrays, total = J.join_probe_plain(many, build, [0], [0], "inner")
+    n_many = int(total.item())
+    many_ms = _time_ms(torch, lambda: J.join_indices_from_probe(
+        ns, arrays, "inner", n_many))
+    # q6's shape, timed
+    prep = J.build_prepare_fast_plain(dates, 0)
+    arrays, total = J.probe_fast_plain(stream, 0, *prep, "inner")
+    n = int(total.item())
+    ms = _time_ms(torch, lambda: J.join_indices_from_probe(
+        ns, arrays, "inner", n), reps=20)
+    plain_ms = _time_ms(torch, lambda: J.join_indices_plain(
+        ns, arrays, "inner", n), reps=20)
+    out_cnt = arrays[3]
+    rows = torch.arange(ns, dtype=torch.int32, device=dev)
+    lib_ms = _time_ms(torch, lambda: torch.repeat_interleave(
+        rows, out_cnt, output_size=n), reps=20)
+    # out_cnt read per stream row; cnt, start and the build permutation
+    # read only for the rows with output; li and ri written per output row
+    nbytes = ns * 4 + n * (4 + 4 + 4) + n * 8
+    print(f"[K7 expand] q6 stream={ns} out={n} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(torch.repeat_interleave, left indices only) "
+          f"bound_ms={_bound_ms(nbytes):.4f}; many-to-many out={n_many} "
+          f"ms={many_ms:.4f}; every join type equal", flush=True)
+    return dict(name="join_expand", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/join_expand.cu",
+                replaces="spark_rapids_tpu/ops/join.py:216",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
 # q1 end to end
 # ---------------------------------------------------------------------------
 
@@ -376,13 +622,56 @@ def _check_rows(got: list[tuple], want: list[tuple]) -> None:
                 raise AssertionError(f"q1 row {g} != {w} (rtol {F64_RTOL})")
 
 
+def _counters() -> dict:
+    """Every launch counter of the port, by kernel entry.  The first
+    counter of an entry gives the entry's ``launches``; the others count
+    the launches of its other kernels (each launch is counted once)."""
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import segmented as G
+    from spark_rapids_tpu_torch.ops import sort as S
+    return {"sort_permutation": {"sort_permutation": S.sort_permutation},
+            "compact": {"compact": K.compact},
+            "gather_columns": {"gather_columns": K.gather_columns},
+            "segment_aggregate": {"segment_aggregate": G.segment_aggregate,
+                                  "segment_flags": G._segment_flags},
+            "join_probe_fast": {"join_search": J.join_search,
+                                "build_prepare_fast": J.build_prepare_fast},
+            "join_key_ids": {"key_ids": J._key_ids},
+            "join_expand": {"join_indices_from_probe":
+                            J.join_indices_from_probe,
+                            "matched_build_rows": J.matched_build_rows}}
+
+
+_Q1_ENTRIES = ("sort_permutation", "compact", "gather_columns",
+               "segment_aggregate")
+#: counters of kernels that q6 does not run: the matched-build bitmap
+#: serves full outer joins only, and q6's joins are all inner
+_OFF_Q6_PATH = ("matched_build_rows",)
+
+
+def _reset_counters(entries) -> None:
+    for name in entries:
+        for w in _counters()[name].values():
+            w.launches = 0
+
+
+def _read_counters(entries, query: str, off_path=()) -> dict:
+    """{entry: {counter: launches}}; fails if a counter on the query's
+    path stayed at 0."""
+    got = {name: {k: w.launches for k, w in _counters()[name].items()}
+           for name in entries}
+    for group in got.values():
+        for k, v in group.items():
+            if v <= 0 and k not in off_path:
+                raise AssertionError(f"{query} ran without launching {k}")
+    return got
+
+
 def run_q1(torch, sf: float, warm: int) -> dict:
     from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.bench import tpch_gen
     from spark_rapids_tpu_torch.bench.tpch_queries import q1
-    from spark_rapids_tpu_torch.ops import kernels as K
-    from spark_rapids_tpu_torch.ops import segmented as G
-    from spark_rapids_tpu_torch.ops import sort as S
     data_dir = os.path.join(ROOT, ".bench_data", f"tpch_sf{sf:g}_seed7")
     t0 = time.perf_counter()
     made = tpch_gen.generate_tpch(data_dir, sf=sf, seed=7,
@@ -400,22 +689,15 @@ def run_q1(torch, sf: float, warm: int) -> dict:
         raise AssertionError(f"session on {session.device}, not cuda")
     df = q1(session, data_dir)
     print(df.explain(), flush=True)
-    wrappers = {"sort_permutation": S.sort_permutation,
-                "compact": K.compact, "gather_columns": K.gather_columns,
-                "segment_aggregate": G.segment_aggregate}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
+    _reset_counters(_Q1_ENTRIES)
     t0 = time.perf_counter()
     rows = df.collect()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = _read_counters(_Q1_ENTRIES, "q1")
     _check_rows(rows, want)
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"q1 ran without launching {k}")
     warm_s = []
     for _ in range(warm):
         t0 = time.perf_counter()
@@ -436,11 +718,157 @@ def run_q1(torch, sf: float, warm: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# q6 end to end
+# ---------------------------------------------------------------------------
+
+def _arrow_col(table, name: str):
+    """(values with nulls as 0, validity) of one column as numpy."""
+    import pyarrow.compute as pc
+    c = table.column(name).combine_chunks()
+    valid = c.is_valid().to_numpy(zero_copy_only=False)
+    return pc.fill_null(c, 0).to_numpy(zero_copy_only=False), valid
+
+
+def _lookup(keys: np.ndarray, want: np.ndarray):
+    """Row of each ``want`` in the unique surrogate keys (-1: absent)."""
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    if len(sk) > 1 and not (sk[1:] > sk[:-1]).all():
+        raise AssertionError("surrogate keys are not unique")
+    pos = np.clip(np.searchsorted(sk, want), 0, max(len(sk) - 1, 0))
+    hit = (sk[pos] == want) if len(sk) else np.zeros(len(want), bool)
+    return np.where(hit, order[pos], -1)
+
+
+def reference_q6(data_dir: str) -> list[tuple]:
+    """q6 over the parquet with numpy/pyarrow alone: the (ca_state, cnt)
+    rows with cnt >= 10, ascending cnt."""
+    import pyarrow.parquet as pq
+
+    def read(t, cols):
+        return pq.read_table(os.path.join(data_dir, t), columns=cols)
+
+    dd = read("date_dim", ["d_date_sk", "d_year", "d_moy", "d_month_seq"])
+    year, _ = _arrow_col(dd, "d_year")
+    moy, _ = _arrow_col(dd, "d_moy")
+    seq, _ = _arrow_col(dd, "d_month_seq")
+    dsk, _ = _arrow_col(dd, "d_date_sk")
+    month = seq[(year == 2001) & (moy == 1)][0]
+    dates = dsk[seq == month]
+    it = read("item", ["i_item_sk", "i_category", "i_current_price"])
+    isk, _ = _arrow_col(it, "i_item_sk")
+    cat = it.column("i_category").combine_chunks()
+    cat_valid = cat.is_valid().to_numpy(zero_copy_only=False)
+    cat_names = np.array(cat.fill_null("").to_pylist(), dtype=object)
+    price, price_valid = _arrow_col(it, "i_current_price")
+    keep_item = np.zeros(len(isk), dtype=np.bool_)
+    for c in set(cat_names[cat_valid]):
+        rows = cat_valid & (cat_names == c)
+        p = rows & price_valid
+        if not p.any():
+            continue
+        avg = price[p].sum() / p.sum()
+        keep_item |= p & (price > 1.2 * avg)
+    items = isk[keep_item]
+    cu = read("customer", ["c_customer_sk", "c_current_addr_sk"])
+    csk, _ = _arrow_col(cu, "c_customer_sk")
+    caddr, caddr_valid = _arrow_col(cu, "c_current_addr_sk")
+    ca = read("customer_address", ["ca_address_sk", "ca_state"])
+    ask, _ = _arrow_col(ca, "ca_address_sk")
+    state = ca.column("ca_state").combine_chunks()
+    state_valid = state.is_valid().to_numpy(zero_copy_only=False)
+    states = np.array(state.fill_null("").to_pylist(), dtype=object)
+    ss = read("store_sales", ["ss_sold_date_sk", "ss_item_sk",
+                              "ss_customer_sk"])
+    sold, sold_valid = _arrow_col(ss, "ss_sold_date_sk")
+    sitem, sitem_valid = _arrow_col(ss, "ss_item_sk")
+    scust, scust_valid = _arrow_col(ss, "ss_customer_sk")
+    m = sold_valid & np.isin(sold, dates) & sitem_valid \
+        & np.isin(sitem, items) & scust_valid
+    crow = _lookup(csk, scust[m])
+    crow = crow[crow >= 0]
+    crow = crow[caddr_valid[crow]]
+    arow = _lookup(ask, caddr[crow])
+    arow = arow[arow >= 0]
+    counts: dict = {}
+    for valid, name in zip(state_valid[arow], states[arow]):
+        k = name if valid else None
+        counts[k] = counts.get(k, 0) + 1
+    rows = [(k, v) for k, v in counts.items() if v >= 10]
+    return sorted(rows, key=lambda r: r[1])[:100]
+
+
+def _check_q6(got: list[tuple], want: list[tuple]) -> None:
+    key = lambda r: (r[0] is not None, r[0] or "", r[1])  # noqa: E731
+    if sorted(got, key=key) != sorted(want, key=key):
+        raise AssertionError(f"q6 rows differ from numpy/pyarrow: "
+                             f"{got} vs {want}")
+    cnts = [r[1] for r in got]
+    if cnts != sorted(cnts) or len(got) > 100 or not got:
+        raise AssertionError(f"q6 rows not ordered by cnt: {got}")
+
+
+#: TPC-DS scale factor of the q6 path: the repo's main configuration
+Q6_SF = 10.0
+
+
+def run_q6(torch, warm: int) -> dict:
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    q6, tables = TPCDS_QUERIES["q6"]
+    sf = Q6_SF
+    data_dir = os.path.join(ROOT, ".bench_data",
+                            f"tpcds_sf{sf:g}_seed42_onefile")
+    t0 = time.perf_counter()
+    tpcds_gen.generate_tpcds(data_dir, sf=sf, seed=42, tables=tables,
+                             rows_per_file=1 << 40)
+    print(f"[q6] TPC-DS SF{sf:g} {list(tables)} ready in "
+          f"{time.perf_counter() - t0:.1f} s (one file per table)",
+          flush=True)
+    t0 = time.perf_counter()
+    want = reference_q6(data_dir)
+    print(f"[q6] numpy/pyarrow reference in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    session = TorchSession()
+    if session.device.type != "cuda":
+        raise AssertionError(f"session on {session.device}, not cuda")
+    print(q6(session, data_dir).explain(), flush=True)
+    entries = tuple(_counters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters(entries)
+    t0 = time.perf_counter()
+    rows = q6(session, data_dir).collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = _read_counters(entries, "q6", _OFF_Q6_PATH)
+    _check_q6(rows, want)
+    warm_s = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        rows = q6(session, data_dir).collect()
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        _check_q6(rows, want)
+    n = int(tpcds_gen.table_row_counts(sf)["store_sales"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[q6] {len(rows)} rows: {rows}")
+    print(f"[q6] SF{sf:g} store_sales_rows={n} cold_s={cold:.3f} "
+          f"warm_s={[round(x, 3) for x in warm_s]} "
+          f"rows_per_s_warm={n / min(warm_s) if warm_s else 0:.0f} "
+          f"peak_bytes={peak} launches={launches}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
-                    help="TPC-H scale factor of the q1 phase")
-    ap.add_argument("--warm", type=int, default=3, help="warm q1 runs")
+                    help="TPC-H scale factor of the q1 phase (q6 runs "
+                    "at SF10 always)")
+    ap.add_argument("--warm", type=int, default=3,
+                    help="warm runs of each query")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -470,16 +898,24 @@ def main(argv=None) -> int:
     entries["segment_aggregate"] = check_segmented(torch, dev, q1_batch,
                                                    sorted_cols)
     del q1_batch, perm, sorted_cols
+    entries["join_probe_fast"] = check_join_probe(torch, dev, rng)
+    entries["join_key_ids"] = check_key_ids(torch, dev, rng)
+    entries["join_expand"] = check_expand(torch, dev, rng)
     torch.cuda.empty_cache()
-    launches = run_q1(torch, args.sf, args.warm)
+    q1_launches = run_q1(torch, args.sf, args.warm)
+    torch.cuda.empty_cache()
+    launches = run_q6(torch, args.warm)
     kernels = []
-    for name in ("sort_permutation", "compact", "gather_columns",
-                 "segment_aggregate"):
+    for name, counts in launches.items():
         e = entries[name]
-        e["launches"] = launches[name]
-        kernels.append({k: e[k] for k in (
+        e["launches"] = next(iter(counts.values()))  # the q6 path's count
+        row = {k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        row["launches_by_counter"] = counts
+        if name in q1_launches:
+            row["launches_q1"] = q1_launches[name]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

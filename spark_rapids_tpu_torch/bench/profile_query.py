@@ -1,18 +1,20 @@
-"""Where TPC-H q1's time goes on the card.
+"""Where a query's time goes on the card: TPC-H q1 or TPC-DS q6.
 
-Runs q1 through ``TorchSession()`` on CUDA over TPC-H data generated by
-``bench/tpch_gen.py`` (reused when present), then:
+Runs the query through ``TorchSession()`` on CUDA over data generated by
+``bench/tpch_gen.py`` (q1: lineitem) or ``bench/tpcds_gen.py`` (q6: its
+five tables, one parquet file per table), reused when present, then:
 
-* times a warm run (host clock, ending in a device synchronise);
-* times the parquet scan alone (host decode + pinned upload), draining
-  the planned tree's scan node;
+* times a cold and a warm run (host clock, ending in a device
+  synchronise);
+* times the largest parquet scan alone (host decode + pinned upload),
+  draining the planned tree's leftmost scan node (lineitem; store_sales);
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
   the run and the kernels that take most of it.
 
 Prints one JSON line.  Usage, from the repo root on a machine with a card:
 
-    python -m spark_rapids_tpu_torch.bench.profile_q1 --sf 10
+    python -m spark_rapids_tpu_torch.bench.profile_query --query q6 --sf 10
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import time
 import torch
 
 from spark_rapids_tpu_torch import TorchSession
-from spark_rapids_tpu_torch.bench import tpch_gen
+from spark_rapids_tpu_torch.bench import tpcds_gen, tpch_gen
+from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
 from spark_rapids_tpu_torch.bench.tpch_queries import q1
 from spark_rapids_tpu_torch.exec.core import ExecCtx
 from spark_rapids_tpu_torch.io import ParquetScanExec
@@ -49,14 +52,27 @@ def _timed(fn) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--query", choices=("q1", "q6"), default="q6")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--top", type=int, default=12,
                     help="kernels listed by device time")
     args = ap.parse_args(argv)
-    data_dir = os.path.join(_ROOT, ".bench_data", f"tpch_sf{args.sf:g}_seed7")
-    tpch_gen.generate_tpch(data_dir, sf=args.sf, seed=7, tables=("lineitem",))
+    bench = os.path.join(_ROOT, ".bench_data")
+    if args.query == "q1":
+        data_dir = os.path.join(bench, f"tpch_sf{args.sf:g}_seed7")
+        tpch_gen.generate_tpch(data_dir, sf=args.sf, seed=7,
+                               tables=("lineitem",))
+        query, fact = q1, ("lineitem", tpch_gen.table_row_counts(args.sf)[
+            "lineitem"])
+    else:
+        query, tables = TPCDS_QUERIES["q6"]
+        data_dir = os.path.join(bench, f"tpcds_sf{args.sf:g}_seed42_onefile")
+        tpcds_gen.generate_tpcds(data_dir, sf=args.sf, seed=42,
+                                 tables=tables, rows_per_file=1 << 40)
+        fact = ("store_sales",
+                tpcds_gen.table_row_counts(args.sf)["store_sales"])
     session = TorchSession()
-    df = q1(session, data_dir)
+    df = query(session, data_dir)
     cold = _timed(df.collect)
     warm = _timed(df.collect)
     ctx = ExecCtx(device=session.device, conf=session.conf)
@@ -81,8 +97,8 @@ def main(argv=None) -> int:
     device_us = sum(us for us, _k, _c in rows)
     out = {
         "card": torch.cuda.get_device_name(0),
-        "sf": args.sf,
-        "lineitem_rows": tpch_gen.table_row_counts(args.sf)["lineitem"],
+        "query": args.query, "sf": args.sf,
+        f"{fact[0]}_rows": fact[1],
         "cold_s": cold, "warm_s": warm, "scan_only_s": scan_s,
         "profiled_wall_s": prof_wall,
         "device_busy_s": device_us / 1e6 if rows else None,

@@ -98,6 +98,25 @@ class ColumnBatch:
         return ColumnBatch(cols, n, schema, device)
 
     @staticmethod
+    def nulls(schema: T.Schema, num_rows: int, device) -> "ColumnBatch":
+        """``num_rows`` all-null rows with ``schema`` (zero rows: an
+        empty batch)."""
+        device = torch.device(device)
+        cols = []
+        for f in schema:
+            v = torch.zeros(num_rows, dtype=torch.bool, device=device)
+            if isinstance(f.data_type, T.StringType):
+                cols.append(DeviceColumn(
+                    torch.zeros((num_rows, 4), dtype=torch.uint8,
+                                device=device), v, f.data_type,
+                    torch.zeros(num_rows, dtype=torch.int32, device=device)))
+            else:
+                cols.append(DeviceColumn(
+                    torch.zeros(num_rows, dtype=torch_dtype(f.data_type),
+                                device=device), v, f.data_type))
+        return ColumnBatch(cols, num_rows, schema, device)
+
+    @staticmethod
     def from_leaves(arrow_schema, leaves, num_rows: int,
                     device) -> "ColumnBatch":
         """Build a batch from another engine's host leaves.

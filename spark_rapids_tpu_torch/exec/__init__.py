@@ -1,7 +1,10 @@
 """Physical operators of the port."""
 from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec  # noqa: F401
-from spark_rapids_tpu_torch.exec.basic import FilterExec, ProjectExec  # noqa: F401
+from spark_rapids_tpu_torch.exec.basic import (FilterExec,  # noqa: F401
+                                               GlobalLimitExec,
+                                               LocalLimitExec, ProjectExec)
 from spark_rapids_tpu_torch.exec.core import (ExecCtx, PlanNode,  # noqa: F401
                                               collect_device)
+from spark_rapids_tpu_torch.exec.joins import CrossJoinExec, JoinExec  # noqa: F401
 from spark_rapids_tpu_torch.exec.sortexec import (CoalesceBatchesExec,  # noqa: F401
                                                   SortExec, resolve_orders)

@@ -13,7 +13,7 @@ from typing import Iterator, Sequence
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn, torch_dtype
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec.core import (ExecCtx, PlanNode,
                                               RequireSingleBatch, TargetSize,
                                               drain_partitions)
@@ -205,7 +205,7 @@ class HashAggregateExec(PlanNode):
             if key_idx:
                 return  # no groups
             # grand aggregate on empty input: the default-values row
-            empty = _empty_batch(self._pre_schema, ctx.device)
+            empty = ColumnBatch.nulls(self._pre_schema, 0, ctx.device)
             parts = [_relabel(sorted_group_by(empty, key_idx,
                                               self._update_specs),
                               self._buffer_schema)]
@@ -242,20 +242,3 @@ def _relabel(b: ColumnBatch, schema: T.Schema) -> ColumnBatch:
     cols = [DeviceColumn(c.data, c.validity, f.data_type, c.lengths)
             for c, f in zip(b.columns, schema)]
     return ColumnBatch(cols, b.num_rows, schema, b.device)
-
-
-def _empty_batch(schema: T.Schema, device) -> ColumnBatch:
-    import torch
-    cols = []
-    for f in schema:
-        v = torch.zeros(0, dtype=torch.bool, device=device)
-        if isinstance(f.data_type, T.StringType):
-            cols.append(DeviceColumn(
-                torch.zeros((0, 4), dtype=torch.uint8, device=device), v,
-                f.data_type, torch.zeros(0, dtype=torch.int32,
-                                         device=device)))
-        else:
-            cols.append(DeviceColumn(
-                torch.zeros(0, dtype=torch_dtype(f.data_type),
-                            device=device), v, f.data_type))
-    return ColumnBatch(cols, 0, schema, device)

@@ -1,18 +1,20 @@
-"""Project and filter execs (port of ``spark_rapids_tpu/exec/basic.py``
-:93 ProjectExec, :250 FilterExec)."""
+"""Project, filter and limit execs (port of ``spark_rapids_tpu/exec/basic.py``
+:93 ProjectExec, :250 FilterExec, :408 LocalLimitExec, :428
+GlobalLimitExec)."""
 from __future__ import annotations
 
 from typing import Iterator, Sequence
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
-from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode
+from spark_rapids_tpu_torch.exec.core import (ExecCtx, PlanNode,
+                                              drain_partitions)
 from spark_rapids_tpu_torch.expr.core import (Alias, Expression,
                                               BoundReference, bind,
                                               eval_device, output_name)
 from spark_rapids_tpu_torch.ops import kernels as dk
 
-__all__ = ["ProjectExec", "FilterExec"]
+__all__ = ["ProjectExec", "FilterExec", "LocalLimitExec", "GlobalLimitExec"]
 
 
 class ProjectExec(PlanNode):
@@ -89,3 +91,52 @@ class FilterExec(PlanNode):
 
     def node_desc(self) -> str:
         return "FilterExec"
+
+
+def _limited(it: Iterator, remaining: int) -> Iterator:
+    """Yield batches sliced to at most ``remaining`` total rows."""
+    for b in it:
+        if remaining <= 0:
+            return
+        b = dk.slice_batch(b, remaining)
+        remaining -= b.num_rows
+        yield b
+
+
+class LocalLimitExec(PlanNode):
+    """Per-partition limit (GpuLocalLimitExec, limit.scala)."""
+
+    def __init__(self, limit: int, child: PlanNode):
+        super().__init__([child])
+        self._limit = limit
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self.children[0].output_schema
+
+    @property
+    def output_ordering(self):
+        return self.children[0].output_ordering  # prefix slice
+
+    def partition_iter(self, ctx: ExecCtx, pid: int) -> Iterator:
+        yield from _limited(self.children[0].partition_iter(ctx, pid),
+                            self._limit)
+
+
+class GlobalLimitExec(PlanNode):
+    """Whole-query limit: one output partition (GpuGlobalLimitExec)."""
+
+    def __init__(self, limit: int, child: PlanNode):
+        super().__init__([child])
+        self._limit = limit
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self.children[0].output_schema
+
+    def num_partitions(self, ctx: ExecCtx) -> int:
+        return 1
+
+    def partition_iter(self, ctx: ExecCtx, pid: int) -> Iterator:
+        yield from _limited(drain_partitions(ctx, self.children[0]),
+                            self._limit)

@@ -50,9 +50,17 @@ RequireSingleBatch = RequireSingleBatchT()
 
 @dataclass
 class ExecCtx:
-    """Execution context: the device the plan runs on and the conf."""
+    """Execution context: the device the plan runs on, the conf, and a
+    per-query cache (a join's prepared build side lives there)."""
     device: torch.device
     conf: TorchConf = field(default_factory=TorchConf)
+    _cache: dict = field(default_factory=dict, repr=False)
+
+    def cached(self, key, build):
+        """``build()``'s value, computed once per context."""
+        if key not in self._cache:
+            self._cache[key] = build()
+        return self._cache[key]
 
 
 class PlanNode:

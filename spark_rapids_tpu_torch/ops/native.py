@@ -33,6 +33,9 @@ SOURCES = {
     "gather": "gather.cu",
     "sort": "sort.cu",
     "segmented": "segmented.cu",
+    "join_probe": "join_probe.cu",
+    "join_ids": "join_ids.cu",
+    "join_expand": "join_expand.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,6 +67,20 @@ _SIGNATURES = {
         "srt_seg_starts": [_P, _L, _P, _P, _P],
         "srt_seg_agg": [_I, _P, _P, _I, _I, _P, _L, _P, _P, _I, _P, _P, _P,
                         _I, _I, _P],
+    },
+    "join_probe": {
+        "srt_join_build_keys": [_P, _P, _P, _L, _I, _P, _P, _P],
+        "srt_join_search": [_P, _P, _L, _P, _L, _P, _I, _I, _P, _P, _P, _P,
+                            _P],
+    },
+    "join_ids": {
+        "srt_join_key_ids": [_P, _P, _P, _L, _L, _P, _P, _P, _P],
+    },
+    "join_expand": {
+        "srt_join_offsets": [_P, _L, _P, _P, _P, _P],
+        "srt_join_expand": [_P, _L, _P, _P, _P, _L, _I, _P, _P, _P],
+        "srt_join_tail": [_P, _P, _L, _P, _P, _P, _P],
+        "srt_join_mark": [_P, _L, _P, _P],
     },
 }
 

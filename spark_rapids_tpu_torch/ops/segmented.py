@@ -306,6 +306,28 @@ def _empty_grand(spec: AggSpec, col: DeviceColumn | None, dev):
                         valid, rtype)
 
 
+def _segment_flags(cols: list[DeviceColumn], flags: torch.Tensor) -> None:
+    """Set ``flags[i]`` (uint8, CUDA) where row i's key differs from row
+    i-1's in any of ``cols`` (null == null, NaN == NaN, -0.0 == 0.0): one
+    launch of ``srt_seg_flags`` per column, each counted.  The boundary
+    pass of the aggregate and of the join's key ids (ops/join.py)."""
+    lib = native.lib("segmented")
+    stream = native.stream_ptr(flags.device)
+    for c in cols:
+        kind, item = _kind(c)
+        data = c.data.contiguous()
+        if kind == _KIND_STRING and data.data_ptr() % 4:
+            data = data.clone()
+        native.check(lib.srt_seg_flags(
+            ptr(data), ptr(c.validity.contiguous()),
+            ptr(None if c.lengths is None else c.lengths.contiguous()),
+            kind, item, ptr(flags), flags.numel(), stream), "srt_seg_flags")
+        _segment_flags.launches += 1
+
+
+_segment_flags.launches = 0
+
+
 def _segment_aggregate_cuda(sb: ColumnBatch, key_indices: list[int],
                             aggs: list[AggSpec]):
     _check_cuda_covered(sb, aggs)
@@ -342,16 +364,7 @@ def _segment_aggregate_cuda(sb: ColumnBatch, key_indices: list[int],
     stream = native.stream_ptr(dev)
     flags = torch.zeros(n, dtype=torch.uint8, device=dev)
     if key_indices:
-        for ki in key_indices:
-            c = sb.columns[ki]
-            kind, item = _kind(c)
-            data = c.data.contiguous()
-            if kind == _KIND_STRING and data.data_ptr() % 4:
-                data = data.clone()
-            native.check(lib.srt_seg_flags(
-                ptr(data), ptr(c.validity.contiguous()),
-                ptr(None if c.lengths is None else c.lengths.contiguous()),
-                kind, item, ptr(flags), n, stream), "srt_seg_flags")
+        _segment_flags([sb.columns[ki] for ki in key_indices], flags)
     else:
         flags[0] = 1
     nt = num_tiles(n)

@@ -1,5 +1,6 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``, the
-nodes this slice lowers: Scan, Project, Filter, Aggregate, Sort)."""
+nodes the port lowers: Scan, Project, Filter, Aggregate, Join, Sort,
+Limit)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -8,7 +9,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.core import PlanNode
 from spark_rapids_tpu_torch.expr.core import Expression
 
-__all__ = ["LogicalPlan", "Scan", "Project", "Filter", "Aggregate", "Sort"]
+__all__ = ["LogicalPlan", "Scan", "Project", "Filter", "Aggregate", "Join",
+           "Sort", "Limit"]
 
 
 class LogicalPlan:
@@ -69,8 +71,36 @@ class Aggregate(LogicalPlan):
 
 
 @dataclass
+class Join(LogicalPlan):
+    left: LogicalPlan
+    right: LogicalPlan
+    how: str
+    left_on: list
+    right_on: list
+    condition: Expression | None = None
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+
+@dataclass
 class Sort(LogicalPlan):
     orders: list
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+
+@dataclass
+class Limit(LogicalPlan):
+    n: int
     child: LogicalPlan
 
     @property

@@ -1,6 +1,8 @@
 """Lowering and planning passes (port of ``spark_rapids_tpu/plan/overrides.py``).
 
-``lower`` (:62) turns the logical plan into physical execs;
+``lower`` (:62) turns the logical plan into physical execs (joins as in
+:75-110 without the AQE exchange, which is off by default, or the mesh;
+a limit over a sort as :117-137 without the mesh TopN);
 ``_lower_aggregate`` (:530) plans a
 complete aggregation (the partial/final split over an exchange waits for
 the exchange slice).  :class:`TorchOverrides` inserts
@@ -13,9 +15,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from spark_rapids_tpu_torch.conf import TorchConf
-from spark_rapids_tpu_torch.exec import (CoalesceBatchesExec, FilterExec,
-                                         HashAggregateExec, ProjectExec,
-                                         SortExec)
+from spark_rapids_tpu_torch.exec import (CoalesceBatchesExec,
+                                         CrossJoinExec, FilterExec,
+                                         GlobalLimitExec, HashAggregateExec,
+                                         JoinExec, ProjectExec, SortExec)
 from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode, TargetSize
 from spark_rapids_tpu_torch.plan import logical as L
 
@@ -45,10 +48,25 @@ def lower(node: L.LogicalPlan, conf: TorchConf) -> PlannedNode:
         return PlannedNode(ProjectExec(node.exprs, c.exec_node), [c])
     if isinstance(node, L.Aggregate):
         return _lower_aggregate(node, conf)
+    if isinstance(node, L.Join):
+        lc = lower(node.left, conf)
+        rc = lower(node.right, conf)
+        if node.how == "cross":
+            ex = CrossJoinExec(lc.exec_node, rc.exec_node, node.condition)
+        else:
+            ex = JoinExec(lc.exec_node, rc.exec_node, node.left_on,
+                          node.right_on, node.how, node.condition)
+        # meta children mirror exec children: a right join runs swapped,
+        # and the coalesce pass reassigns exec children from meta order
+        metas = [rc, lc] if ex._swapped else [lc, rc]
+        return PlannedNode(ex, metas)
     if isinstance(node, L.Sort):
         c = lower(node.child, conf)
         return PlannedNode(SortExec(node.orders, c.exec_node,
                                     global_sort=True), [c])
+    if isinstance(node, L.Limit):
+        c = lower(node.child, conf)
+        return PlannedNode(GlobalLimitExec(node.n, c.exec_node), [c])
     raise NotImplementedError(
         f"{type(node).__name__} is not ported yet (ROADMAP.md Queue 1)")
 

@@ -3,9 +3,10 @@
 ``TorchSession(conf)`` runs on the CUDA card and raises when there is none;
 ``TorchSession(conf, device="cpu")`` runs the kernels' plain PyTorch
 versions on the CPU (the tests do this).  The DataFrame methods are the
-ones TPC-H q1 uses -- ``read_parquet``, ``where``, ``group_by().agg()``,
-``order_by``, ``collect``, ``explain`` -- and ``select``.  Admission, cancellation, the
-result cache and the serving planes wait for later slices.
+ones TPC-H q1 and TPC-DS q6 use -- ``read_parquet``, ``select``,
+``where``, ``join``, ``group_by().agg()``, ``order_by``, ``limit``,
+``collect``, ``explain``.  Admission, cancellation, the result cache and
+the serving planes wait for later slices.
 """
 from __future__ import annotations
 
@@ -59,8 +60,32 @@ class DataFrame:
     def group_by(self, *keys) -> "GroupedData":
         return GroupedData(self, [self._col_or_expr(k) for k in keys])
 
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Equi-join on ``on``: a column name, or a list of names and
+        (left, right) pairs of names or expressions.  No keys (or
+        ``how="cross"``) is a cross join."""
+        left_on, right_on = [], []
+        if on is not None:
+            for o in [on] if isinstance(on, str) else on:
+                if isinstance(o, str):
+                    left_on.append(col(o))
+                    right_on.append(col(o))
+                else:
+                    lk, rk = o
+                    left_on.append(self._col_or_expr(lk))
+                    right_on.append(self._col_or_expr(rk))
+        if how == "cross" or not left_on:
+            return DataFrame(self._s, L.Join(self._plan, other._plan,
+                                             "cross", [], [], condition))
+        return DataFrame(self._s, L.Join(self._plan, other._plan, how,
+                                         left_on, right_on, condition))
+
     def order_by(self, *orders) -> "DataFrame":
         return DataFrame(self._s, L.Sort(list(orders), self._plan))
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self._s, L.Limit(n, self._plan))
 
     # -- actions --------------------------------------------------------
     def collect(self) -> list[tuple]:

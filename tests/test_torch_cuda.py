@@ -159,3 +159,109 @@ def test_q1_on_cuda_matches_cpu(dev, tmp_path):
         assert g[:2] == w[:2] and g[9] == w[9]
         assert g[2:9] == pytest.approx(w[2:9], rel=1e-9)
     assert os.path.isdir(os.path.join(d, "lineitem"))
+
+
+# ---------------------------------------------------------------------------
+# join kernels K5-K7
+# ---------------------------------------------------------------------------
+
+def _join_side(rng, n: int, pool: int, dtype=np.int32) -> pa.RecordBatch:
+    """An integral key (with nulls and the dtype max), a string key, a
+    double key (NaN, -0.0) and a payload."""
+    null = rng.random(n) < 0.08
+    k = rng.integers(0, pool, n).astype(dtype)
+    k[rng.random(n) < 0.05] = np.iinfo(dtype).max
+    words = np.array(["", "a", "ab", "zz", "a\x00", "longer string"],
+                     dtype=object)
+    return pa.RecordBatch.from_arrays([
+        pa.array(k, mask=null),
+        pa.array(list(words[rng.integers(0, len(words), n)]),
+                 type=pa.string(), mask=rng.random(n) < 0.05),
+        pa.array(rng.choice([-0.0, 0.0, 1.5, np.nan], n),
+                 mask=rng.random(n) < 0.05),
+        pa.array(np.arange(n, dtype=np.int64)),
+    ], names=["k", "s", "d", "row"])
+
+
+def _assert_tensors_equal(got, want):
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            assert a is None and b is None
+        else:
+            assert torch.equal(a.to(b.dtype), b)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.int16])
+@pytest.mark.parametrize("jt", ["inner", "left", "semi", "anti"])
+def test_fast_probe_and_expand_match_plain(dev, jt, dtype):
+    from spark_rapids_tpu_torch.ops import join as J
+    rng = np.random.default_rng(41)
+    lb = ColumnBatch.from_arrow(_join_side(rng, 50_000, 300, dtype), dev)
+    rb = ColumnBatch.from_arrow(_join_side(rng, 3_000, 300, dtype), dev)
+    before = (J.build_prepare_fast.launches, J.join_search.launches,
+              J.join_indices_from_probe.launches)
+    prep = J.build_prepare_fast(rb, 0)
+    _assert_tensors_equal(prep, J.build_prepare_fast_plain(rb, 0))
+    arrays, total = J.probe_fast(lb, 0, *prep, jt)
+    want, wtotal = J.probe_fast_plain(lb, 0, *prep, jt)
+    _assert_tensors_equal(arrays, want)
+    assert int(total.item()) == int(wtotal.item()) > 0
+    n = int(total.item())
+    _assert_tensors_equal(J.join_indices_from_probe(lb.num_rows, arrays, jt,
+                                                    n),
+                          J.join_indices_plain(lb.num_rows, want, jt, n))
+    assert (J.build_prepare_fast.launches, J.join_search.launches,
+            J.join_indices_from_probe.launches) == tuple(
+                b + 1 for b in before)
+
+
+@pytest.mark.parametrize("keys", [[1], [2], [0, 1], [1, 2, 0]])
+@pytest.mark.parametrize("jt", ["inner", "left", "semi", "anti", "full",
+                                "cross"])
+def test_rank_probe_and_expand_match_plain(dev, jt, keys):
+    from spark_rapids_tpu_torch.ops import join as J
+    rng = np.random.default_rng(43)
+    lb = ColumnBatch.from_arrow(_join_side(rng, 20_000, 50), dev)
+    rb = ColumnBatch.from_arrow(_join_side(rng, 700, 50), dev)
+    k = [] if jt == "cross" else keys
+    if k:
+        before = (J._key_ids.launches, J._segment_flags.launches)
+        _assert_tensors_equal(J._key_ids(lb, rb, k, k),
+                              J.key_ids_plain(lb, rb, k, k))
+        assert (J._key_ids.launches, J._segment_flags.launches) == (
+            before[0] + 1, before[1] + len(k))
+    if jt == "cross":
+        lb = K.slice_rows(lb, 0, 500)
+    arrays, total = J.join_probe(lb, rb, k, k, jt)
+    want, wtotal = J.join_probe_plain(lb, rb, k, k, jt)
+    _assert_tensors_equal(arrays, want)
+    n = int(total.item())
+    assert n == int(wtotal.item()) > 0
+    li, ri = J.join_indices_from_probe(lb.num_rows, arrays, jt, n)
+    _assert_tensors_equal((li, ri),
+                          J.join_indices_plain(lb.num_rows, want, jt, n))
+    m = J.matched_build_rows(ri, rb.num_rows)
+    assert torch.equal(m, J.matched_build_rows_plain(
+        ri, torch.zeros(rb.num_rows, dtype=torch.bool, device=dev)))
+
+
+def test_tpcds_queries_on_cuda_match_cpu(dev, tmp_path):
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    from spark_rapids_tpu_torch.ops import join as J
+    d = str(tmp_path / "tpcds")
+    tpcds_gen.generate_tpcds(d, sf=0.1, rows_per_file=1 << 40)
+    for name, (q, _tables) in TPCDS_QUERIES.items():
+        before = (J.join_search.launches, J._key_ids.launches,
+                  J.join_indices_from_probe.launches)
+        got = q(TorchSession(), d).collect()
+        want = q(TorchSession(device="cpu"), d).collect()
+        assert len(got) == len(want) > 0, name
+        for g, w in zip(got, want):
+            # double sums: tile tree on the card, row order on the CPU
+            assert g == pytest.approx(w, rel=1e-9), name
+        after = (J.join_search.launches, J._key_ids.launches,
+                 J.join_indices_from_probe.launches)
+        assert after[0] > before[0] and after[2] > before[2], name
+        if name == "q6":
+            assert len(got) == 51 and after[1] > before[1]
