@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
 2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
    all started together) and print the build seconds and ptxas reports;
 3. per kernel (K1 sort, K2 compact, K3 gather, K4 segmented aggregate;
-   K5 prepared-build probe, K6 rank ids, K7 join expansion): seeded inputs
+   K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
+   phase 6): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -24,8 +25,19 @@ Phases (any failure exits non-zero; no phase's error is caught):
    rewrite included) is set to 0 just before its cold run, and each must
    be above 0 after it, but for K7's matched-build bitmap, which only a
    full outer join runs;
-6. print the kernel table as one JSON line, the card line, and last the
-   result line {"ok": true, "device": {...}}.
+6. the shuffle exchange (K9 murmur3 partition ids, K10 partition
+   grouping: both held against their plain versions at 2^24 rows), then
+   three paths over the generator's default layout (2^20-row files, 28
+   store_sales files, 8 scan partitions) in .bench_data/: q6 with the
+   adaptive layer on (the map side is coalesced, so K9 and K10 must
+   launch 0 times, as in the reference), q6 with
+   spark.sql.adaptive.enabled=false (K9 and K10 above 0), and
+   top_customers, an explicit repartition of all 28.8M store_sales rows
+   (K9 and K10 once per map batch); each cold + warm, checked against
+   numpy/pyarrow, with its peak device memory, which must not grow from
+   the first warm run to the last;
+7. print the kernel table as one JSON line (launches per path), the card
+   line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -628,6 +640,7 @@ def _counters() -> dict:
     the launches of its other kernels (each launch is counted once)."""
     from spark_rapids_tpu_torch.ops import join as J
     from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import partition as P
     from spark_rapids_tpu_torch.ops import segmented as G
     from spark_rapids_tpu_torch.ops import sort as S
     return {"sort_permutation": {"sort_permutation": S.sort_permutation},
@@ -640,14 +653,22 @@ def _counters() -> dict:
             "join_key_ids": {"key_ids": J._key_ids},
             "join_expand": {"join_indices_from_probe":
                             J.join_indices_from_probe,
-                            "matched_build_rows": J.matched_build_rows}}
+                            "matched_build_rows": J.matched_build_rows},
+            "partition_ids_for_keys": {
+                "partition_ids_for_keys": P.partition_ids_for_keys,
+                "murmur3_columns": P.murmur3_columns},
+            "group_by_part": {"group_by_part": P.group_by_part}}
 
 
 _Q1_ENTRIES = ("sort_permutation", "compact", "gather_columns",
                "segment_aggregate")
+_Q6_ENTRIES = _Q1_ENTRIES + ("join_probe_fast", "join_key_ids",
+                             "join_expand")
+_SHUFFLE_ENTRIES = ("partition_ids_for_keys", "group_by_part")
 #: counters of kernels that q6 does not run: the matched-build bitmap
-#: serves full outer joins only, and q6's joins are all inner
-_OFF_Q6_PATH = ("matched_build_rows",)
+#: serves full outer joins only, and q6's joins are all inner; K9's hash
+#: mode serves the Murmur3Hash expression, which no path here evaluates
+_OFF_Q6_PATH = ("matched_build_rows", "murmur3_columns")
 
 
 def _reset_counters(entries) -> None:
@@ -811,6 +832,12 @@ def _check_q6(got: list[tuple], want: list[tuple]) -> None:
 
 #: TPC-DS scale factor of the q6 path: the repo's main configuration
 Q6_SF = 10.0
+#: rows per parquet file of the generator's default layout
+DEFAULT_ROWS_PER_FILE = 1 << 20
+#: rows of the K9/K10 exactness checks, and of one map batch of the
+#: repartition path (the shape they are timed at)
+SHUFFLE_CHECK_ROWS = 1 << 24
+MAP_BATCH_ROWS = 1 << 20
 
 
 def run_q6(torch, warm: int) -> dict:
@@ -835,7 +862,7 @@ def run_q6(torch, warm: int) -> dict:
     if session.device.type != "cuda":
         raise AssertionError(f"session on {session.device}, not cuda")
     print(q6(session, data_dir).explain(), flush=True)
-    entries = tuple(_counters())
+    entries = _Q6_ENTRIES
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters(entries)
@@ -860,6 +887,351 @@ def run_q6(torch, warm: int) -> dict:
           f"rows_per_s_warm={n / min(warm_s) if warm_s else 0:.0f} "
           f"peak_bytes={peak} launches={launches}", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# shuffle kernels (K9, K10)
+# ---------------------------------------------------------------------------
+
+#: string keys with multi-byte UTF-8 in block and tail positions (tail
+#: bytes >= 128 hash sign-extended), the empty string and q6's states
+_KEY_WORDS = np.array(["", "a", "CA", "TX", "é", "aé", "abé", "abcé",
+                       "日本語", "😀", "x😀y", "héllo wörld",
+                       "a longer state name"], dtype=object)
+
+
+def _word_col(torch, rng, n: int, valid: np.ndarray, dev):
+    """A nullable string column of n rows drawn from _KEY_WORDS, built as
+    the byte matrix directly (no per-row python objects)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
+                                                        round_string_width)
+    enc = [w.encode() for w in _KEY_WORDS]
+    w = round_string_width(max(len(e) for e in enc))
+    table = np.zeros((len(enc), w), dtype=np.uint8)
+    for i, e in enumerate(enc):
+        table[i, :len(e)] = np.frombuffer(e, dtype=np.uint8)
+    lens = np.array([len(e) for e in enc], dtype=np.int32)
+    pick = rng.integers(0, len(enc), n)
+    mat = np.where(valid[:, None], table[pick], 0).astype(np.uint8)
+    ln = np.where(valid, lens[pick], 0).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return DeviceColumn(t(mat), t(valid), T.StringType(), t(ln))
+
+
+def _shuffle_keys(torch, rng, n: int, dev):
+    """int32 with ~4% nulls (ss_customer_sk's shape), int64, float64 with
+    NaN/-0.0/+-inf, and a nullable multi-byte UTF-8 string."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    v32 = rng.random(n) >= 0.04
+    i32 = np.where(v32, rng.integers(1, 501_188, n), 0).astype(np.int32)
+    i64 = rng.integers(-2 ** 62, 2 ** 62, n, dtype=np.int64)
+    vf = rng.random(n) >= 0.03
+    f64 = np.where(vf, rng.choice(np.array(
+        [0.0, -0.0, 1.5, np.nan, np.inf, -np.inf, -2.5e300, 7.25]), n), 0.0)
+    cols = [DeviceColumn(t(i32), t(v32), T.IntegerType()),
+            DeviceColumn(t(i64), ones, T.LongType()),
+            DeviceColumn(t(f64), t(vf), T.DoubleType()),
+            _word_col(torch, rng, n, rng.random(n) >= 0.05, dev)]
+    return _batch_of(torch, cols, dev)
+
+
+def check_partition_ids(torch, dev, rng) -> dict:
+    """K9 at 2^24 rows over every key kind alone and composite, exact
+    against its plain version; timed at the repartition path's map batch
+    (2^20 int32 customer keys, ~4% null)."""
+    from spark_rapids_tpu_torch.ops import partition as P
+    n = SHUFFLE_CHECK_ROWS
+    big = _shuffle_keys(torch, rng, n, dev)
+    for keys in ([0], [1], [2], [3], [0, 3], [3, 2, 1, 0]):
+        for parts in (8, 200):
+            got = P.partition_ids_for_keys(big, keys, parts)
+            want = P.partition_ids_plain([big.columns[k] for k in keys], n,
+                                         parts)
+            if not torch.equal(got, want):
+                raise AssertionError(f"partition ids differ: keys {keys} "
+                                     f"P={parts}")
+    cols = [big.columns[k] for k in (3, 2, 1, 0)]
+    if not torch.equal(P.murmur3_columns(cols, n, dev),
+                       P.to_int32(P._hash_plain(cols, n, dev, 42))):
+        raise AssertionError("murmur3 hash bits differ")
+    str_ms = _time_ms(torch, lambda: P.partition_ids_for_keys(big, [3], 8))
+    del big, cols
+    m = MAP_BATCH_ROWS
+    batch = _shuffle_keys(torch, rng, m, dev)
+    ms = _time_ms(torch, lambda: P.partition_ids_for_keys(batch, [0], 8),
+                  reps=20)
+    plain_ms = _time_ms(torch, lambda: P.partition_ids_plain(
+        [batch.columns[0]], m, 8), reps=20)
+    nbytes = m * (4 + 1) + m * 4  # key + validity read, one id written
+    print(f"[K9 partition ids] checked {n} rows, keys int32/int64/"
+          f"float64/string alone and composite, P=8 and 200, and the hash "
+          f"bits: equal; timed rows={m} int32 key ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms=none (no PyTorch call "
+          f"computes murmur3) bound_ms={_bound_ms(nbytes):.4f}; string key "
+          f"at {n} rows ms={str_ms:.4f}", flush=True)
+    return dict(name="partition_ids_for_keys", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/hash_partition.cu",
+                replaces="spark_rapids_tpu/expr/hashing.py:208",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=None)
+
+
+def _check_grouping(torch, P, batch, ids, parts: int, what: str) -> None:
+    got, counts, starts = P.group_by_part(batch, ids, parts)
+    want, wcounts, wstarts = P.group_by_part_plain(batch, ids, parts)
+    if not (torch.equal(counts, wcounts) and torch.equal(starts, wstarts)):
+        raise AssertionError(f"group_by_part {what}: counts/starts differ")
+    for i, (a, b) in enumerate(zip(_leaves(got.columns),
+                                   _leaves(want.columns))):
+        if a.dtype == torch.float64:  # NaN rows: compare the bits
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"group_by_part {what}: leaf {i} differs "
+                                 "from the plain version")
+
+
+def check_group_by_part(torch, dev, rng) -> dict:
+    """K10 at 2^24 rows with P = 8 and 200 and with one skewed partition,
+    exact against its plain version; timed at the repartition path's map
+    batch (2^20 rows of one nullable int32 column, P = 8)."""
+    from spark_rapids_tpu_torch.ops import partition as P
+    n = SHUFFLE_CHECK_ROWS
+    big = _shuffle_keys(torch, rng, n, dev)
+    for parts in (8, 200):
+        ids = P.partition_ids_for_keys(big, [0, 3], parts)
+        _check_grouping(torch, P, big, ids, parts, f"P={parts}")
+    ids = torch.from_numpy(np.where(rng.random(n) < 0.6, 3, rng.integers(
+        0, 8, n)).astype(np.int32)).to(dev)
+    _check_grouping(torch, P, big, ids, 8, "skewed")
+    del big, ids
+    m = MAP_BATCH_ROWS
+    batch = _shuffle_keys(torch, rng, m, dev)
+    one = _batch_of(torch, [batch.columns[0]], dev)
+    ids = P.partition_ids_for_keys(one, [0], 8)
+    ms = _time_ms(torch, lambda: P.group_by_part(one, ids, 8), reps=20)
+    plain_ms = _time_ms(torch, lambda: P.group_by_part_plain(one, ids, 8),
+                        reps=20)
+    leaves = _leaves(one.columns)
+
+    def library():
+        order = torch.argsort(ids, stable=True)
+        torch.bincount(ids, minlength=8)
+        return [t.index_select(0, order) for t in leaves]
+
+    lib_ms = _time_ms(torch, library, reps=20)
+    # ids and the column read once, the grouped column written once, the
+    # counts and starts written
+    nbytes = m * 4 + 2 * _nbytes(leaves) + 2 * 8 * 4
+    print(f"[K10 group by part] checked {n} rows at P=8, P=200 and one "
+          f"skewed partition: equal; timed rows={m} P=8 (with the K3 "
+          f"gather) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_ms:.4f} (argsort(stable) + bincount + index_select) "
+          f"bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+    return dict(name="group_by_part", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/partition_group.cu",
+                replaces="spark_rapids_tpu/exec/exchange.py:62",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
+# the exchange paths over the default multi-file layout
+# ---------------------------------------------------------------------------
+
+def reference_top_customers(data_dir: str) -> list[tuple]:
+    """top_customers over the parquet with numpy/pyarrow alone: the 100
+    (customer, purchases) pairs with the most purchases, count descending,
+    then key ascending with the null customer first (Spark's default for
+    an ascending key)."""
+    import pyarrow.parquet as pq
+    t = pq.read_table(os.path.join(data_dir, "store_sales"),
+                      columns=["ss_customer_sk"])
+    v, valid = _arrow_col(t, "ss_customer_sk")
+    keys, counts = np.unique(v[valid], return_counts=True)
+    rows = [(int(k), int(c)) for k, c in zip(keys, counts)]
+    if (~valid).any():
+        rows.append((None, int((~valid).sum())))
+    rows.sort(key=lambda r: (-r[1], r[0] is not None, r[0] or 0))
+    return rows[:100]
+
+
+def _scan_batches(data_dir: str, table: str, columns) -> int:
+    """Batches the port's scan makes of a table: each parquet row group
+    split at the scan's batch-row cap."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.conf import TorchConf
+    from spark_rapids_tpu_torch.io.scan import (_effective_batch_rows,
+                                                _expand_paths)
+    files = _expand_paths(os.path.join(data_dir, table))
+    schema = T.Schema.from_arrow(pq.read_schema(files[0]))
+    cap = _effective_batch_rows(
+        T.Schema([schema.field(c) for c in columns]), TorchConf().settings)
+    total = 0
+    for f in files:
+        md = pq.ParquetFile(f).metadata
+        for g in range(md.num_row_groups):
+            total += -(-md.row_group(g).num_rows // cap)
+    return total
+
+
+def _map_side_bytes(torch, df) -> list:
+    """[(exchange, {partition: bytes})] of one run of ``df``, top-down,
+    read from the transports before the context releases them."""
+    from spark_rapids_tpu_torch.exec.core import ExecCtx
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
+    root = df._prepared()
+    ctx = ExecCtx(device=df._s.device, conf=df._s.conf)
+    try:
+        for _b in root.execute(ctx):
+            pass
+        out, stack = [], [root]
+        while stack:
+            node = stack.pop()
+            stack.extend(reversed(node.children))
+            if isinstance(node, ShuffleExchangeExec):
+                t = ctx._cache[("shuffle", node.shuffle_id)]
+                out.append((node.node_desc(),
+                            t.partition_sizes(node.shuffle_id)))
+        return out
+    finally:
+        ctx.close()
+        torch.cuda.synchronize()
+
+
+def _drive(torch, label: str, make_df, check, entries, warm: int,
+           off_path=(), zero=()) -> dict:
+    """One path: explain, then a cold run with every counter of
+    ``entries`` set to 0 just before it and read just after it (each
+    counter above 0, but ``off_path``; each of ``zero`` exactly 0), then
+    the warm runs, each checked and its peak device memory recorded."""
+    print(make_df().explain(), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters(entries)
+    t0 = time.perf_counter()
+    rows = make_df().collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = _read_counters(entries, label, tuple(off_path) + tuple(zero))
+    for group in launches.values():
+        for k, v in group.items():
+            if k in zero and v != 0:
+                raise AssertionError(f"{label} launched {k} {v} times, "
+                                     "expected 0")
+    check(rows)
+    cold_peak = torch.cuda.max_memory_allocated()
+    warm_s, peaks, held = [], [], []
+    for _ in range(warm):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows = make_df().collect()
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        held.append(torch.cuda.memory_allocated())
+        check(rows)
+    if peaks and peaks[-1] > peaks[0]:
+        raise AssertionError(f"{label}: peak device memory grew over the "
+                             f"warm runs: {peaks}")
+    if held and held[-1] > held[0]:
+        raise AssertionError(f"{label}: device memory held after a query "
+                             f"grew over the warm runs: {held}")
+    print(f"[{label}] {len(rows)} rows, first {rows[:3]}; cold_s={cold:.3f} "
+          f"warm_s={[round(x, 3) for x in warm_s]} cold_peak_bytes="
+          f"{cold_peak} warm_peak_bytes={peaks} held_after_bytes={held} "
+          f"launches={launches}", flush=True)
+    return launches
+
+
+def _cuda_session(conf=None):
+    from spark_rapids_tpu_torch import TorchSession
+    s = TorchSession(conf)
+    if s.device.type != "cuda":
+        raise AssertionError(f"session on {s.device}, not cuda")
+    return s
+
+
+def run_exchange_paths(torch, warm: int) -> dict:
+    """q6 with the adaptive layer on and off, and top_customers, over the
+    generator's default layout at SF10; {path: launches}."""
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
+                                                            top_customers)
+    from spark_rapids_tpu_torch.conf import ADVISORY_PARTITION_BYTES
+    q6, tables = TPCDS_QUERIES["q6"]
+    data_dir = os.path.join(ROOT, ".bench_data",
+                            f"tpcds_sf{Q6_SF:g}_seed42_default")
+    t0 = time.perf_counter()
+    tpcds_gen.generate_tpcds(data_dir, sf=Q6_SF, seed=42, tables=tables,
+                             rows_per_file=DEFAULT_ROWS_PER_FILE)
+    nfiles = len([f for f in os.listdir(os.path.join(data_dir,
+                                                     "store_sales"))
+                  if f.endswith(".parquet")])
+    print(f"[exchange] TPC-DS SF{Q6_SF:g} {list(tables)} ready in "
+          f"{time.perf_counter() - t0:.1f} s (2^20-row files: {nfiles} "
+          "store_sales files)", flush=True)
+    t0 = time.perf_counter()
+    want_q6 = reference_q6(data_dir)
+    want_top = reference_top_customers(data_dir)
+    print(f"[exchange] numpy/pyarrow references in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def check_top(rows):
+        if rows != want_top:
+            raise AssertionError(f"top_customers rows differ from "
+                                 f"numpy/pyarrow: {rows[:5]} vs "
+                                 f"{want_top[:5]}")
+
+    aqe_on = _cuda_session()
+    aqe_off = _cuda_session({"spark.sql.adaptive.enabled": False})
+    entries = _Q6_ENTRIES + _SHUFFLE_ENTRIES
+    paths = {}
+    explain = q6(aqe_on, data_dir).explain()
+    if "AdaptiveShuffleReaderExec" not in explain or \
+            "ShuffleExchangeExec[HashPartitioning(8)]" not in explain:
+        raise AssertionError("q6 in the default layout planned no "
+                             "adaptive reader over a hash exchange")
+    paths["q6_default_aqe_on"] = _drive(
+        torch, "q6 default layout, AQE on", lambda: q6(aqe_on, data_dir),
+        lambda r: _check_q6(r, want_q6), entries, warm, _OFF_Q6_PATH,
+        zero=("partition_ids_for_keys", "group_by_part"))
+    sizes = _map_side_bytes(torch, q6(aqe_on, data_dir))
+    advisory = ADVISORY_PARTITION_BYTES.get(aqe_on.conf.settings)
+    print(f"[q6 default layout, AQE on] K9 and K10 launched 0 times, as in "
+          f"the reference: the map side is {sizes} bytes by partition, at "
+          f"or below advisoryPartitionSizeInBytes={advisory}, so every map "
+          "batch went whole to partition 0 (exchange.py tiny-input "
+          "coalescing)", flush=True)
+    paths["q6_default_aqe_off"] = _drive(
+        torch, "q6 default layout, AQE off", lambda: q6(aqe_off, data_dir),
+        lambda r: _check_q6(r, want_q6), entries, warm, _OFF_Q6_PATH)
+    top_entries = ("sort_permutation", "gather_columns",
+                   "segment_aggregate") + _SHUFFLE_ENTRIES
+    paths["top_customers"] = _drive(
+        torch, "top_customers (repartition)",
+        lambda: top_customers(aqe_on, data_dir), check_top, top_entries,
+        warm, ("murmur3_columns",))
+    maps = _scan_batches(data_dir, "store_sales", ["ss_customer_sk"])
+    got = (paths["top_customers"]["partition_ids_for_keys"][
+        "partition_ids_for_keys"],
+        paths["top_customers"]["group_by_part"]["group_by_part"])
+    if got != (maps, maps):
+        raise AssertionError(f"top_customers launched K9/K10 {got} times, "
+                             f"expected once per map batch ({maps})")
+    print(f"[top_customers] K9 and K10 launched once per map batch of the "
+          f"repartition ({maps} store_sales scan batches); the partial "
+          f"aggregate's exchange (first) was coalesced, the repartition "
+          f"(second) never is: "
+          f"{_map_side_bytes(torch, top_customers(aqe_on, data_dir))}",
+          flush=True)
+    return paths
 
 
 def main(argv=None) -> int:
@@ -902,19 +1274,28 @@ def main(argv=None) -> int:
     entries["join_key_ids"] = check_key_ids(torch, dev, rng)
     entries["join_expand"] = check_expand(torch, dev, rng)
     torch.cuda.empty_cache()
-    q1_launches = run_q1(torch, args.sf, args.warm)
+    entries["partition_ids_for_keys"] = check_partition_ids(torch, dev, rng)
     torch.cuda.empty_cache()
-    launches = run_q6(torch, args.warm)
+    entries["group_by_part"] = check_group_by_part(torch, dev, rng)
+    torch.cuda.empty_cache()
+    paths = {"q1": run_q1(torch, args.sf, args.warm)}
+    torch.cuda.empty_cache()
+    paths["q6_onefile"] = run_q6(torch, args.warm)
+    torch.cuda.empty_cache()
+    paths.update(run_exchange_paths(torch, args.warm))
     kernels = []
-    for name, counts in launches.items():
-        e = entries[name]
-        e["launches"] = next(iter(counts.values()))  # the q6 path's count
+    for name, e in entries.items():
+        counters = list(_counters()[name])
+        by_path = {p: c[name] for p, c in paths.items() if name in c}
+        # every path's cold run, its counts set to 0 just before it
+        e["launches"] = sum(c[counters[0]] for c in by_path.values())
         row = {k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        row["launches_by_counter"] = counts
-        if name in q1_launches:
-            row["launches_q1"] = q1_launches[name]
+        row["launches_by_path"] = {p: c[counters[0]]
+                                   for p, c in by_path.items()}
+        row["launches_by_counter"] = {
+            k: sum(c[k] for c in by_path.values()) for k in counters}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(_smi())

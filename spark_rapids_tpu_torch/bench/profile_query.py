@@ -1,8 +1,9 @@
-"""Where a query's time goes on the card: TPC-H q1 or TPC-DS q6.
+"""Where a query's time goes on the card: TPC-H q1, TPC-DS q6 or the
+``top_customers`` repartition.
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
-``bench/tpch_gen.py`` (q1: lineitem) or ``bench/tpcds_gen.py`` (q6: its
-five tables, one parquet file per table), reused when present, then:
+``bench/tpch_gen.py`` (q1: lineitem) or ``bench/tpcds_gen.py`` (q6 and
+repartition: q6's five tables), reused when present, then:
 
 * times a cold and a warm run (host clock, ending in a device
   synchronise);
@@ -12,9 +13,19 @@ five tables, one parquet file per table), reused when present, then:
   time of every CUDA kernel and copy, giving the device's busy share of
   the run and the kernels that take most of it.
 
+``--layout onefile`` (q6's default here) writes one parquet file per
+table, so q6 plans no exchange; ``--layout default`` writes the
+generator's 2^20-row files, so the scan has 8 partitions and the grouped
+aggregate runs partial -> exchange -> final (the repartition query always
+reads this layout).  ``--conf key=value`` sets a session conf, e.g.
+``spark.sql.adaptive.enabled=false``.
+
 Prints one JSON line.  Usage, from the repo root on a machine with a card:
 
     python -m spark_rapids_tpu_torch.bench.profile_query --query q6 --sf 10
+    python -m spark_rapids_tpu_torch.bench.profile_query --query q6 \
+        --layout default --conf spark.sql.adaptive.enabled=false
+    python -m spark_rapids_tpu_torch.bench.profile_query --query repartition
 """
 from __future__ import annotations
 
@@ -27,7 +38,8 @@ import torch
 
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.bench import tpcds_gen, tpch_gen
-from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
+                                                        top_customers)
 from spark_rapids_tpu_torch.bench.tpch_queries import q1
 from spark_rapids_tpu_torch.exec.core import ExecCtx
 from spark_rapids_tpu_torch.io import ParquetScanExec
@@ -52,8 +64,14 @@ def _timed(fn) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", choices=("q1", "q6"), default="q6")
+    ap.add_argument("--query", choices=("q1", "q6", "repartition"),
+                    default="q6")
     ap.add_argument("--sf", type=float, default=10.0)
+    ap.add_argument("--layout", choices=("onefile", "default"),
+                    default="onefile",
+                    help="TPC-DS file layout (repartition: always default)")
+    ap.add_argument("--conf", action="append", default=[],
+                    metavar="KEY=VALUE", help="a session conf entry")
     ap.add_argument("--top", type=int, default=12,
                     help="kernels listed by device time")
     args = ap.parse_args(argv)
@@ -66,12 +84,16 @@ def main(argv=None) -> int:
             "lineitem"])
     else:
         query, tables = TPCDS_QUERIES["q6"]
-        data_dir = os.path.join(bench, f"tpcds_sf{args.sf:g}_seed42_onefile")
-        tpcds_gen.generate_tpcds(data_dir, sf=args.sf, seed=42,
-                                 tables=tables, rows_per_file=1 << 40)
+        if args.query == "repartition":
+            query, args.layout = top_customers, "default"
+        data_dir = os.path.join(
+            bench, f"tpcds_sf{args.sf:g}_seed42_{args.layout}")
+        tpcds_gen.generate_tpcds(
+            data_dir, sf=args.sf, seed=42, tables=tables,
+            rows_per_file=1 << 40 if args.layout == "onefile" else 1 << 20)
         fact = ("store_sales",
                 tpcds_gen.table_row_counts(args.sf)["store_sales"])
-    session = TorchSession()
+    session = TorchSession(dict(kv.split("=", 1) for kv in args.conf))
     df = query(session, data_dir)
     cold = _timed(df.collect)
     warm = _timed(df.collect)
@@ -97,7 +119,8 @@ def main(argv=None) -> int:
     device_us = sum(us for us, _k, _c in rows)
     out = {
         "card": torch.cuda.get_device_name(0),
-        "query": args.query, "sf": args.sf,
+        "query": args.query, "sf": args.sf, "layout": args.layout,
+        "conf": args.conf,
         f"{fact[0]}_rows": fact[1],
         "cold_s": cold, "warm_s": warm, "scan_only_s": scan_s,
         "profiled_wall_s": prof_wall,

@@ -1,5 +1,6 @@
 """TPC-DS queries as DataFrame code (port of ``spark_rapids_tpu/bench/tpcds_queries.py``:
-q3, q6, q42 and q52, the ones whose operators the port has).
+q3, q6, q42 and q52, the ones whose operators the port has), and
+:func:`top_customers`, an explicit repartition of the fact table.
 
 Each builder takes a :class:`TorchSession` and the data directory and
 returns a DataFrame over the generated tables (``bench/tpcds_gen.py``).
@@ -13,7 +14,7 @@ import os
 from spark_rapids_tpu_torch.expr.aggregates import Average, CountStar, Sum
 from spark_rapids_tpu_torch.expr.core import col, lit
 
-__all__ = ["TPCDS_QUERIES", "q3", "q6", "q42", "q52"]
+__all__ = ["TPCDS_QUERIES", "q3", "q6", "q42", "q52", "top_customers"]
 
 
 def _t(session, data_dir: str, table: str, columns=None):
@@ -116,6 +117,19 @@ def q52(session, data_dir: str):
         .agg(Sum(col("ss_ext_sales_price")).alias("ext_price")) \
         .order_by(("d_year", True), ("ext_price", False),
                   ("i_brand_id", True)) \
+        .limit(100)
+
+
+def top_customers(session, data_dir: str):
+    """The 100 customers with the most store purchases (the null customer
+    included), over store_sales hash-repartitioned on the customer key:
+    the shape of a data engineer's repartition before a per-key
+    aggregation, a join or a write.  Ordered by count descending, then
+    key ascending (nulls first, Spark's default for ascending)."""
+    return _t(session, data_dir, "store_sales", ["ss_customer_sk"]) \
+        .repartition(8, "ss_customer_sk") \
+        .group_by("ss_customer_sk").agg(CountStar().alias("n")) \
+        .order_by(("n", False), ("ss_customer_sk", True)) \
         .limit(100)
 
 

@@ -1,9 +1,11 @@
 """Typed configuration registry of the port.
 
-A copy of the part of ``spark_rapids_tpu/conf.py`` that this slice reads:
+A copy of the part of ``spark_rapids_tpu/conf.py`` that the port reads:
 the registry machinery and the entries consulted by the scan, the
-coalesce planner, explain and the device budget.  Keys, defaults and
-parsing are the reference package's, so one settings dict configures both
+coalesce planner, explain, the device budget and the shuffle exchange
+(the reference keeps the adaptive entries in
+``spark_rapids_tpu/exec/exchange.py:42-56``).  Keys, defaults and parsing
+are the reference package's, so one settings dict configures both
 packages the same way.
 """
 from __future__ import annotations
@@ -16,6 +18,12 @@ __all__ = ["ConfEntry", "TorchConf", "register", "parse_bytes"]
 _BYTE_SUFFIXES = {
     "b": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40,
 }
+
+
+def _bool(v):
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("true", "1", "yes")
 
 
 def parse_bytes(v) -> int:
@@ -94,6 +102,53 @@ DEVICE_RESERVE = register(ConfEntry(
     "scratch and runtime allocations.", conv=parse_bytes))
 
 
+SHUFFLE_PARTITIONS = register(ConfEntry(
+    "spark.sql.shuffle.partitions", 8,
+    "Number of shuffle partitions for exchanges (Spark's own knob; honored "
+    "here for parity).", conv=int))
+
+ADAPTIVE_ENABLED = register(ConfEntry(
+    "spark.sql.adaptive.enabled", True,
+    "Adaptive execution: coalesce small shuffle output partitions using "
+    "the map-output sizes (reference GpuCustomShuffleReaderExec + "
+    "GpuTransitionOverrides.optimizeAdaptiveTransitions :51-94).",
+    conv=_bool))
+
+ADVISORY_PARTITION_BYTES = register(ConfEntry(
+    "spark.sql.adaptive.advisoryPartitionSizeInBytes", 64 << 20,
+    "Target post-shuffle partition size for adaptive coalescing.",
+    conv=int))
+
+SKEWED_PARTITION_THRESHOLD = register(ConfEntry(
+    "spark.sql.adaptive.skewedPartitionThresholdInBytes", 256 << 20,
+    "A shuffle output partition larger than this is skewed: the adaptive "
+    "reader splits it into multiple reader groups at map-batch "
+    "granularity targeting advisoryPartitionSizeInBytes each (the skew "
+    "half of Spark 3.0 AQE; small partitions are coalesced, large ones "
+    "split).", conv=int))
+
+SHUFFLE_COMPRESSION_CODEC = register(ConfEntry(
+    "spark.rapids.shuffle.compression.codec", "none",
+    "Codec for shuffle partition buffers: none, lz4 (native C++ block "
+    "codec, native/lz4.cpp) or zstd. (ref RapidsConf.scala:729, "
+    "NvcompLZ4CompressionCodec.scala:25)  The port stores map outputs "
+    "uncompressed on the device; lz4 and zstd raise NotImplementedError "
+    "until the serializer and codecs are ported (ROADMAP.md Queue 1 "
+    "item 7).",
+    check=lambda v: v in ("none", "lz4", "zstd"),
+    check_doc="must be none|lz4|zstd"))
+
+SHUFFLE_TRANSPORT_CLASS = register(ConfEntry(
+    "spark.rapids.shuffle.transport.class",
+    "spark_rapids_tpu_torch.shuffle.local.LocalShuffleTransport",
+    "Fully qualified class of the shuffle transport implementation, loaded "
+    "by reflection. (ref RapidsConf.scala:652, "
+    "RapidsShuffleTransport.scala:638)  The port loads its own transports "
+    "only.",
+    check=lambda v: str(v).startswith("spark_rapids_tpu_torch."),
+    check_doc="must name a class of the spark_rapids_tpu_torch package"))
+
+
 class TorchConf:
     """An immutable snapshot of settings, queried through typed entries."""
 
@@ -110,3 +165,7 @@ class TorchConf:
     @property
     def batch_size_bytes(self) -> int:
         return self.get(BATCH_SIZE_BYTES)
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return self.get(SHUFFLE_PARTITIONS)

@@ -1,11 +1,17 @@
-"""Hash-aggregate exec, complete mode (port of ``spark_rapids_tpu/exec/aggregate.py:41``).
+"""Hash-aggregate exec (port of ``spark_rapids_tpu/exec/aggregate.py:41``).
 
 The device kernel is sort-based (K1 + K3 + K4, ``ops/segmented.py``).  The
 per-batch loop is the reference's ``_run_device`` (:340-467): each input
 batch is reduced to its own group buffer; buffers collect until their
 summed rows cross ``_MERGE_PENDING_CAP``, then merge in one n-way concat +
-segmented merge; the final projection runs over the last buffer.  Partial
-and final modes (for exchanges) wait for the exchange slice.
+segmented merge; the final projection runs over the last buffer.
+
+Modes (reference :52-263): ``complete`` aggregates every partition of the
+child in one pass; ``partial`` runs the update per child partition and
+emits the group buffers (``_buf_0``, ...); ``final``
+(:meth:`HashAggregateExec.final_from_partial`, :159) merges the buffers
+that an exchange routed to its partition with the merge specs (a count is
+summed, an average merges its sum and its count) and projects the result.
 """
 from __future__ import annotations
 
@@ -44,10 +50,10 @@ class HashAggregateExec(PlanNode):
     def __init__(self, group_exprs: Sequence[Expression],
                  result_exprs: Sequence[Expression], child: PlanNode,
                  mode: str = "complete"):
-        if mode != "complete":
-            raise NotImplementedError(
-                f"{mode} aggregation needs the exchange slice (ROADMAP.md "
-                "Queue 1 item 6)")
+        if mode == "final":
+            raise ValueError("use HashAggregateExec.final_from_partial()")
+        if mode not in ("complete", "partial"):
+            raise ValueError(f"aggregation mode {mode!r}")
         super().__init__([child])
         self.mode = mode
         child_schema = child.output_schema
@@ -117,9 +123,30 @@ class HashAggregateExec(PlanNode):
 
         self._final_exprs = [self._to_buffer_space(r)
                              for r in self._result_bound]
-        self._output_schema = T.Schema(
-            [T.StructField(output_name(r), b.dtype, True)
-             for r, b in zip(self._result_raw, self._final_exprs)])
+        self._output_schema = self._buffer_schema if mode == "partial" \
+            else self._result_schema()
+
+    @classmethod
+    def final_from_partial(cls, partial: "HashAggregateExec",
+                           child: PlanNode) -> "HashAggregateExec":
+        """The final-mode exec over ``partial``'s buffer output (through an
+        exchange)."""
+        self = object.__new__(cls)
+        PlanNode.__init__(self, [child])
+        self.mode = "final"
+        for attr in ("_group_bound", "_group_names", "_result_raw",
+                     "_result_bound", "_aggs", "_agg_index", "_pre_exprs",
+                     "_agg_input_col", "_pre_schema", "_update_specs",
+                     "_agg_offsets", "_buffer_schema", "_merge_specs",
+                     "_final_exprs"):
+            setattr(self, attr, getattr(partial, attr))
+        self._output_schema = self._result_schema()
+        return self
+
+    def _result_schema(self) -> T.Schema:
+        return T.Schema([T.StructField(output_name(r), b.dtype, True)
+                         for r, b in zip(self._result_raw,
+                                         self._final_exprs)])
 
     def _to_buffer_space(self, bound: Expression) -> Expression:
         """Rewrite a bound result expression over the buffer batch:
@@ -145,23 +172,34 @@ class HashAggregateExec(PlanNode):
         return self._output_schema
 
     @property
+    def bound_exprs(self):
+        return list(self._pre_exprs) + list(self._final_exprs)
+
+    @property
     def output_batching(self):
         return RequireSingleBatch
 
     @property
     def children_coalesce_goal(self):
         # batch scan output up to batchSizeBytes before aggregating;
-        # TargetSize(0) resolves to spark.rapids.sql.batchSizeBytes
-        return [TargetSize(0)]
+        # TargetSize(0) resolves to spark.rapids.sql.batchSizeBytes.  The
+        # final mode reads shuffle output (coalesced by the adaptive
+        # reader where it is on).
+        return [None] if self.mode == "final" else [TargetSize(0)]
 
     def num_partitions(self, ctx: ExecCtx) -> int:
-        return 1
+        # complete mode aggregates the whole input: one partition; partial
+        # and final run per partition (the exchange between them moves
+        # rows across partitions)
+        if self.mode == "complete":
+            return 1
+        return self.children[0].num_partitions(ctx)
 
     def _child_presorted(self) -> bool:
         """Every group key is a plain child column and the child already
         clusters them in bound order: the update may skip its sort."""
         k = len(self._group_bound)
-        if not k:
+        if not k or self.mode == "final":
             return False
         ordering = self.children[0].output_ordering
         if not ordering or len(ordering) < k:
@@ -186,12 +224,16 @@ class HashAggregateExec(PlanNode):
                         self._buffer_schema)
 
     def partition_iter(self, ctx: ExecCtx, pid: int) -> Iterator:
+        child = self.children[0]
+        child_it = drain_partitions(ctx, child) if self.mode == "complete" \
+            else child.partition_iter(ctx, pid)
         key_idx = list(range(len(self._group_bound)))
         presorted = self._child_presorted()
         parts: list[ColumnBatch] = []
         pending_rows = 0
-        for b in drain_partitions(ctx, self.children[0]):
-            part = self._update(b, key_idx, presorted)
+        for b in child_it:
+            part = _relabel(b, self._buffer_schema) if self.mode == "final" \
+                else self._update(b, key_idx, presorted)
             if part.num_rows == 0 and key_idx:
                 continue
             parts.append(part)
@@ -202,7 +244,7 @@ class HashAggregateExec(PlanNode):
         if len(parts) > 1:
             parts = [self._merge(parts, key_idx)]
         if not parts:
-            if key_idx:
+            if key_idx or self.mode == "partial":
                 return  # no groups
             # grand aggregate on empty input: the default-values row
             empty = ColumnBatch.nulls(self._pre_schema, 0, ctx.device)
@@ -210,6 +252,9 @@ class HashAggregateExec(PlanNode):
                                               self._update_specs),
                               self._buffer_schema)]
         running = parts[0]
+        if self.mode == "partial":
+            yield running
+            return
         cols = [eval_device(e, running) for e in self._final_exprs]
         yield ColumnBatch(cols, running.num_rows, self._output_schema,
                           running.device)

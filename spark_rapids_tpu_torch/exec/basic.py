@@ -33,6 +33,10 @@ class ProjectExec(PlanNode):
         return self._schema
 
     @property
+    def bound_exprs(self):
+        return list(self._bound)
+
+    @property
     def output_ordering(self):
         """The child's ordering survives as far as its leading columns
         pass through as plain references (possibly renamed)."""
@@ -74,6 +78,10 @@ class FilterExec(PlanNode):
     @property
     def output_schema(self) -> T.Schema:
         return self.children[0].output_schema
+
+    @property
+    def bound_exprs(self):
+        return [self._cond]
 
     @property
     def output_ordering(self):

@@ -1,11 +1,11 @@
 """Physical plan node base and execution context.
 
 Port of ``spark_rapids_tpu/exec/core.py``: an operator produces, per
-partition, an iterator of device batches.  This slice keeps the batching
+partition, an iterator of device batches.  The port keeps the batching
 contracts (``CoalesceGoal``) and the plan introspection, and calls device
 functions directly where the reference went through ``ctx.dispatch``.  The
 spill catalog, the retry scopes, the concurrent partition drain and the
-per-operator metrics wait for later slices (ROADMAP.md Queue 1 items 6-9).
+per-operator metrics wait for later slices (ROADMAP.md Queue 1 items 7-9).
 """
 from __future__ import annotations
 
@@ -51,16 +51,31 @@ RequireSingleBatch = RequireSingleBatchT()
 @dataclass
 class ExecCtx:
     """Execution context: the device the plan runs on, the conf, and a
-    per-query cache (a join's prepared build side lives there)."""
+    per-query cache (a join's prepared build side and an exchange's map
+    outputs live there).  ``planning`` marks a context the planner uses to
+    ask for partition counts: nothing may execute under it.  ``close()``
+    releases every shuffle the query wrote and drops the cache."""
     device: torch.device
     conf: TorchConf = field(default_factory=TorchConf)
+    planning: bool = False
     _cache: dict = field(default_factory=dict, repr=False)
+    _shuffles: list = field(default_factory=list, repr=False)
 
     def cached(self, key, build):
         """``build()``'s value, computed once per context."""
         if key not in self._cache:
             self._cache[key] = build()
         return self._cache[key]
+
+    def register_shuffle(self, transport, shuffle_id) -> None:
+        """Release ``shuffle_id``'s map outputs at :meth:`close`."""
+        self._shuffles.append((transport, shuffle_id))
+
+    def close(self) -> None:
+        for transport, shuffle_id in self._shuffles:
+            transport.release_shuffle(shuffle_id)
+        self._shuffles.clear()
+        self._cache.clear()
 
 
 class PlanNode:
@@ -89,6 +104,12 @@ class PlanNode:
         return None
 
     @property
+    def bound_exprs(self) -> list:
+        """The operator's bound expressions (its plan fingerprint reads
+        them, exec/exchange.py)."""
+        return []
+
+    @property
     def children_coalesce_goal(self) -> list:
         return [None] * len(self.children)
 
@@ -112,15 +133,20 @@ class PlanNode:
 
 def drain_partitions(ctx: ExecCtx, node: PlanNode) -> Iterator:
     """Every partition's batches in partition order (sequentially: the
-    reference's worker-pool drain waits for the partitioning slice)."""
+    reference's worker-pool drain needs the device semaphore and the
+    spill catalog, ROADMAP.md Queue 1 item 7)."""
     for pid in range(node.num_partitions(ctx)):
         yield from node.partition_iter(ctx, pid)
 
 
 def collect_device(plan: PlanNode, ctx: ExecCtx) -> list[tuple]:
     """Run the plan on ``ctx.device``; rows as python tuples (one copy to
-    the host per output batch, at the end)."""
+    the host per output batch, at the end).  The context is closed at the
+    end, so no map output outlives the query."""
     out: list[tuple] = []
-    for b in plan.execute(ctx):
-        out.extend(b.to_rows())
+    try:
+        for b in plan.execute(ctx):
+            out.extend(b.to_rows())
+    finally:
+        ctx.close()
     return out

@@ -36,6 +36,8 @@ SOURCES = {
     "join_probe": "join_probe.cu",
     "join_ids": "join_ids.cu",
     "join_expand": "join_expand.cu",
+    "hash_partition": "hash_partition.cu",
+    "partition_group": "partition_group.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -81,6 +83,13 @@ _SIGNATURES = {
         "srt_join_expand": [_P, _L, _P, _P, _P, _L, _I, _P, _P, _P],
         "srt_join_tail": [_P, _P, _L, _P, _P, _P, _P],
         "srt_join_mark": [_P, _L, _P, _P],
+    },
+    "hash_partition": {
+        "srt_hash_partition": [_P, _P, _P, _P, _P, _I, _L, _P,
+                               ctypes.c_uint, _I, _P, _P],
+    },
+    "partition_group": {
+        "srt_partition_group": [_P, _L, _I, _P, _P, _P, _P, _P, _P],
     },
 }
 

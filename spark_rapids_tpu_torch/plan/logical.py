@@ -1,6 +1,6 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``, the
 nodes the port lowers: Scan, Project, Filter, Aggregate, Join, Sort,
-Limit)."""
+Limit, Repartition)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,7 +10,7 @@ from spark_rapids_tpu_torch.exec.core import PlanNode
 from spark_rapids_tpu_torch.expr.core import Expression
 
 __all__ = ["LogicalPlan", "Scan", "Project", "Filter", "Aggregate", "Join",
-           "Sort", "Limit"]
+           "Sort", "Limit", "Repartition"]
 
 
 class LogicalPlan:
@@ -101,6 +101,21 @@ class Sort(LogicalPlan):
 @dataclass
 class Limit(LogicalPlan):
     n: int
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+
+@dataclass
+class Repartition(LogicalPlan):
+    num_partitions: int
+    keys: list  # empty = round robin
     child: LogicalPlan
 
     @property

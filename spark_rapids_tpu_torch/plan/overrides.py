@@ -1,11 +1,13 @@
 """Lowering and planning passes (port of ``spark_rapids_tpu/plan/overrides.py``).
 
 ``lower`` (:62) turns the logical plan into physical execs (joins as in
-:75-110 without the AQE exchange, which is off by default, or the mesh;
-a limit over a sort as :117-137 without the mesh TopN);
-``_lower_aggregate`` (:530) plans a
-complete aggregation (the partial/final split over an exchange waits for
-the exchange slice).  :class:`TorchOverrides` inserts
+:75-110 without the AQE shuffled-join exchange, which is off by default,
+or the mesh; a limit over a sort as :117-137 without the mesh TopN; an
+explicit repartition as :178-195).  ``_lower_aggregate`` (:530) splits a
+grouped aggregation over a multi-partition child into partial and final
+stages around a hash exchange, read through the adaptive reader when
+``spark.sql.adaptive.enabled`` is on (:538-565), and plans a complete
+aggregation otherwise.  :class:`TorchOverrides` inserts
 ``CoalesceBatchesExec`` where an operator's child goal demands it and
 renders the explain tree.  Every operator of this slice runs on the
 device, so there is no tagging or host fallback (``*`` marks each node).
@@ -14,12 +16,17 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.conf import ADAPTIVE_ENABLED, TorchConf
 from spark_rapids_tpu_torch.exec import (CoalesceBatchesExec,
                                          CrossJoinExec, FilterExec,
                                          GlobalLimitExec, HashAggregateExec,
                                          JoinExec, ProjectExec, SortExec)
 from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode, TargetSize
+from spark_rapids_tpu_torch.exec.exchange import (AdaptiveShuffleReaderExec,
+                                                  ShuffleExchangeExec)
+from spark_rapids_tpu_torch.exec.partitioning import (HashPartitioning,
+                                                      RoundRobinPartitioning)
+from spark_rapids_tpu_torch.expr.core import col
 from spark_rapids_tpu_torch.plan import logical as L
 
 __all__ = ["PlannedNode", "lower", "TorchOverrides"]
@@ -49,8 +56,8 @@ def lower(node: L.LogicalPlan, conf: TorchConf) -> PlannedNode:
     if isinstance(node, L.Aggregate):
         return _lower_aggregate(node, conf)
     if isinstance(node, L.Join):
-        lc = lower(node.left, conf)
-        rc = lower(node.right, conf)
+        lc, rc = (_aqe_join_reader(lower(c, conf), conf)
+                  for c in (node.left, node.right))
         if node.how == "cross":
             ex = CrossJoinExec(lc.exec_node, rc.exec_node, node.condition)
         else:
@@ -67,18 +74,53 @@ def lower(node: L.LogicalPlan, conf: TorchConf) -> PlannedNode:
     if isinstance(node, L.Limit):
         c = lower(node.child, conf)
         return PlannedNode(GlobalLimitExec(node.n, c.exec_node), [c])
+    if isinstance(node, L.Repartition):
+        c = lower(node.child, conf)
+        part = HashPartitioning(node.keys, node.num_partitions) \
+            if node.keys else RoundRobinPartitioning(node.num_partitions)
+        ex = ShuffleExchangeExec(part, c.exec_node)
+        # an explicit repartition(n) keeps its n partitions: the map side
+        # never coalesces it (Spark's REPARTITION_BY_NUM contract)
+        ex._no_map_coalesce = True
+        return PlannedNode(ex, [c])
     raise NotImplementedError(
         f"{type(node).__name__} is not ported yet (ROADMAP.md Queue 1)")
 
 
+def _aqe_join_reader(c: PlannedNode, conf: TorchConf) -> PlannedNode:
+    """A join side that is an explicit repartition reads its exchange
+    through a split-only adaptive reader (reference :305-327): a skewed
+    partition may fan out, the user's partition count is never reduced."""
+    if not conf.get(ADAPTIVE_ENABLED) or \
+            not isinstance(c.exec_node, ShuffleExchangeExec):
+        return c
+    reader = AdaptiveShuffleReaderExec(c.exec_node, allow_skew_split=True,
+                                       allow_coalesce=False)
+    return PlannedNode(reader, [c])
+
+
 def _lower_aggregate(node: L.Aggregate, conf: TorchConf) -> PlannedNode:
     c = lower(node.child, conf)
-    nparts = c.exec_node.num_partitions(ExecCtx(device="cpu", conf=conf))
-    if node.group_exprs and nparts > 1:
-        raise NotImplementedError(
-            "a grouped aggregate over a multi-partition child plans a "
-            "partial/final split over an exchange, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
+    # holistic aggregates (percentile) have no mergeable intermediate:
+    # they keep the whole-input complete aggregation
+    holistic = any(getattr(sub, "requires_complete", False)
+                   for e in node.agg_exprs for sub in e.walk())
+    nparts = c.exec_node.num_partitions(
+        ExecCtx(device="cpu", conf=conf, planning=True))
+    if node.group_exprs and nparts > 1 and not holistic:
+        partial = HashAggregateExec(node.group_exprs, node.agg_exprs,
+                                    c.exec_node, mode="partial")
+        pmeta = PlannedNode(partial, [c])
+        group_cols = [col(n) for n in partial._group_names]
+        shuffle = ShuffleExchangeExec(
+            HashPartitioning(group_cols, conf.shuffle_partitions), partial)
+        smeta = PlannedNode(shuffle, [pmeta])
+        agg_child = shuffle
+        if conf.get(ADAPTIVE_ENABLED):
+            agg_child = AdaptiveShuffleReaderExec(shuffle)
+            smeta = PlannedNode(agg_child, [smeta])
+        final = HashAggregateExec.final_from_partial(partial, agg_child)
+        return PlannedNode(final, [smeta])
     ex = HashAggregateExec(node.group_exprs, node.agg_exprs, c.exec_node,
                            mode="complete")
     return PlannedNode(ex, [c])

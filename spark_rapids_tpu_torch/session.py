@@ -5,8 +5,9 @@
 versions on the CPU (the tests do this).  The DataFrame methods are the
 ones TPC-H q1 and TPC-DS q6 use -- ``read_parquet``, ``select``,
 ``where``, ``join``, ``group_by().agg()``, ``order_by``, ``limit``,
-``collect``, ``explain``.  Admission, cancellation, the result cache and
-the serving planes wait for later slices.
+``collect``, ``explain`` -- and ``repartition``.  Admission,
+cancellation, the result cache and the serving planes wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -86,6 +87,13 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._s, L.Limit(n, self._plan))
+
+    def repartition(self, num_partitions: int, *keys) -> "DataFrame":
+        """Hash-repartition on ``keys`` into ``num_partitions`` (a shuffle
+        exchange the adaptive layer never coalesces)."""
+        return DataFrame(self._s, L.Repartition(
+            num_partitions, [self._col_or_expr(k) for k in keys],
+            self._plan))
 
     # -- actions --------------------------------------------------------
     def collect(self) -> list[tuple]:

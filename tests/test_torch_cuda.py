@@ -265,3 +265,83 @@ def test_tpcds_queries_on_cuda_match_cpu(dev, tmp_path):
         assert after[0] > before[0] and after[2] > before[2], name
         if name == "q6":
             assert len(got) == 51 and after[1] > before[1]
+
+
+# ---------------------------------------------------------------------------
+# shuffle kernels K9 (murmur3 partition ids) and K10 (partition grouping)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("keys", [[0], [1], [2], [3], [4], [5], [6],
+                                  [1, 0], [0, 2, 3, 5, 6, 4, 1]])
+@pytest.mark.parametrize("num_parts", [1, 8, 200])
+def test_partition_ids_match_plain(dev, keys, num_parts):
+    from spark_rapids_tpu_torch.ops import partition as P
+    rng = np.random.default_rng(47)
+    pb = ColumnBatch.from_arrow(_record_batch(rng, 30_011), dev)
+    before = P.partition_ids_for_keys.launches
+    got = P.partition_ids_for_keys(pb, keys, num_parts)
+    assert P.partition_ids_for_keys.launches == before + 1
+    want = P.partition_ids_plain([pb.columns[k] for k in keys],
+                                 pb.num_rows, num_parts)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_murmur3_columns_match_plain(dev):
+    """Hash bits (the Murmur3Hash expression), more keys than one launch
+    folds, and Spark's constants."""
+    from spark_rapids_tpu_torch.ops import partition as P
+    rng = np.random.default_rng(53)
+    pb = ColumnBatch.from_arrow(_record_batch(rng, 9_001), dev)
+    cols = list(pb.columns) * 3  # 21 keys: two chained launches
+    got = P.murmur3_columns(cols, pb.num_rows, dev)
+    want = P.to_int32(P._hash_plain(cols, pb.num_rows, dev, 42))
+    assert torch.equal(got, want)
+    for arr, spark in ((pa.array([1], type=pa.int32()), -559580957),
+                       (pa.array([1], type=pa.int64()), -1712319331),
+                       (pa.array(["abc"]), 1322437556)):
+        one = ColumnBatch.from_arrow(
+            pa.RecordBatch.from_arrays([arr], names=["k"]), dev)
+        assert int(P.murmur3_columns(one.columns, 1, dev)[0]) == spark
+
+
+@pytest.mark.parametrize("num_parts", [1, 8, 200, 5000])
+@pytest.mark.parametrize("shape", ["uniform", "skewed", "empty"])
+def test_group_by_part_matches_plain(dev, num_parts, shape):
+    from spark_rapids_tpu_torch.ops import partition as P
+    rng = np.random.default_rng(59)
+    n = 0 if shape == "empty" else 70_001
+    pb = ColumnBatch.from_arrow(_record_batch(rng, n), dev)
+    ids = rng.integers(0, num_parts, n)
+    if shape == "skewed":
+        ids[rng.random(n) < 0.9] = num_parts - 1
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    before = P.group_by_part.launches
+    got, counts, starts = P.group_by_part(pb, ids, num_parts)
+    assert P.group_by_part.launches == before + 1
+    want, wcounts, wstarts = P.group_by_part_plain(pb, ids, num_parts)
+    assert torch.equal(counts, wcounts) and torch.equal(starts, wstarts)
+    for a, b in zip(got.columns, want.columns):
+        _same(a, b)
+
+
+def test_exchange_paths_on_cuda_match_cpu(dev, tmp_path):
+    """q6 in a multi-file layout with the adaptive layer on (map side
+    coalesced: K9/K10 do not run) and off (they run), and the
+    repartition query (they run once per map batch)."""
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
+                                                            top_customers)
+    from spark_rapids_tpu_torch.ops import partition as P
+    d = str(tmp_path / "tpcds")
+    tpcds_gen.generate_tpcds(d, sf=0.1, rows_per_file=1 << 15)
+    q6 = TPCDS_QUERIES["q6"][0]
+    cases = [("q6 aqe on", q6, {}, False),
+             ("q6 aqe off", q6, {"spark.sql.adaptive.enabled": False}, True),
+             ("top_customers", top_customers, {}, True)]
+    for what, q, conf, runs in cases:
+        before = (P.partition_ids_for_keys.launches, P.group_by_part.launches)
+        got = q(TorchSession(conf), d).collect()
+        after = (P.partition_ids_for_keys.launches, P.group_by_part.launches)
+        assert got == q(TorchSession(conf, device="cpu"), d).collect(), what
+        ran = [a - b for a, b in zip(after, before)]
+        assert (ran[0] > 0 and ran[1] > 0) if runs else ran == [0, 0], what
