@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    all started together) and print the build seconds and ptxas reports;
 3. per kernel (K1 sort, K2 compact, K3 gather, K4 segmented aggregate;
    K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
-   phase 6): seeded inputs
+   phase 6; K12a window segment extents, K12b window frame aggregates in
+   phase 7): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -36,7 +37,17 @@ Phases (any failure exits non-zero; no phase's error is caught):
    (K9 and K10 once per map batch); each cold + warm, checked against
    numpy/pyarrow, with its peak device memory, which must not grow from
    the first warm run to the last;
-7. print the kernel table as one JSON line (launches per path), the card
+7. the window kernels: K12a and K12b held against their plain versions
+   at q51's final-window shape (5.1M rows: int32 items, date order keys,
+   f64 cumulative sales with nulls) and on a 2^24-row stress batch (NaN,
+   -0.0, +-inf, nulls, all-null partitions, one giant partition and many
+   one-row partitions) over every frame K12b serves, ROWS and RANGE;
+   row_number, rank, dense_rank and lead/lag on the card against the CPU;
+   then TPC-DS q51 (per-channel running sums, a full outer join, two
+   running maxima) and q63 (a whole-partition average) at SF10 over the
+   default layout, each cold + warm, checked against numpy/pyarrow, with
+   every exchange's map-side bytes;
+8. print the kernel table as one JSON line (launches per path), the card
    line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -643,6 +654,7 @@ def _counters() -> dict:
     from spark_rapids_tpu_torch.ops import partition as P
     from spark_rapids_tpu_torch.ops import segmented as G
     from spark_rapids_tpu_torch.ops import sort as S
+    from spark_rapids_tpu_torch.ops import window as W
     return {"sort_permutation": {"sort_permutation": S.sort_permutation},
             "compact": {"compact": K.compact},
             "gather_columns": {"gather_columns": K.gather_columns},
@@ -657,7 +669,10 @@ def _counters() -> dict:
             "partition_ids_for_keys": {
                 "partition_ids_for_keys": P.partition_ids_for_keys,
                 "murmur3_columns": P.murmur3_columns},
-            "group_by_part": {"group_by_part": P.group_by_part}}
+            "group_by_part": {"group_by_part": P.group_by_part},
+            "sorted_segments": {"sorted_segments": W.sorted_segments},
+            "running_or_bounded_agg": {
+                "running_or_bounded_agg": W.running_or_bounded_agg}}
 
 
 _Q1_ENTRIES = ("sort_permutation", "compact", "gather_columns",
@@ -1234,6 +1249,517 @@ def run_exchange_paths(torch, warm: int) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# window kernels (K12a segment extents, K12b frame aggregates)
+# ---------------------------------------------------------------------------
+
+#: rows of q51's final windows at SF10: the full outer join of ~1.15M web
+#: and ~4.2M store (item, date) groups, measured by the q51 path
+Q51_WINDOW_ROWS = 5_100_000
+#: rows of the K12 stress batch
+WINDOW_CHECK_ROWS = 1 << 24
+#: frames K12b serves: (mode, lower, upper); min/max only those whose
+#: lower edge is the partition start
+_K12_FRAMES = [("rows", None, 0), ("rows", None, None), ("rows", -3, 2),
+               ("rows", 2, 5), ("rows", None, 3), ("rows", -2, None),
+               ("rows", None, -1), ("range", None, 0), ("range", 0, 0),
+               ("range", 0, None), ("range", None, None)]
+
+
+def _arrow_batch(torch, dev, arrays: dict):
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    rb = pa.RecordBatch.from_arrays(list(arrays.values()),
+                                    names=list(arrays))
+    return ColumnBatch.from_arrow(rb, dev)
+
+
+def _q51_window_batch(torch, rng, dev, n: int):
+    """q51's final window input, sorted by (item, date): int32 item keys
+    (56,920 items), one row per (item, date) of 366 days of 2000, and the
+    two channels' cumulative sales (f64, null where the channel sold
+    nothing that day: ~78% of web, ~18% of store)."""
+    import pyarrow as pa
+    days = 366
+    keys = np.sort(rng.choice(56_920 * days, n, replace=False))
+    web = np.round(rng.random(n) * 5e4, 2)
+    store = np.round(rng.random(n) * 2e5, 2)
+    return _arrow_batch(torch, dev, {
+        "item_sk": pa.array((keys // days + 1).astype(np.int32)),
+        "d_date": pa.array((keys % days + 10957).astype(np.int32))
+        .cast(pa.date32()),
+        "web_sales": pa.array(web, mask=rng.random(n) < 0.78),
+        "store_sales": pa.array(store, mask=rng.random(n) < 0.18)})
+
+
+def _stress_window_batch(torch, rng, dev, n: int):
+    """Sorted by (k nulls first, o): one partition of 40% of the rows,
+    30% one-row partitions, the rest ~100-row partitions and a null
+    partition; order keys with peers, NaN, -0.0 and nulls; f64 values
+    with NaN, -0.0, +-inf and nulls, every value null in the partitions
+    whose key is a multiple of 17; int64 values with nulls."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_batch
+    giant, ones = int(n * 0.4), int(n * 0.3)
+    rest = n - giant - ones
+    k = np.concatenate([np.zeros(giant, np.int64),
+                        np.arange(1, ones + 1, dtype=np.int64),
+                        ones + 1 + rng.integers(0, max(rest // 100, 1),
+                                                rest)])
+    k_null = rng.random(n) < 0.01
+    o = rng.choice(np.array([-1.5, -0.0, 0.0, 2.0, np.nan, 7.0, 1e300]), n) \
+        * rng.integers(1, 50, n)
+    v = np.round(rng.normal(size=n) * 100, 2)
+    special = rng.random(n) < 0.01
+    v[special] = rng.choice([np.nan, np.inf, -np.inf, -0.0], special.sum())
+    v_null = (rng.random(n) < 0.1) | ((k % 17) == 0)
+    b = _arrow_batch(torch, dev, {
+        "k": pa.array(k, mask=k_null),
+        "o": pa.array(o, mask=rng.random(n) < 0.05),
+        "v": pa.array(v, mask=v_null),
+        "i": pa.array(rng.integers(-10**12, 10**12, n),
+                      mask=rng.random(n) < 0.1)})
+    return sort_batch(b, [SortOrder(0, True, True), SortOrder(1, True)])
+
+
+def _segments_equal(torch, got, want, what: str) -> None:
+    for f in ("seg_start", "seg_end", "peer_start", "peer_end", "seg_id",
+              "order_rank"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"K12a {what}: {f} differs from the plain "
+                                 "version")
+
+
+def check_window_segments(torch, dev, rng) -> dict:
+    """K12a against its plain version over the same K4 boundary flags, at
+    q51's final-window shape and on the 2^24-row stress batch; timed at
+    q51's shape (the flags apart: K4's pass makes them)."""
+    from spark_rapids_tpu_torch.ops import window as W
+    stress = _stress_window_batch(torch, rng, dev, WINDOW_CHECK_ROWS)
+    for part, order in (((0,), (1,)), ((0,), ()), ((), (1,)), ((), ())):
+        flags = W._boundary_flags(stress, part, order)
+        _segments_equal(torch, W.sorted_segments(stress, part, order),
+                        W.segment_extents_plain(*flags),
+                        f"stress part={part} order={order}")
+    del stress, flags
+    n = Q51_WINDOW_ROWS
+    b = _q51_window_batch(torch, rng, dev, n)
+    part, order = W._boundary_flags(b, (0,), (1,))
+    _segments_equal(torch, W.sorted_segments(b, (0,), (1,)),
+                    W.segment_extents_plain(part, order), "q51 shape")
+    ms = _time_ms(torch, lambda: W._segment_extents_cuda(part, order),
+                  reps=20)
+    plain_ms = _time_ms(torch, lambda: W.segment_extents_plain(part, order))
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    lib_ms = _time_ms(torch, lambda: torch.cummax(
+        torch.where(part.bool(), idx, 0), 0), reps=20)
+    nbytes = 2 * n + 6 * 4 * n  # two flag bytes in, six int32 out a row
+    print(f"[K12a window segments] checked 2^24 stress rows (one 40% "
+          f"partition, 30% one-row partitions, nulls, NaN/-0.0 order keys) "
+          f"with and without partition and order keys, and q51's shape: "
+          f"equal; timed rows={n} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} (torch.cummax over flag*idx: the "
+          f"partition starts alone) bound_ms={_bound_ms(nbytes):.4f}",
+          flush=True)
+    return dict(name="sorted_segments", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/window_segments.cu",
+                replaces="spark_rapids_tpu/ops/window.py:72",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+def _check_window_agg(torch, W, op, col, seg, frame, what: str) -> float:
+    """K12b against its plain version on one column and frame; returns
+    the largest |difference| over the valid finite rows."""
+    got = W.running_or_bounded_agg(op, col, seg, frame)
+    want = W.running_or_bounded_agg_plain(op, col, seg, frame)
+    (gd, gv, gt), (wd, wv, wt) = got, want
+    if gt != wt or not torch.equal(gv, wv):
+        raise AssertionError(f"K12b {what}: validity or type differs")
+    if not gd.dtype.is_floating_point:
+        if not torch.equal(gd, wd):
+            raise AssertionError(f"K12b {what}: differs")
+        return 0.0
+    same_nan = torch.isnan(gd) == torch.isnan(wd)
+    fin = torch.isfinite(wd)
+    if not bool(same_nan.all()) or not torch.equal(gd[~fin & ~torch.isnan(wd)],
+                                                   wd[~fin & ~torch.isnan(wd)]):
+        raise AssertionError(f"K12b {what}: NaN/inf differ")
+    diff = (gd[fin] - wd[fin]).abs()
+    # min/max pick an input; avg over integers divides the same exact
+    # int64 sum by the same count on both sides
+    if op in ("min", "max") or col.dtype.integral:
+        if diff.numel() and float(diff.max()) != 0.0:
+            raise AssertionError(f"K12b {what}: differs")
+        return 0.0
+    # float sum/avg: the kernel folds each partition on its own; the plain
+    # version differences prefix sums over the whole batch, off by up to a
+    # few ulps of the running total
+    x = col.data.double()
+    atol = 8 * torch.finfo(torch.float64).eps * float(
+        torch.where(torch.isfinite(x) & col.validity, x.abs(), 0.0).sum())
+    tol = F64_RTOL * wd[fin].abs() + atol
+    if diff.numel() and bool((diff > tol).any()):
+        raise AssertionError(f"K12b {what}: beyond rtol {F64_RTOL} + "
+                             f"atol {atol:.3e}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_window_agg(torch, dev, rng) -> dict:
+    """K12b against its plain version for every op and every frame it
+    serves, ROWS and RANGE, on the 2^24-row stress batch; timed at q51's
+    final-window shape (the running max of the web channel); min/max
+    with a bounded lower edge must raise on the card."""
+    from spark_rapids_tpu_torch.ops import window as W
+    stress = _stress_window_batch(torch, rng, dev, WINDOW_CHECK_ROWS)
+    seg = W.sorted_segments(stress, (0,), (1,))
+    err = 0.0
+    checked = 0
+    for mode, lo, hi in _K12_FRAMES:
+        fr = W.WindowFrame(mode, lo, hi)
+        for op, cols in (("sum", (2, 3)), ("count", (2,)), ("avg", (2, 3)),
+                         ("min", (1, 2, 3)), ("max", (1, 2, 3))):
+            for ci in cols:
+                what = f"{op} col {ci} {mode}({lo}, {hi})"
+                if op in ("min", "max") and lo is not None:
+                    try:
+                        W.running_or_bounded_agg(op, stress.columns[ci], seg,
+                                                 fr)
+                    except NotImplementedError as e:
+                        if "K12" not in str(e):
+                            raise
+                        continue
+                    raise AssertionError(f"K12b {what}: did not raise")
+                err = max(err, _check_window_agg(
+                    torch, W, op, stress.columns[ci], seg, fr, what))
+                checked += 1
+    del stress, seg
+    n = Q51_WINDOW_ROWS
+    b = _q51_window_batch(torch, rng, dev, n)
+    seg = W.sorted_segments(b, (0,), (1,))
+    cum = W.WindowFrame("rows", None, 0)
+    for op, ci in (("max", 2), ("max", 3), ("sum", 2), ("sum", 3)):
+        err = max(err, _check_window_agg(torch, W, op, b.columns[ci], seg,
+                                         cum, f"q51 {op} col {ci}"))
+    web = b.columns[2]
+    ms = _time_ms(torch, lambda: W.running_or_bounded_agg("max", web, seg,
+                                                          cum), reps=20)
+    plain_ms = _time_ms(torch, lambda: W.running_or_bounded_agg_plain(
+        "max", web, seg, cum))
+    sum_ms = _time_ms(torch, lambda: W.running_or_bounded_agg(
+        "sum", web, seg, cum), reps=20)
+    x = torch.where(web.validity, web.data, 0.0)
+    lo = seg.seg_start.long()
+
+    def cumsum_diff():
+        ps = torch.cumsum(x, 0)
+        return ps - torch.where(lo > 0, ps[(lo - 1).clamp(min=0)], 0.0)
+
+    cumsum_ms = _time_ms(torch, cumsum_diff, reps=20)
+    # the running frame needs value + validity + partition start read
+    # (lo is the partition start, hi the row itself) and result +
+    # validity written
+    nbytes = n * (8 + 1 + 4) + n * (8 + 1)
+    print(f"[K12b window agg] checked {checked} (op, column, frame) cases "
+          f"on 2^24 stress rows over {len(_K12_FRAMES)} ROWS/RANGE frames "
+          f"(bounded-lower min/max raise) and q51's running max/sum: equal "
+          f"(float sums and avgs within rtol {F64_RTOL} plus 8 ulps of the "
+          f"sum of magnitudes, the rest exactly), max_abs_err={err:.3e}; timed rows={n} running "
+          f"max ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no "
+          f"PyTorch call computes a segmented running max) bound_ms="
+          f"{_bound_ms(nbytes):.4f}; running sum ms={sum_ms:.4f} against "
+          f"torch.cumsum plus index differences {cumsum_ms:.4f}", flush=True)
+    return dict(name="running_or_bounded_agg", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/window_agg.cu",
+                replaces="spark_rapids_tpu/ops/window.py:164",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=None)
+
+
+def check_window_glue(torch, dev, rng) -> None:
+    """row_number, rank, dense_rank and lead/lag (K3's gather, with and
+    without a default, over a string and a double column) on the card
+    against the same functions over CPU copies of the same rows."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import window as W
+    from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_batch
+    n = 1 << 20
+    words = np.array(["", "a", "CA", "héllo", "a longer word"], dtype=object)
+    b = sort_batch(_arrow_batch(torch, dev, {
+        "k": pa.array(rng.integers(0, 5000, n).astype(np.int32),
+                      mask=rng.random(n) < 0.01),
+        "o": pa.array(rng.integers(0, 40, n).astype(np.int32),
+                      mask=rng.random(n) < 0.05),
+        "s": pa.array(list(words[rng.integers(0, len(words), n)]),
+                      type=pa.string(), mask=rng.random(n) < 0.1),
+        "d": pa.array(rng.normal(size=n), mask=rng.random(n) < 0.1)}),
+        [SortOrder(0, True, True), SortOrder(1, True)])
+    seg = W.sorted_segments(b, (0,), (1,))
+    cpu = W.SegmentInfo(*[t.cpu() for t in vars(seg).values()])
+    for fn in (W.row_number, W.rank, W.dense_rank):
+        if not torch.equal(fn(seg).cpu(), fn(cpu)):
+            raise AssertionError(f"{fn.__name__} differs on the card")
+    for ci, default in ((2, "a default longer than the rows"), (3, 7.5)):
+        c = b.columns[ci]
+        cc = DeviceColumn(c.data.cpu(), c.validity.cpu(), c.dtype,
+                          None if c.lengths is None else c.lengths.cpu())
+        for off in (-2, 1):
+            for with_default in (False, True):
+                args = []
+                if with_default and c.is_string:
+                    bs = np.frombuffer(default.encode(), np.uint8)
+                    row = np.zeros(32, np.uint8)
+                    row[:len(bs)] = bs
+                    args = [torch.from_numpy(row).expand(n, 32),
+                            torch.ones(n, dtype=torch.bool),
+                            torch.full((n,), len(bs), dtype=torch.int32)]
+                elif with_default:
+                    args = [torch.full((n,), default, dtype=torch.float64),
+                            torch.ones(n, dtype=torch.bool), None]
+                want = W.lead_lag(cc, cpu, off, *args)
+                got = W.lead_lag(c, seg, off, *[None if a is None else
+                                                a.to(dev) for a in args])
+                for g, w in zip(got, want):
+                    if (g is None) != (w is None) or (
+                            g is not None and not torch.equal(
+                                g.cpu().view(torch.uint8)
+                                if g.dtype == torch.float64 else g.cpu(),
+                                w.view(torch.uint8)
+                                if w.dtype == torch.float64 else w)):
+                        raise AssertionError(f"lead_lag col {ci} offset "
+                                             f"{off} differs on the card")
+    print(f"[K12 ranking, lead/lag] rows={n}: row_number, rank, dense_rank "
+          "and lead/lag (string and double, offsets -2 and 1, with and "
+          "without defaults) equal their CPU results", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the window paths (q51, q63) over the default multi-file layout
+# ---------------------------------------------------------------------------
+
+def _dates_of_year_2000(data_dir: str):
+    """(d_date_sk, d_date as days since 1970) of d_month_seq 1200..1211."""
+    import pyarrow.parquet as pq
+    dd = pq.read_table(os.path.join(data_dir, "date_dim"),
+                       columns=["d_date_sk", "d_date", "d_month_seq",
+                                "d_qoy"])
+    seq, _ = _arrow_col(dd, "d_month_seq")
+    keep = (seq >= 1200) & (seq <= 1211)
+    sk, _ = _arrow_col(dd, "d_date_sk")
+    date = dd.column("d_date").combine_chunks().cast("int32") \
+        .to_numpy(zero_copy_only=False)
+    qoy, _ = _arrow_col(dd, "d_qoy")
+    return sk[keep], date[keep], qoy[keep]
+
+
+def _day_sales(data_dir: str, table: str, pre: str, date_sk, date_day):
+    """Per (item, date) sums of one channel's sales price in 2000, sorted
+    by (item, date): (item, day, sum)."""
+    import pyarrow.parquet as pq
+    t = pq.read_table(os.path.join(data_dir, table),
+                      columns=[f"{pre}_item_sk", f"{pre}_sold_date_sk",
+                               f"{pre}_sales_price"])
+    item, item_valid = _arrow_col(t, f"{pre}_item_sk")
+    sold, sold_valid = _arrow_col(t, f"{pre}_sold_date_sk")
+    price, price_valid = _arrow_col(t, f"{pre}_sales_price")
+    row = _lookup(date_sk, sold)
+    keep = item_valid & sold_valid & (row >= 0)
+    key = item[keep].astype(np.int64) * 100_000 + date_day[row[keep]]
+    uniq, inv = np.unique(key, return_inverse=True)
+    p = np.where(price_valid[keep], price[keep], 0.0).astype(np.longdouble)
+    sums = np.zeros(len(uniq), np.longdouble)
+    np.add.at(sums, inv, p)
+    return uniq // 100_000, uniq % 100_000, sums
+
+
+def _cume(items, sums):
+    """Running sum per item over rows sorted by (item, date), in extended
+    precision."""
+    c = np.cumsum(sums)
+    start = np.r_[True, items[1:] != items[:-1]]
+    first = np.maximum.accumulate(np.where(start, np.arange(len(c)), 0))
+    return (c - (c - sums)[first]).astype(np.float64)
+
+
+def _running_max(items, vals, valid):
+    """Running max per item, nulls skipped (None until the first value)."""
+    out = np.full(len(vals), -np.inf)
+    start = np.flatnonzero(np.r_[True, items[1:] != items[:-1]])
+    ends = np.r_[start[1:], len(vals)]
+    x = np.where(valid, vals, -np.inf)
+    for a, b in zip(start, ends):
+        out[a:b] = np.maximum.accumulate(x[a:b])
+    return out, out > -np.inf
+
+
+def reference_q51(data_dir: str) -> tuple:
+    """q51 over the parquet with numpy/pyarrow alone: (rows, {window:
+    input rows}, closeness) where closeness counts, among the rows that
+    decide the first 100 results, the comparisons web > store whose
+    relative gap is below 10 * F64_RTOL but not 0 (the doubles' rounding
+    could flip them) and the exact ties (never greater), and gives the
+    smallest nonzero gap."""
+    sk, day, _qoy = _dates_of_year_2000(data_dir)
+    chans = []
+    for table, pre in (("web_sales", "ws"), ("store_sales", "ss")):
+        items, days, sums = _day_sales(data_dir, table, pre, sk, day)
+        chans.append((items * 100_000 + days, _cume(items, sums)))
+    (wk, wc), (sk_, sc) = chans
+    keys = np.union1d(wk, sk_)
+    web = np.zeros(len(keys))
+    web_valid = np.isin(keys, wk)
+    web[web_valid] = wc
+    store = np.zeros(len(keys))
+    store_valid = np.isin(keys, sk_)
+    store[store_valid] = sc
+    items = keys // 100_000
+    wmax, wmax_valid = _running_max(items, web, web_valid)
+    smax, smax_valid = _running_max(items, store, store_valid)
+    both = wmax_valid & smax_valid
+    hit = np.flatnonzero(both & (wmax > smax))[:100]
+    decide = both & (np.arange(len(keys)) <= (hit[-1] if hit.size else -1))
+    gap = np.abs(wmax - smax)[decide] / np.maximum(
+        np.abs(wmax), np.abs(smax))[decide]
+    close = {"near": int(((gap > 0) & (gap < 10 * F64_RTOL)).sum()),
+             "ties": int((gap == 0).sum()),
+             "min_gap": float(gap[gap > 0].min()) if (gap > 0).any()
+             else None}
+    epoch = _dt.date(1970, 1, 1)
+    rows = [(int(items[i]), epoch + _dt.timedelta(days=int(keys[i] % 100_000)),
+             float(web[i]) if web_valid[i] else None,
+             float(store[i]) if store_valid[i] else None,
+             float(wmax[i]), float(smax[i])) for i in hit]
+    sizes = {"web window": len(wk), "store window": len(sk_),
+             "final windows": len(keys)}
+    return rows, sizes, close
+
+
+def reference_q63(data_dir: str) -> tuple:
+    """q63 over the parquet with numpy/pyarrow alone: (rows, the smallest
+    distance of |sum - avg| / avg from the 0.1 line)."""
+    import pyarrow.parquet as pq
+    sk, _day, qoy = _dates_of_year_2000(data_dir)
+    it = pq.read_table(os.path.join(data_dir, "item"),
+                       columns=["i_item_sk", "i_manager_id", "i_class"])
+    isk, _ = _arrow_col(it, "i_item_sk")
+    mgr, _ = _arrow_col(it, "i_manager_id")
+    cls = it.column("i_class").combine_chunks()
+    cls_ok = np.isin(np.array(cls.fill_null("").to_pylist(), dtype=object),
+                     ["accent", "dresses", "fiction", "shirts"]) & \
+        cls.is_valid().to_numpy(zero_copy_only=False)
+    st = pq.read_table(os.path.join(data_dir, "store"),
+                       columns=["s_store_sk"])
+    stores, _ = _arrow_col(st, "s_store_sk")
+    ss = pq.read_table(os.path.join(data_dir, "store_sales"),
+                       columns=["ss_sold_date_sk", "ss_item_sk",
+                                "ss_store_sk", "ss_sales_price"])
+    sold, sold_valid = _arrow_col(ss, "ss_sold_date_sk")
+    item, item_valid = _arrow_col(ss, "ss_item_sk")
+    store, store_valid = _arrow_col(ss, "ss_store_sk")
+    price, price_valid = _arrow_col(ss, "ss_sales_price")
+    drow = _lookup(sk, sold)
+    irow = _lookup(isk, item)
+    keep = sold_valid & (drow >= 0) & item_valid & (irow >= 0) & \
+        store_valid & np.isin(store, stores)
+    keep[keep] &= cls_ok[irow[keep]]
+    key = mgr[irow[keep]].astype(np.int64) * 10 + qoy[drow[keep]]
+    uniq, inv = np.unique(key, return_inverse=True)
+    sums = np.zeros(len(uniq), np.longdouble)
+    np.add.at(sums, inv, np.where(price_valid[keep], price[keep],
+                                  0.0).astype(np.longdouble))
+    m = uniq // 10
+    rows, gaps = [], []
+    for g in np.unique(m):
+        sel = np.flatnonzero(m == g)
+        avg = float(np.sum(sums[sel]) / len(sel))
+        for i in sel:
+            s = float(sums[i])
+            if avg > 0:
+                rel = abs(s - avg) / avg
+                gaps.append(abs(rel - 0.1))
+                if rel > 0.1:
+                    rows.append((int(g), int(uniq[i] % 10), s, avg))
+    rows.sort(key=lambda r: (r[0], r[3], r[2]))
+    return rows[:100], min(gaps) if gaps else 1.0
+
+
+def _check_window_rows(label: str, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, expected "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(a, float) and isinstance(b, float):
+                ok = abs(a - b) <= F64_RTOL * abs(b)
+            else:
+                ok = a == b
+            if not ok:
+                raise AssertionError(f"{label} row {g} != {w} (doubles "
+                                     f"rtol {F64_RTOL})")
+
+
+_WINDOW_ENTRIES = ("sorted_segments", "running_or_bounded_agg")
+
+
+def run_window_paths(torch, warm: int) -> dict:
+    """q51 and q63 over the generator's default layout at SF10;
+    {path: launches}."""
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    from spark_rapids_tpu_torch.conf import ADVISORY_PARTITION_BYTES
+    data_dir = os.path.join(ROOT, ".bench_data",
+                            f"tpcds_sf{Q6_SF:g}_seed42_default")
+    tables = sorted(set(TPCDS_QUERIES["q51"][1]) | set(
+        TPCDS_QUERIES["q63"][1]))
+    t0 = time.perf_counter()
+    tpcds_gen.generate_tpcds(data_dir, sf=Q6_SF, seed=42, tables=tables,
+                             rows_per_file=DEFAULT_ROWS_PER_FILE)
+    print(f"[window] TPC-DS SF{Q6_SF:g} {tables} ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    want51, sizes51, close51 = reference_q51(data_dir)
+    want63, gap63 = reference_q63(data_dir)
+    print(f"[window] numpy/pyarrow references in "
+          f"{time.perf_counter() - t0:.1f} s: q51's window input rows "
+          f"{sizes51}; among the rows deciding its 100 results, web > "
+          f"store comparisons {close51}; q63's closest |sum - avg| / avg "
+          f"is {gap63:.3e} from 0.1", flush=True)
+    if close51["near"] or gap63 <= 10 * F64_RTOL:
+        raise AssertionError("a q51 or q63 row lies within the comparison "
+                             "tolerance of its filter")
+    session = _cuda_session()
+    q51, q63 = TPCDS_QUERIES["q51"][0], TPCDS_QUERIES["q63"][0]
+    explain = q51(session, data_dir).explain()
+    if explain.count("WindowExec") != 4 or "JoinExec[full" not in explain:
+        raise AssertionError("q51 planned no full outer join between four "
+                             "WindowExecs")
+    paths = {}
+    paths["q51"] = _drive(
+        torch, "q51", lambda: q51(session, data_dir),
+        lambda r: _check_window_rows("q51", r, want51),
+        _Q6_ENTRIES + _SHUFFLE_ENTRIES + _WINDOW_ENTRIES, warm,
+        ("murmur3_columns",))
+    paths["q63"] = _drive(
+        torch, "q63", lambda: q63(session, data_dir),
+        lambda r: _check_window_rows("q63", r, want63),
+        _Q6_ENTRIES + _SHUFFLE_ENTRIES + _WINDOW_ENTRIES, warm,
+        ("matched_build_rows", "murmur3_columns", "key_ids"),
+        zero=("partition_ids_for_keys", "group_by_part"))
+    advisory = ADVISORY_PARTITION_BYTES.get(session.conf.settings)
+    for label, q in (("q51", q51), ("q63", q63)):
+        for desc, sizes in _map_side_bytes(torch, q(session, data_dir)):
+            total = sum(sizes.values())
+            how = "coalesced into partition 0, K9/K10 not run" \
+                if total <= advisory else "hashed (K9) and grouped (K10)"
+            print(f"[{label} exchange] {desc}: map side {total} bytes "
+                  f"(advisory {advisory}), {how}; by partition {sizes}",
+                  flush=True)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -1278,11 +1804,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     entries["group_by_part"] = check_group_by_part(torch, dev, rng)
     torch.cuda.empty_cache()
+    entries["sorted_segments"] = check_window_segments(torch, dev, rng)
+    torch.cuda.empty_cache()
+    entries["running_or_bounded_agg"] = check_window_agg(torch, dev, rng)
+    torch.cuda.empty_cache()
+    check_window_glue(torch, dev, rng)
+    torch.cuda.empty_cache()
     paths = {"q1": run_q1(torch, args.sf, args.warm)}
     torch.cuda.empty_cache()
     paths["q6_onefile"] = run_q6(torch, args.warm)
     torch.cuda.empty_cache()
     paths.update(run_exchange_paths(torch, args.warm))
+    torch.cuda.empty_cache()
+    paths.update(run_window_paths(torch, args.warm))
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

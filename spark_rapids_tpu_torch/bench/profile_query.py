@@ -1,14 +1,15 @@
-"""Where a query's time goes on the card: TPC-H q1, TPC-DS q6 or the
-``top_customers`` repartition.
+"""Where a query's time goes on the card: TPC-H q1, TPC-DS q6, q51 or
+q63, or the ``top_customers`` repartition.
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
-``bench/tpch_gen.py`` (q1: lineitem) or ``bench/tpcds_gen.py`` (q6 and
-repartition: q6's five tables), reused when present, then:
+``bench/tpch_gen.py`` (q1: lineitem) or ``bench/tpcds_gen.py`` (the
+TPC-DS query's tables), reused when present, then:
 
 * times a cold and a warm run (host clock, ending in a device
   synchronise);
 * times the largest parquet scan alone (host decode + pinned upload),
-  draining the planned tree's leftmost scan node (lineitem; store_sales);
+  draining the planned tree's scan of the fact table (lineitem;
+  store_sales);
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
   the run and the kernels that take most of it.
@@ -16,8 +17,9 @@ repartition: q6's five tables), reused when present, then:
 ``--layout onefile`` (q6's default here) writes one parquet file per
 table, so q6 plans no exchange; ``--layout default`` writes the
 generator's 2^20-row files, so the scan has 8 partitions and the grouped
-aggregate runs partial -> exchange -> final (the repartition query always
-reads this layout).  ``--conf key=value`` sets a session conf, e.g.
+aggregate runs partial -> exchange -> final (the repartition query and
+the window queries q51 and q63 always read this layout).  ``--conf
+key=value`` sets a session conf, e.g.
 ``spark.sql.adaptive.enabled=false``.
 
 Prints one JSON line.  Usage, from the repo root on a machine with a card:
@@ -26,6 +28,7 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
     python -m spark_rapids_tpu_torch.bench.profile_query --query q6 \
         --layout default --conf spark.sql.adaptive.enabled=false
     python -m spark_rapids_tpu_torch.bench.profile_query --query repartition
+    python -m spark_rapids_tpu_torch.bench.profile_query --query q51
 """
 from __future__ import annotations
 
@@ -48,10 +51,18 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _leaf_scan(node):
-    while not isinstance(node, ParquetScanExec):
-        node = node.children[0]
-    return node
+def _fact_scan(node, table: str):
+    """The plan's scan of ``table`` (the first one, depth first)."""
+    stack = [node]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ParquetScanExec) and any(
+                os.path.basename(os.path.dirname(f)) == table
+                or os.path.basename(f).startswith(table)
+                for f in node._files):
+            return node
+        stack.extend(reversed(node.children))
+    raise ValueError(f"no scan of {table} in the plan")
 
 
 def _timed(fn) -> float:
@@ -64,12 +75,14 @@ def _timed(fn) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", choices=("q1", "q6", "repartition"),
+    ap.add_argument("--query",
+                    choices=("q1", "q6", "q51", "q63", "repartition"),
                     default="q6")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--layout", choices=("onefile", "default"),
                     default="onefile",
-                    help="TPC-DS file layout (repartition: always default)")
+                    help="TPC-DS file layout (repartition, q51 and q63: "
+                    "always default)")
     ap.add_argument("--conf", action="append", default=[],
                     metavar="KEY=VALUE", help="a session conf entry")
     ap.add_argument("--top", type=int, default=12,
@@ -83,9 +96,12 @@ def main(argv=None) -> int:
         query, fact = q1, ("lineitem", tpch_gen.table_row_counts(args.sf)[
             "lineitem"])
     else:
-        query, tables = TPCDS_QUERIES["q6"]
+        query, tables = TPCDS_QUERIES[
+            args.query if args.query in TPCDS_QUERIES else "q6"]
         if args.query == "repartition":
-            query, args.layout = top_customers, "default"
+            query = top_customers
+        if args.query != "q6":
+            args.layout = "default"
         data_dir = os.path.join(
             bench, f"tpcds_sf{args.sf:g}_seed42_{args.layout}")
         tpcds_gen.generate_tpcds(
@@ -98,7 +114,7 @@ def main(argv=None) -> int:
     cold = _timed(df.collect)
     warm = _timed(df.collect)
     ctx = ExecCtx(device=session.device, conf=session.conf)
-    scan = _leaf_scan(df._prepared())
+    scan = _fact_scan(df._prepared(), fact[0])
     scan_s = _timed(lambda: [b for b in scan.execute(ctx)])
 
     from torch.profiler import ProfilerActivity, profile

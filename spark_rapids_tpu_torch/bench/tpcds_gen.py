@@ -1,5 +1,5 @@
-"""TPC-DS-shaped data generator for the tables of q3, q6, q42 and q52
-(port of ``spark_rapids_tpu/bench/tpcds_gen.py``).
+"""TPC-DS-shaped data generator for the tables of q3, q6, q42, q51, q52,
+q53 and q63 (port of ``spark_rapids_tpu/bench/tpcds_gen.py``).
 
 It writes the same tables as the reference generator for the same scale
 factor and seed: the same per-table ``default_rng(seed + crc32(name) %
@@ -27,8 +27,9 @@ import numpy as np
 
 __all__ = ["generate_tpcds", "table_row_counts", "TABLES"]
 
-#: the tables this port generates (those of q3, q6, q42 and q52)
-TABLES = ("date_dim", "item", "customer", "customer_address", "store_sales")
+#: the tables this port generates (those of its TPC-DS queries)
+TABLES = ("date_dim", "item", "customer", "customer_address", "store",
+          "store_sales", "web_sales")
 
 #: bump when generated schemas change; tables regenerate on mismatch
 _SCHEMA_VERSION = "v6"
@@ -284,6 +285,41 @@ def _gen_customer_address(rng, n: int) -> dict[str, np.ndarray]:
     }
 
 
+def _gen_store(rng, n: int) -> dict[str, np.ndarray]:
+    return {
+        "s_store_sk": np.arange(1, n + 1, dtype=np.int32),
+        "s_store_id": np.array([f"AAAAAAAA{k:08d}" for k in range(1, n + 1)],
+                               dtype=object),
+        "s_store_name": np.array(
+            [["ought", "able", "pri", "ese", "anti", "cally", "ation",
+              "eing"][k % 8] for k in range(n)], dtype=object),
+        "s_state": np.array([_STATES[i] for i in
+                             rng.integers(0, 10, n)], dtype=object),
+        "s_county": np.array([f"County{v:03d}" for v in
+                              rng.integers(0, 30, n)], dtype=object),
+        "s_city": np.array([f"City{v:03d}" for v in
+                            rng.integers(0, 40, n)], dtype=object),
+        "s_company_id": rng.integers(1, 7, n).astype(np.int32),
+        "s_company_name": np.array(["Unknown"] * n, dtype=object),
+        "s_gmt_offset": np.array([(-8.0, -7.0, -6.0, -5.0)[k % 4]
+                                  for k in range(n)]),
+        "s_number_employees": rng.integers(200, 301, n).astype(np.int32),
+        "s_floor_space": rng.integers(5_000_000, 10_000_000,
+                                      n).astype(np.int32),
+        "s_market_id": rng.integers(1, 11, n).astype(np.int32),
+        "s_zip": np.array([f"{v:05d}" for v in
+                           rng.integers(10000, 99999, n)], dtype=object),
+        "s_street_number": np.array([f"{v}" for v in
+                                     rng.integers(1, 1000, n)], dtype=object),
+        "s_street_name": np.array([f"Street{v:03d}" for v in
+                                   rng.integers(0, 300, n)], dtype=object),
+        "s_street_type": np.array([("Street", "Ave", "Blvd", "Ct")[k % 4]
+                                   for k in range(n)], dtype=object),
+        "s_suite_number": np.array([f"Suite {v}" for v in
+                                    rng.integers(0, 100, n)], dtype=object),
+    }
+
+
 def _sales_common(rng, n, counts, prefix):
     qty = rng.integers(1, 101, n).astype(np.int32)
     price = np.round(np.exp(rng.normal(2.5, 1.0, n)).clip(0.01, 300.0), 2)
@@ -340,6 +376,65 @@ def _gen_store_sales(rng, n: int, counts) -> dict[str, np.ndarray]:
     }
 
 
+def _gen_web_sales(rng, n: int, counts) -> dict[str, np.ndarray]:
+    qty, price, wholesale, ext = _sales_common(rng, n, counts, "ws")
+    sold = (rng.integers(_SALES_DATE_LO, _SALES_DATE_HI + 1, n)
+            + _DATE_SK_EPOCH).astype(np.int64)
+    return {
+        "ws_sold_date_sk": _with_nulls(rng, sold.astype(np.int32), 0.02),
+        "ws_sold_time_sk": _with_nulls(
+            rng, rng.integers(0, 86_400, n).astype(np.int32), 0.02),
+        "ws_ship_date_sk": _with_nulls(
+            rng, (sold + rng.integers(1, 120, n)).astype(np.int32), 0.02),
+        "ws_item_sk": rng.integers(1, counts["item"] + 1, n).astype(np.int32),
+        "ws_order_number": rng.integers(1, max(n // 2, 2),
+                                        n).astype(np.int64),
+        "ws_bill_customer_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer"] + 1, n).astype(np.int32),
+            0.03),
+        "ws_bill_addr_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer_address"] + 1,
+                              n).astype(np.int32), 0.03),
+        "ws_ship_addr_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer_address"] + 1,
+                              n).astype(np.int32), 0.03),
+        "ws_web_site_sk": _with_nulls(
+            rng, rng.integers(1, counts["web_site"] + 1,
+                              n).astype(np.int32), 0.02),
+        "ws_web_page_sk": _with_nulls(
+            rng, rng.integers(1, counts["web_page"] + 1,
+                              n).astype(np.int32), 0.02),
+        "ws_ship_mode_sk": _with_nulls(
+            rng, rng.integers(1, counts["ship_mode"] + 1,
+                              n).astype(np.int32), 0.02),
+        "ws_promo_sk": _with_nulls(
+            rng, rng.integers(1, counts["promotion"] + 1, n).astype(np.int32),
+            0.02),
+        "ws_warehouse_sk": _with_nulls(
+            rng, rng.integers(1, counts["warehouse"] + 1,
+                              n).astype(np.int32), 0.02),
+        "ws_ship_customer_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer"] + 1, n).astype(np.int32),
+            0.03),
+        "ws_ship_hdemo_sk": _with_nulls(
+            rng, rng.integers(1, counts["household_demographics"] + 1,
+                              n).astype(np.int32), 0.03),
+        "ws_quantity": qty,
+        "ws_list_price": np.round(price * rng.uniform(1.0, 1.5, n), 2),
+        "ws_sales_price": price,
+        "ws_ext_sales_price": ext,
+        "ws_ext_list_price": np.round(price * rng.uniform(1.0, 1.5, n)
+                                      * qty, 2),
+        "ws_ext_discount_amt": np.round(
+            ext * rng.choice([0.0, 0.0, 0.05, 0.2], n), 2),
+        "ws_ext_ship_cost": np.round(ext * rng.uniform(0.01, 0.1, n), 2),
+        "ws_wholesale_cost": wholesale,
+        "ws_ext_wholesale_cost": np.round(wholesale * qty, 2),
+        "ws_net_paid": np.round(ext * rng.uniform(0.7, 1.0, n), 2),
+        "ws_net_profit": np.round(ext - wholesale * qty, 2),
+    }
+
+
 _GENERATORS = {
     "date_dim": lambda rng, counts: _gen_date_dim(counts),
     "item": lambda rng, counts: _gen_item(rng, counts["item"]),
@@ -349,8 +444,11 @@ _GENERATORS = {
         counts["household_demographics"]),
     "customer_address": lambda rng, counts: _gen_customer_address(
         rng, counts["customer_address"]),
+    "store": lambda rng, counts: _gen_store(rng, counts["store"]),
     "store_sales": lambda rng, counts: _gen_store_sales(
         rng, counts["store_sales"], counts),
+    "web_sales": lambda rng, counts: _gen_web_sales(
+        rng, counts["web_sales"], counts),
 }
 
 

@@ -1,6 +1,8 @@
-"""TPC-DS queries as DataFrame code (port of ``spark_rapids_tpu/bench/tpcds_queries.py``:
-q3, q6, q42 and q52, the ones whose operators the port has), and
-:func:`top_customers`, an explicit repartition of the fact table.
+"""TPC-DS queries as DataFrame code (port of
+``spark_rapids_tpu/bench/tpcds_queries.py``: q3, q6, q42, q52, q53, q63,
+and of ``tpcds_queries5.py``: q51, the ones whose operators the port
+has), and :func:`top_customers`, an explicit repartition of the fact
+table.
 
 Each builder takes a :class:`TorchSession` and the data directory and
 returns a DataFrame over the generated tables (``bench/tpcds_gen.py``).
@@ -11,10 +13,18 @@ from __future__ import annotations
 
 import os
 
-from spark_rapids_tpu_torch.expr.aggregates import Average, CountStar, Sum
+from spark_rapids_tpu_torch.expr.aggregates import (Average, CountStar, Max,
+                                                    Sum)
+from spark_rapids_tpu_torch.expr.arithmetic import Abs
+from spark_rapids_tpu_torch.expr.conditional import Coalesce
 from spark_rapids_tpu_torch.expr.core import col, lit
+from spark_rapids_tpu_torch.expr.predicates import In
+from spark_rapids_tpu_torch.expr.window import (CURRENT_ROW, UNBOUNDED,
+                                                WindowExpression,
+                                                WindowFrame, WindowSpec)
 
-__all__ = ["TPCDS_QUERIES", "q3", "q6", "q42", "q52", "top_customers"]
+__all__ = ["TPCDS_QUERIES", "q3", "q6", "q42", "q51", "q52", "q53", "q63",
+           "top_customers"]
 
 
 def _t(session, data_dir: str, table: str, columns=None):
@@ -120,6 +130,104 @@ def q52(session, data_dir: str):
         .limit(100)
 
 
+def q51(session, data_dir: str):
+    """TPC-DS q51: first dates where cumulative web sales exceed
+    cumulative store sales per item."""
+    dd = _t(session, data_dir, "date_dim",
+            ["d_date_sk", "d_date", "d_month_seq"]) \
+        .where((col("d_month_seq") >= lit(1200))
+               & (col("d_month_seq") <= lit(1211)))
+    cum = WindowFrame("rows", UNBOUNDED, CURRENT_ROW)
+
+    def v1(sales, item_c, date_c, price_c, name):
+        g = sales.where(col(item_c).is_not_null()) \
+            .join(dd, on=[(date_c, "d_date_sk")]) \
+            .group_by(item_c, "d_date") \
+            .agg(Sum(col(price_c)).alias("day_sales"))
+        cume = WindowExpression(
+            Sum(col("day_sales")),
+            WindowSpec(partition_by=(col(item_c),),
+                       order_by=((col("d_date"), True),), frame=cum))
+        return g.select(col(item_c).alias(f"{name}_item_sk"),
+                        col("d_date").alias(f"{name}_date"),
+                        cume.alias(f"{name}_cume"))
+
+    web = v1(_t(session, data_dir, "web_sales",
+                ["ws_item_sk", "ws_sold_date_sk", "ws_sales_price"]),
+             "ws_item_sk", "ws_sold_date_sk", "ws_sales_price", "web")
+    sto = v1(_t(session, data_dir, "store_sales",
+                ["ss_item_sk", "ss_sold_date_sk", "ss_sales_price"]),
+             "ss_item_sk", "ss_sold_date_sk", "ss_sales_price", "store")
+    j = web.join(sto, on=[("web_item_sk", "store_item_sk"),
+                          ("web_date", "store_date")], how="full")
+    merged = j.select(
+        Coalesce(col("web_item_sk"), col("store_item_sk"))
+        .alias("item_sk"),
+        Coalesce(col("web_date"), col("store_date")).alias("d_date"),
+        col("web_cume").alias("web_sales"),
+        col("store_cume").alias("store_sales"))
+    web_c = WindowExpression(
+        Max(col("web_sales")),
+        WindowSpec(partition_by=(col("item_sk"),),
+                   order_by=((col("d_date"), True),), frame=cum))
+    sto_c = WindowExpression(
+        Max(col("store_sales")),
+        WindowSpec(partition_by=(col("item_sk"),),
+                   order_by=((col("d_date"), True),), frame=cum))
+    y = merged.select(col("item_sk"), col("d_date"), col("web_sales"),
+                      col("store_sales"), web_c.alias("web_cumulative"),
+                      sto_c.alias("store_cumulative"))
+    return y.where(col("web_cumulative") > col("store_cumulative")) \
+        .order_by(("item_sk", True), ("d_date", True)).limit(100)
+
+
+def _quarterly_outlier(session, data_dir, group_col, filter_expr):
+    """Shared q53/q63 shape: quarterly sales vs the group's average."""
+    ss = _t(session, data_dir, "store_sales",
+            ["ss_sold_date_sk", "ss_item_sk", "ss_store_sk",
+             "ss_sales_price"])
+    dt = _t(session, data_dir, "date_dim",
+            ["d_date_sk", "d_month_seq", "d_qoy"]) \
+        .where((col("d_month_seq") >= lit(1200))
+               & (col("d_month_seq") <= lit(1211)))
+    st = _t(session, data_dir, "store", ["s_store_sk"])
+    it = _t(session, data_dir, "item",
+            ["i_item_sk", "i_manufact_id", "i_manager_id", "i_category",
+             "i_class", "i_brand"]).where(filter_expr)
+    base = ss.join(dt, on=[("ss_sold_date_sk", "d_date_sk")]) \
+        .join(st, on=[("ss_store_sk", "s_store_sk")]) \
+        .join(it, on=[("ss_item_sk", "i_item_sk")]) \
+        .group_by(group_col, "d_qoy") \
+        .agg(Sum(col("ss_sales_price")).alias("sum_sales"))
+    avg_w = WindowExpression(
+        Average(col("sum_sales")),
+        WindowSpec(partition_by=(col(group_col),)))
+    out = base.select(col(group_col), col("d_qoy"), col("sum_sales"),
+                      avg_w.alias("avg_sales"))
+    return out.where((col("avg_sales") > lit(0.0))
+                     & (Abs(col("sum_sales") - col("avg_sales"))
+                        / col("avg_sales") > lit(0.1))) \
+        .order_by((group_col, True), ("avg_sales", True),
+                  ("sum_sales", True)) \
+        .limit(100)
+
+
+def q53(session, data_dir: str):
+    """TPC-DS q53: manufacturers with outlier quarterly sales (window)."""
+    return _quarterly_outlier(
+        session, data_dir, "i_manufact_id",
+        In(col("i_category"), [lit(c) for c in
+                               ("Books", "Children", "Electronics")]))
+
+
+def q63(session, data_dir: str):
+    """TPC-DS q63: managers with outlier quarterly sales (window)."""
+    return _quarterly_outlier(
+        session, data_dir, "i_manager_id",
+        In(col("i_class"), [lit(c) for c in
+                            ("accent", "dresses", "fiction", "shirts")]))
+
+
 def top_customers(session, data_dir: str):
     """The 100 customers with the most store purchases (the null customer
     included), over store_sales hash-repartitioned on the customer key:
@@ -140,4 +248,7 @@ TPCDS_QUERIES = {
                 "store_sales")),
     "q42": (q42, ("date_dim", "item", "store_sales")),
     "q52": (q52, ("date_dim", "item", "store_sales")),
+    "q51": (q51, ("date_dim", "store_sales", "web_sales")),
+    "q53": (q53, ("date_dim", "item", "store", "store_sales")),
+    "q63": (q63, ("date_dim", "item", "store", "store_sales")),
 }

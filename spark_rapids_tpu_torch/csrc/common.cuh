@@ -1,4 +1,4 @@
-// Shared building blocks of the Hopper kernels (K1-K4).
+// Shared building blocks of the Hopper kernels.
 //
 // Every source under csrc/ is built on its own into a shared library with a
 // plain C interface (nvcc -gencode arch=compute_90a,code=sm_90a) and loaded
@@ -27,6 +27,14 @@ constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 4;
 
 inline int num_tiles(int64_t n) { return (int)((n + kTile - 1) / kTile); }
+
+// Blocks of kThreads for a grid-stride loop over `work` items, capped at
+// `waves` resident waves of the H100's 132 SMs.
+inline int grid_for(int64_t work, int64_t waves = 16) {
+  const int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int64_t cap = 132 * waves;
+  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+}
 
 // One column of a gather or compaction: a row is row_bytes bytes (1/2/4/8
 // for fixed-width types, the byte-matrix width W for strings), copied in

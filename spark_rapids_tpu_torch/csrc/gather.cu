@@ -61,13 +61,6 @@ __global__ void gather_rows_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-inline int grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  // grid-stride loops: cap at 16 resident waves of 132 SMs
-  const int64_t cap = 132 * 16;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 template <typename V>
 void launch_rows(const int32_t* idx, int64_t m, int row_bytes,
                  const void* src, void* dst, const uint8_t* sv, uint8_t* dv,

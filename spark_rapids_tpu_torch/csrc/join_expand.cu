@@ -127,12 +127,6 @@ __global__ void mark_kernel(const int32_t* __restrict__ ri, int64_t m,
   }
 }
 
-inline int grid_for(int64_t work) {
-  const int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 32;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 }  // namespace srt_expand
 
 using namespace srt_expand;
@@ -164,7 +158,7 @@ int srt_join_expand(const void* offsets, int64_t cl, const void* cnt,
                     const void* start, const void* rperm, int64_t m,
                     int take_right, void* li, void* ri, void* stream) {
   if (m > 0)
-    expand_kernel<<<grid_for(m), srt::kThreads, 0, (cudaStream_t)stream>>>(
+    expand_kernel<<<grid_for(m, 32), srt::kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)offsets, cl, (const int32_t*)cnt,
         (const int32_t*)start, (const int32_t*)rperm, m, take_right,
         (int32_t*)li, (int32_t*)ri);
@@ -175,7 +169,7 @@ int srt_join_expand(const void* offsets, int64_t cl, const void* cnt,
 int srt_join_tail(const void* unmatched, const void* uoff, int64_t cr,
                   const void* total_left, void* li, void* ri, void* stream) {
   if (cr > 0)
-    tail_kernel<<<grid_for(cr), srt::kThreads, 0, (cudaStream_t)stream>>>(
+    tail_kernel<<<grid_for(cr, 32), srt::kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)unmatched, (const int32_t*)uoff, cr,
         (const int32_t*)total_left, (int32_t*)li, (int32_t*)ri);
   return (int)cudaGetLastError();
@@ -184,7 +178,7 @@ int srt_join_tail(const void* unmatched, const void* uoff, int64_t cr,
 // matched[ri[j]] = 1 for every slot j with ri[j] >= 0.
 int srt_join_mark(const void* ri, int64_t m, void* matched, void* stream) {
   if (m > 0)
-    mark_kernel<<<grid_for(m), srt::kThreads, 0, (cudaStream_t)stream>>>(
+    mark_kernel<<<grid_for(m, 32), srt::kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)ri, m, (uint8_t*)matched);
   return (int)cudaGetLastError();
 }

@@ -128,18 +128,12 @@ __global__ void search_kernel(const T* __restrict__ lkey,
     atomicAdd(total, (unsigned long long)sum);
 }
 
-inline int grid_for(int64_t work) {
-  const int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 32;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 template <typename T>
 void launch_search(const void* lkey, const void* lvalid, int64_t n,
                    const void* skey, int64_t nb, const void* nv, int jt,
                    void* start, void* cnt, void* out_cnt, void* total,
                    cudaStream_t st) {
-  search_kernel<T><<<grid_for(n), kThreads, 0, st>>>(
+  search_kernel<T><<<grid_for(n, 32), kThreads, 0, st>>>(
       (const T*)lkey, (const uint8_t*)lvalid, n, (const T*)skey, nb,
       (const int32_t*)nv, jt, (int32_t*)start, (int32_t*)cnt,
       (int32_t*)out_cnt, (unsigned long long*)total);
@@ -148,7 +142,7 @@ void launch_search(const void* lkey, const void* lvalid, int64_t n,
 template <typename T>
 void launch_build(const void* key, const void* valid, const void* perm,
                   int64_t n, void* skey, void* nv, cudaStream_t st) {
-  build_keys_kernel<T><<<grid_for(n), kThreads, 0, st>>>(
+  build_keys_kernel<T><<<grid_for(n, 32), kThreads, 0, st>>>(
       (const T*)key, (const uint8_t*)valid, (const int32_t*)perm, n,
       (T*)skey, (int32_t*)nv);
 }

@@ -374,12 +374,6 @@ __global__ void seg_starts_kernel(const uint8_t* __restrict__ flags,
   }
 }
 
-inline int grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 16;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 }  // namespace srt_seg
 
 using namespace srt_seg;

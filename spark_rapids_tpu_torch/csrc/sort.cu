@@ -261,12 +261,6 @@ __global__ void radix_scatter_kernel(
   }
 }
 
-inline int grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 16;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 }  // namespace srt_sort
 
 using namespace srt_sort;

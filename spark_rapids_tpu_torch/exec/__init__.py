@@ -8,3 +8,4 @@ from spark_rapids_tpu_torch.exec.core import (ExecCtx, PlanNode,  # noqa: F401
 from spark_rapids_tpu_torch.exec.joins import CrossJoinExec, JoinExec  # noqa: F401
 from spark_rapids_tpu_torch.exec.sortexec import (CoalesceBatchesExec,  # noqa: F401
                                                   SortExec, resolve_orders)
+from spark_rapids_tpu_torch.exec.window import WindowExec  # noqa: F401

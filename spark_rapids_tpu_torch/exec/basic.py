@@ -37,6 +37,11 @@ class ProjectExec(PlanNode):
         return list(self._bound)
 
     @property
+    def output_batching(self):
+        # 1:1 batch mapping: the child's batching contract holds here too
+        return self.children[0].output_batching
+
+    @property
     def output_ordering(self):
         """The child's ordering survives as far as its leading columns
         pass through as plain references (possibly renamed)."""

@@ -6,10 +6,13 @@ yields NULL when the divisor is zero.
 """
 from __future__ import annotations
 
+import torch
+
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.core import EvalCtx, Expression
 
-__all__ = ["Add", "Subtract", "Multiply", "Divide", "coerce_pair"]
+__all__ = ["Add", "Subtract", "Multiply", "Divide", "Abs",
+           "coerce_pair"]
 
 
 def coerce_pair(left: Expression, right: Expression,
@@ -96,3 +99,18 @@ class Divide(BinaryArithmetic):
         safe_b = b.data.masked_fill(~nonzero, 1)
         return ctx.canonical(a.data / safe_b,
                              a.validity & b.validity & nonzero, self.dtype)
+
+
+class Abs(Expression):
+    sql_name = "Abs"
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    def _eval(self, vals, ctx: EvalCtx):
+        a = vals[0]
+        return ctx.canonical(torch.abs(a.data), a.validity, self.dtype)

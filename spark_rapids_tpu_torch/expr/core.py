@@ -234,6 +234,19 @@ class Expression:
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
 
+    def is_null(self) -> "Expression":
+        from spark_rapids_tpu_torch.expr.predicates import IsNull
+        return IsNull(self)
+
+    def is_not_null(self) -> "Expression":
+        from spark_rapids_tpu_torch.expr.predicates import IsNotNull
+        return IsNotNull(self)
+
+    def isin(self, *values) -> "Expression":
+        from spark_rapids_tpu_torch.expr.predicates import In
+        return In(self, [v if isinstance(v, Expression) else Literal.infer(v)
+                         for v in values])
+
 
 class Literal(Expression):
     sql_name = "Literal"

@@ -14,7 +14,8 @@ from spark_rapids_tpu_torch.expr.arithmetic import coerce_pair
 from spark_rapids_tpu_torch.expr.core import EvalCtx, Expression, Val
 
 __all__ = ["EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
-           "GreaterThanOrEqual", "And", "Or", "Not"]
+           "GreaterThanOrEqual", "And", "Or", "Not", "IsNull", "IsNotNull",
+           "In"]
 
 
 def _string_pair(a: Val, b: Val):
@@ -152,3 +153,88 @@ class Not(Expression):
     def _eval(self, vals, ctx):
         a = vals[0]
         return ctx.canonical(~a.data, a.validity, T.BooleanType())
+
+
+class IsNull(Expression):
+    sql_name = "IsNull"
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.BooleanType()
+
+    @property
+    def nullable(self):
+        return False
+
+    def _eval(self, vals, ctx):
+        a = vals[0]
+        return ctx.canonical(~a.validity, ctx.row_mask, T.BooleanType())
+
+
+class IsNotNull(Expression):
+    sql_name = "IsNotNull"
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.BooleanType()
+
+    @property
+    def nullable(self):
+        return False
+
+    def _eval(self, vals, ctx):
+        a = vals[0]
+        return ctx.canonical(a.validity, ctx.row_mask,
+                             T.BooleanType())
+
+
+class In(Expression):
+    """Spark In: NULL if the value is null, or if there is no match and the
+    list contains a null.  Children: (value, item0, item1, ...)."""
+    sql_name = "In"
+
+    def __init__(self, value: Expression, items: list[Expression]):
+        self.children = (value,) + tuple(items)
+
+    def with_new_children(self, children):
+        return In(children[0], list(children[1:]))
+
+    def coerced(self):
+        # Spark promotes the value AND the list to a common wider type:
+        # narrowing the items instead would wrap and create false matches
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        target = self.children[0].dtype
+        for i in self.children[1:]:
+            it = i.dtype
+            if isinstance(it, T.NullType) or it == target:
+                continue
+            if it.numeric and target.numeric:
+                target = T.numeric_promote(target, it)
+            else:
+                raise TypeError(f"IN: cannot compare {target} with {it}")
+        kids = [c if c.dtype == target or isinstance(c.dtype, T.NullType)
+                else Cast(c, target) for c in self.children]
+        return In(kids[0], kids[1:])
+
+    @property
+    def dtype(self):
+        return T.BooleanType()
+
+    def _eval(self, vals, ctx):
+        a = vals[0]
+        matched = torch.zeros(ctx.capacity, dtype=torch.bool,
+                              device=ctx.device)
+        any_null_item = torch.zeros_like(matched)
+        for iv in vals[1:]:
+            if not isinstance(iv.dtype, T.NullType):
+                matched = matched | (compare_eq(a, iv) & iv.validity
+                                     & a.validity)
+            any_null_item = any_null_item | ~iv.validity
+        validity = a.validity & (matched | ~any_null_item)
+        return ctx.canonical(matched, validity, T.BooleanType())

@@ -38,6 +38,8 @@ SOURCES = {
     "join_expand": "join_expand.cu",
     "hash_partition": "hash_partition.cu",
     "partition_group": "partition_group.cu",
+    "window_segments": "window_segments.cu",
+    "window_agg": "window_agg.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,6 +92,15 @@ _SIGNATURES = {
     },
     "partition_group": {
         "srt_partition_group": [_P, _L, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "window_segments": {
+        "srt_window_segments": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P],
+    },
+    "window_agg": {
+        "srt_window_agg": [_I, _P, _P, _I, _I, _P, _P, _P, _L, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "srt_window_agg_piece_bytes": [],
     },
 }
 

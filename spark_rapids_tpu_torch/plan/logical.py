@@ -1,6 +1,6 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``, the
 nodes the port lowers: Scan, Project, Filter, Aggregate, Join, Sort,
-Limit, Repartition)."""
+Limit, Repartition, Window)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,7 +10,7 @@ from spark_rapids_tpu_torch.exec.core import PlanNode
 from spark_rapids_tpu_torch.expr.core import Expression
 
 __all__ = ["LogicalPlan", "Scan", "Project", "Filter", "Aggregate", "Join",
-           "Sort", "Limit", "Repartition"]
+           "Sort", "Limit", "Repartition", "Window"]
 
 
 class LogicalPlan:
@@ -125,3 +125,14 @@ class Repartition(LogicalPlan):
     @property
     def schema(self):
         return self.child.schema
+
+
+@dataclass
+class Window(LogicalPlan):
+    """Window expressions of one spec appended to the child's columns."""
+    window_exprs: list
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)

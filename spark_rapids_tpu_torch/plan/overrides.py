@@ -3,7 +3,11 @@
 ``lower`` (:62) turns the logical plan into physical execs (joins as in
 :75-110 without the AQE shuffled-join exchange, which is off by default,
 or the mesh; a limit over a sort as :117-137 without the mesh TopN; an
-explicit repartition as :178-195).  ``_lower_aggregate`` (:530) splits a
+explicit repartition as :178-195; a window as :141-155).  ``_lower_project``
+(:479) plans the window expressions of a projection: one ``WindowExec``
+per distinct spec, each over a hash exchange on its partition keys where
+the child is not already distributed on them (:435), then the final
+projection.  ``_lower_aggregate`` (:530) splits a
 grouped aggregation over a multi-partition child into partial and final
 stages around a hash exchange, read through the adaptive reader when
 ``spark.sql.adaptive.enabled`` is on (:538-565), and plans a complete
@@ -11,6 +15,9 @@ aggregation otherwise.  :class:`TorchOverrides` inserts
 ``CoalesceBatchesExec`` where an operator's child goal demands it and
 renders the explain tree.  Every operator of this slice runs on the
 device, so there is no tagging or host fallback (``*`` marks each node).
+The mesh and pandas window execs (``MeshWindowExec``,
+``WindowInPandasExec``) are not ported: a window always plans a
+``WindowExec``.
 """
 from __future__ import annotations
 
@@ -20,13 +27,16 @@ from spark_rapids_tpu_torch.conf import ADAPTIVE_ENABLED, TorchConf
 from spark_rapids_tpu_torch.exec import (CoalesceBatchesExec,
                                          CrossJoinExec, FilterExec,
                                          GlobalLimitExec, HashAggregateExec,
-                                         JoinExec, ProjectExec, SortExec)
+                                         JoinExec, ProjectExec, SortExec,
+                                         WindowExec)
 from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode, TargetSize
 from spark_rapids_tpu_torch.exec.exchange import (AdaptiveShuffleReaderExec,
                                                   ShuffleExchangeExec)
 from spark_rapids_tpu_torch.exec.partitioning import (HashPartitioning,
                                                       RoundRobinPartitioning)
-from spark_rapids_tpu_torch.expr.core import col
+from spark_rapids_tpu_torch.expr.core import (Alias, UnresolvedAttribute,
+                                              col, output_name)
+from spark_rapids_tpu_torch.expr.window import WindowExpression
 from spark_rapids_tpu_torch.plan import logical as L
 
 __all__ = ["PlannedNode", "lower", "TorchOverrides"]
@@ -51,8 +61,7 @@ def lower(node: L.LogicalPlan, conf: TorchConf) -> PlannedNode:
         c = lower(node.child, conf)
         return PlannedNode(FilterExec(node.condition, c.exec_node), [c])
     if isinstance(node, L.Project):
-        c = lower(node.child, conf)
-        return PlannedNode(ProjectExec(node.exprs, c.exec_node), [c])
+        return _lower_project(node, conf)
     if isinstance(node, L.Aggregate):
         return _lower_aggregate(node, conf)
     if isinstance(node, L.Join):
@@ -83,6 +92,15 @@ def lower(node: L.LogicalPlan, conf: TorchConf) -> PlannedNode:
         # never coalesces it (Spark's REPARTITION_BY_NUM contract)
         ex._no_map_coalesce = True
         return PlannedNode(ex, [c])
+    if isinstance(node, L.Window):
+        c = lower(node.child, conf)
+        # partition on the first expression's spec; WindowExec itself
+        # checks that every expression shares it
+        first = node.window_exprs[0]
+        inner = first.children[0] if isinstance(first, Alias) else first
+        cur, keys_partitioned = _ensure_window_distribution(c, inner.spec,
+                                                            conf)
+        return _stack_window_execs(cur, node.window_exprs, keys_partitioned)
     raise NotImplementedError(
         f"{type(node).__name__} is not ported yet (ROADMAP.md Queue 1)")
 
@@ -97,6 +115,104 @@ def _aqe_join_reader(c: PlannedNode, conf: TorchConf) -> PlannedNode:
     reader = AdaptiveShuffleReaderExec(c.exec_node, allow_skew_split=True,
                                        allow_coalesce=False)
     return PlannedNode(reader, [c])
+
+
+def _split_window_exprs(exprs):
+    """Separate the window expressions of a projection list, at any depth:
+    a nested one (``x * 100 / sum(x).over(spec)``) is hoisted into a
+    generated column and replaced by a reference to it."""
+    plain, windows = [], []
+    counter = [0]
+
+    def hoist(node):
+        if isinstance(node, WindowExpression):
+            name = f"_we{counter[0]}"
+            counter[0] += 1
+            windows.append(node.alias(name))
+            return col(name)
+        return node
+
+    for e in exprs:
+        inner = e.children[0] if isinstance(e, Alias) else e
+        if isinstance(inner, WindowExpression):
+            # a generated name, re-aliased: naming the appended column after
+            # an existing child column would shadow it at bind time
+            name = f"_we{counter[0]}"
+            counter[0] += 1
+            windows.append(inner.alias(name))
+            plain.append(col(name).alias(output_name(e)))
+        else:
+            plain.append(e.transform_up(hoist))
+    return plain, windows
+
+
+def _window_key_names(keys) -> tuple | None:
+    """Column names of a key list, or None when a key is not a plain
+    column reference (then an exchange is inserted conservatively)."""
+    names = []
+    for k in keys:
+        if isinstance(k, Alias):
+            k = k.children[0]
+        if not isinstance(k, UnresolvedAttribute):
+            return None
+        names.append(k.name)
+    return tuple(names)
+
+
+def _ensure_window_distribution(cur: PlannedNode, spec,
+                                conf: TorchConf) -> tuple[PlannedNode, bool]:
+    """Hash-partition on the window's partition keys so the window runs per
+    partition instead of over one global batch (Spark's EnsureRequirements
+    for ClusteredDistribution).  No exchange when the child has one
+    partition, or is already hash-partitioned on a subset of the keys
+    (rows equal on the keys are then co-located)."""
+    if not spec.partition_by:
+        return cur, False
+    if cur.exec_node.num_partitions(
+            ExecCtx(device="cpu", conf=conf, planning=True)) <= 1:
+        return cur, False
+    want = _window_key_names(spec.partition_by)
+    if want is not None:
+        node = cur.exec_node
+        # window output keeps its child's distribution: look through the
+        # WindowExecs stacked by earlier specs of the same projection
+        while isinstance(node, WindowExec) and node._keys_partitioned:
+            node = node.children[0]
+        if isinstance(node, ShuffleExchangeExec) and \
+                isinstance(node.partitioning, HashPartitioning):
+            have = _window_key_names(node.partitioning._keys)
+            if have and set(have) <= set(want):
+                return cur, True
+    exch = ShuffleExchangeExec(
+        HashPartitioning(list(spec.partition_by), conf.shuffle_partitions),
+        cur.exec_node)
+    return PlannedNode(exch, [cur]), True
+
+
+def _stack_window_execs(cur: PlannedNode, spec_windows,
+                        keys_partitioned: bool) -> PlannedNode:
+    """One spec's window expressions as a WindowExec over ``cur`` (the
+    reference's native branch; pandas window UDFs are not ported)."""
+    ex = WindowExec(spec_windows, cur.exec_node,
+                    keys_partitioned=keys_partitioned)
+    return PlannedNode(ex, [cur])
+
+
+def _lower_project(node: L.Project, conf: TorchConf) -> PlannedNode:
+    c = lower(node.child, conf)
+    plain, windows = _split_window_exprs(node.exprs)
+    if not windows:
+        return PlannedNode(ProjectExec(node.exprs, c.exec_node), [c])
+    # one WindowExec per distinct spec (specs hash by their expressions'
+    # identities), then the final projection over the appended columns
+    by_spec: dict = {}
+    for w in windows:
+        by_spec.setdefault(w.children[0].spec, []).append(w)
+    cur = c
+    for spec, spec_windows in by_spec.items():
+        cur, keys_partitioned = _ensure_window_distribution(cur, spec, conf)
+        cur = _stack_window_execs(cur, spec_windows, keys_partitioned)
+    return PlannedNode(ProjectExec(plain, cur.exec_node), [cur])
 
 
 def _lower_aggregate(node: L.Aggregate, conf: TorchConf) -> PlannedNode:

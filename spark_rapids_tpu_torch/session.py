@@ -5,7 +5,9 @@
 versions on the CPU (the tests do this).  The DataFrame methods are the
 ones TPC-H q1 and TPC-DS q6 use -- ``read_parquet``, ``select``,
 ``where``, ``join``, ``group_by().agg()``, ``order_by``, ``limit``,
-``collect``, ``explain`` -- and ``repartition``.  Admission,
+``collect``, ``explain`` -- and ``repartition``; ``select`` takes window
+expressions (``expr/window.py``), which the planner lowers to
+``WindowExec``s.  Admission,
 cancellation, the result cache and the serving planes wait for later
 slices.
 """

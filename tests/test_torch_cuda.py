@@ -345,3 +345,146 @@ def test_exchange_paths_on_cuda_match_cpu(dev, tmp_path):
         assert got == q(TorchSession(conf, device="cpu"), d).collect(), what
         ran = [a - b for a, b in zip(after, before)]
         assert (ran[0] > 0 and ran[1] > 0) if runs else ran == [0, 0], what
+
+
+# ---------------------------------------------------------------------------
+# K12: window segment extents (K12a) and frame aggregates (K12b)
+# ---------------------------------------------------------------------------
+
+def _window_batch(dev, rng, n: int, part, order):
+    """A seeded batch sorted by (part keys ascending nulls first, order
+    keys), on ``dev``, plus a column of finite doubles with NaN, +-inf and
+    -0.0 mixed in (sum inputs: the huge magnitudes of ``d`` would make any
+    two summation orders disagree)."""
+    from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_batch
+    rb = _record_batch(rng, n)
+    x = np.round(rng.normal(size=n) * 100, 2)
+    x[rng.random(n) < 0.01] = np.nan
+    x[rng.random(n) < 0.005] = np.inf
+    x[rng.random(n) < 0.005] = -np.inf
+    x[rng.random(n) < 0.01] = -0.0
+    rb = pa.RecordBatch.from_arrays(
+        list(rb.columns) + [pa.array(x, mask=rng.random(n) < 0.1)],
+        names=rb.schema.names + ["x"])
+    pb = ColumnBatch.from_arrow(rb, dev)
+    orders = [SortOrder(i, True, True) for i in part] + \
+        [SortOrder(i, True, None) for i in order]
+    return sort_batch(pb, orders) if orders else pb
+
+
+_SEG_KEYS = [((0,), (3,)), ((1,), (4, 2)), ((), (3,)), ((1, 6), ()),
+             ((), ())]
+
+
+@pytest.mark.parametrize("part,order", _SEG_KEYS)
+def test_window_segments_match_plain(dev, part, order):
+    from spark_rapids_tpu_torch.ops import window as W
+    rng = np.random.default_rng(61)
+    sb = _window_batch(dev, rng, 70_001, part, order)
+    flags = W._boundary_flags(sb, part, order)
+    before = W.sorted_segments.launches
+    got = W.sorted_segments(sb, part, order)
+    assert W.sorted_segments.launches == before + 1
+    want = W.segment_extents_plain(*flags)
+    for f in ("seg_start", "seg_end", "peer_start", "peer_end", "seg_id",
+              "order_rank"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+_FRAMES = [("rows", None, 0), ("rows", None, None), ("rows", -3, 2),
+           ("rows", 2, 5), ("rows", None, 3), ("rows", -2, None),
+           ("rows", None, -1), ("range", None, 0), ("range", 0, 0),
+           ("range", 0, None), ("range", None, None)]
+
+
+def _assert_window_agg(got, want, x=None):
+    (gd, gv, gt), (wd, wv, wt) = got, want
+    assert gt == wt and torch.equal(gv, wv)
+    if gd.dtype.is_floating_point:
+        # the kernel folds each partition on its own, the plain version
+        # differences prefix sums over the whole batch: both round, the
+        # latter by up to a few ulps of the running total
+        atol = 0.0 if x is None else \
+            8 * torch.finfo(torch.float64).eps * float(
+                torch.nan_to_num(x.abs(), posinf=0.0).sum())
+        torch.testing.assert_close(gd, wd, rtol=1e-9, atol=atol,
+                                   equal_nan=True)
+    else:
+        assert torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("frame", _FRAMES)
+@pytest.mark.parametrize("op", ["sum", "count", "avg", "min", "max"])
+def test_window_agg_matches_plain(dev, op, frame):
+    from spark_rapids_tpu_torch.ops import window as W
+    rng = np.random.default_rng(67)
+    part, order = (1,), (4,)
+    sb = _window_batch(dev, rng, 50_003, part, order)
+    seg = W.sorted_segments(sb, part, order)
+    fr = W.WindowFrame(*frame)
+    cols = {"sum": (1, 2, 7), "count": (0, 3), "avg": (2, 7),
+            "min": (1, 2, 3, 4, 5, 6), "max": (1, 2, 3, 4, 5, 6)}[op]
+    for ci in cols:
+        c = sb.columns[ci]
+        if op in ("min", "max") and fr.lower is not None:
+            with pytest.raises(NotImplementedError, match="K12"):
+                W.running_or_bounded_agg(op, c, seg, fr)
+            continue
+        before = W.running_or_bounded_agg.launches
+        got = W.running_or_bounded_agg(op, c, seg, fr)
+        assert W.running_or_bounded_agg.launches == before + 1
+        want = W.running_or_bounded_agg_plain(op, c, seg, fr)
+        _assert_window_agg(got, want,
+                           c.data if c.dtype.fractional else None)
+
+
+def test_window_ranking_and_lead_lag_on_cuda(dev):
+    """row_number/rank/dense_rank and lead/lag (K3's gather) on the card
+    against the same functions over CPU copies of the same rows."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import window as W
+    rng = np.random.default_rng(71)
+    sb = _window_batch(dev, rng, 30_011, (1,), (4,))
+    seg = W.sorted_segments(sb, (1,), (4,))
+    cpu_seg = W.SegmentInfo(*[t.cpu() for t in vars(seg).values()])
+    for fn in (W.row_number, W.rank, W.dense_rank):
+        assert torch.equal(fn(seg).cpu(), fn(cpu_seg))
+    for ci in (0, 3):  # a string and a double column
+        c = sb.columns[ci]
+        cc = DeviceColumn(c.data.cpu(), c.validity.cpu(), c.dtype,
+                          None if c.lengths is None else c.lengths.cpu())
+        for off in (-2, 1):
+            before = K.gather_columns.launches
+            got = W.lead_lag(c, seg, off)
+            assert K.gather_columns.launches == before + 1
+            for a, b in zip(got, W.lead_lag(cc, cpu_seg, off)):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0,
+                                               equal_nan=True)
+
+
+def test_window_queries_on_cuda_match_cpu(dev, tmp_path):
+    """q51 and q63 at sf0.1 in a multi-file layout: the window path runs
+    K12a and K12b and returns the CPU rows."""
+    import math
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    from spark_rapids_tpu_torch.ops import window as W
+    d = str(tmp_path / "tpcds")
+    tpcds_gen.generate_tpcds(d, sf=0.1, rows_per_file=1 << 15)
+    for name in ("q51", "q63"):
+        q = TPCDS_QUERIES[name][0]
+        before = (W.sorted_segments.launches,
+                  W.running_or_bounded_agg.launches)
+        got = q(TorchSession(), d).collect()
+        assert W.sorted_segments.launches > before[0], name
+        assert W.running_or_bounded_agg.launches > before[1], name
+        want = q(TorchSession(device="cpu"), d).collect()
+        assert len(got) == len(want) == 100, name
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert math.isclose(a, b, rel_tol=1e-9), (name, g, w)
+                else:
+                    assert a == b, (name, g, w)

@@ -1,12 +1,13 @@
-"""TPC-DS q6 (the main path) and q3, q42, q52: the PyTorch/CUDA port
-against the JAX package.
+"""TPC-DS q6 (the main path) and every other query of the port's
+``TPCDS_QUERIES``: the PyTorch/CUDA port against the JAX package.
 
-Both generators write q6's five tables at sf0.1, one parquet file per
+Both generators write the port's tables at sf0.1, one parquet file per
 table (the layout whose q6 plan has no exchange).  The port's generator
 must write the same tables; each query must return the same rows in the
 same order through ``TpuSession`` and ``TorchSession(device="cpu")``, and
 q6's two planned trees must have the same operators.
 """
+import math
 import os
 import subprocess
 import sys
@@ -18,6 +19,7 @@ import pytest
 from spark_rapids_tpu import TpuSession
 from spark_rapids_tpu.bench import tpcds_gen as jgen
 from spark_rapids_tpu.bench import tpcds_queries as jq
+from spark_rapids_tpu.bench import tpcds_queries5 as jq5
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.bench import tpcds_gen as pgen
 from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
@@ -82,12 +84,31 @@ def test_generator_reuses_and_counts(dirs, tmp_path):
                 if f.endswith(".parquet")]) == 3
 
 
+def _same_rows(got, want, rtol):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            if isinstance(b, float) and isinstance(a, float):
+                assert math.isclose(a, b, rel_tol=rtol, abs_tol=1e-9) \
+                    or (math.isnan(a) and math.isnan(b)), (g, w)
+            else:
+                assert a == b, (g, w)
+
+
 @pytest.mark.parametrize("name", list(TPCDS_QUERIES))
 def test_query_rows_match_jax(dirs, name):
     jdir, _pdir = dirs
-    want = getattr(jq, name)(TpuSession(), jdir).collect()
-    got = TPCDS_QUERIES[name][0](TorchSession(device="cpu"), jdir).collect()
-    assert got == want
+    jquery = getattr(jq, name, None) or getattr(jq5, name)
+    want = jquery(TpuSession(), jdir).collect()
+    pdf = TPCDS_QUERIES[name][0](TorchSession(device="cpu"), jdir)
+    got = pdf.collect()
+    if "WindowExec" in pdf.explain():
+        # a frame sum is a segmented scan here and a difference of
+        # whole-batch prefix sums in the reference: the last bits differ
+        _same_rows(got, want, rtol=1e-12)
+    else:
+        assert got == want
     assert len(got) > 0
     if name == "q6":
         assert len(got) == 51
