@@ -13,7 +13,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
 3. per kernel (K1 sort, K2 compact, K3 gather, K4 segmented aggregate;
    K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
    phase 6; K12a window segment extents, K12b window frame aggregates in
-   phase 7): seeded inputs
+   phase 7; K13a, K13b in phase 8): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -47,7 +47,19 @@ Phases (any failure exits non-zero; no phase's error is caught):
    running maxima) and q63 (a whole-partition average) at SF10 over the
    default layout, each cold + warm, checked against numpy/pyarrow, with
    every exchange's map-side bytes;
-8. print the kernel table as one JSON line (launches per path), the card
+8. the string kernels: K13a substring and K13b literal match held exactly
+   against their plain versions on a 2^24-row stress batch (widths 4 to
+   256; ASCII, 2-, 3- and 4-byte UTF-8, NULs, lone continuation bytes,
+   empty and null rows; pos in [-W-2, W+2] and len in [-2, W+2] plus
+   2^31-1, literal and as columns with nulls; every match mode with
+   literal needles, the empty one and one wider than W, and needle
+   columns) and at the paths' shapes (q22's SF10 c_phone column, q14's
+   joined p_type rows); then TPC-DS q15 (SF10, default layout, AQE on:
+   substr(ca_zip, 1, 5) after three joins), TPC-H q14 (p_type LIKE
+   'PROMO%') and q22 (substring(c_phone, 1, 2), a scalar subquery, an
+   anti join), each cold + warm, checked against numpy/pyarrow; K13a
+   must launch on q15 and q22, K13b on q14;
+9. print the kernel table as one JSON line (launches per path), the card
    line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -654,6 +666,7 @@ def _counters() -> dict:
     from spark_rapids_tpu_torch.ops import partition as P
     from spark_rapids_tpu_torch.ops import segmented as G
     from spark_rapids_tpu_torch.ops import sort as S
+    from spark_rapids_tpu_torch.ops import strings as STR
     from spark_rapids_tpu_torch.ops import window as W
     return {"sort_permutation": {"sort_permutation": S.sort_permutation},
             "compact": {"compact": K.compact},
@@ -672,7 +685,9 @@ def _counters() -> dict:
             "group_by_part": {"group_by_part": P.group_by_part},
             "sorted_segments": {"sorted_segments": W.sorted_segments},
             "running_or_bounded_agg": {
-                "running_or_bounded_agg": W.running_or_bounded_agg}}
+                "running_or_bounded_agg": W.running_or_bounded_agg},
+            "substring": {"substring": STR.substring},
+            "string_match": {"string_match": STR.string_match}}
 
 
 _Q1_ENTRIES = ("sort_permutation", "compact", "gather_columns",
@@ -1760,11 +1775,468 @@ def run_window_paths(torch, warm: int) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# string kernels (K13a substring, K13b literal match) and the string paths
+# ---------------------------------------------------------------------------
+
+#: rows of each width of the K13 stress batches (2^24 rows in all)
+STRING_STRESS_ROWS = {4: 1 << 22, 8: 1 << 22, 16: 1 << 22, 32: 1 << 21,
+                      64: 1 << 20, 128: 1 << 19, 256: 1 << 19}
+INT32_MAX = 2 ** 31 - 1
+#: the 4-byte pieces stress rows are built from: ASCII, two 2-byte
+#: characters, a 3-byte character and an ASCII byte, a 4-byte character,
+#: NUL bytes, a lone continuation byte; one pick in seven is random bytes
+_STRESS_SLOTS = [b"abcd", "éé".encode(), "€a".encode(), "😀".encode(),
+                 b"\x00a\x00b", b"Z \x80Z"]
+#: literal needles of the K13b stress checks (one wider than every W is
+#: added per width)
+_STRESS_NEEDLES = ["", "a", "é", "€a", "😀", "\x00a", "Z \x80Z", "abcdé"]
+_TPCH_CODES = ("13", "31", "23", "29", "30", "18", "17")
+_Q15_ZIPS = ("85669", "86197", "88274", "83405", "86475", "85392", "85460",
+             "80348", "81792")
+
+
+def _stress_strings(torch, gen, n: int, w: int, dev):
+    """uint8 [n, w], int32 lengths, bool validity on the card: rows of
+    4-byte pieces (whole UTF-8 characters, NULs, lone continuation bytes
+    or random bytes) cut at a random length, so characters are cut too;
+    ~10% null and ~10% empty rows, zeros past every length."""
+    table = torch.tensor([int.from_bytes(s, "little") for s in
+                          _STRESS_SLOTS], dtype=torch.int64, device=dev)
+    nw = w // 4
+    pick = torch.randint(0, len(_STRESS_SLOTS) + 1, (n, nw), device=dev,
+                         generator=gen)
+    rand = torch.randint(0, 1 << 32, (n, nw), dtype=torch.int64, device=dev,
+                         generator=gen)
+    words = torch.where(pick < len(_STRESS_SLOTS),
+                        table[pick.clamp(max=len(_STRESS_SLOTS) - 1)], rand)
+    data = torch.stack([(words >> (8 * k)) & 0xFF for k in range(4)],
+                       dim=2).to(torch.uint8).reshape(n, w)
+    u = torch.rand(n, device=dev, generator=gen)
+    lengths = torch.randint(1, w + 1, (n,), device=dev, generator=gen)
+    valid = u >= 0.1
+    lengths = torch.where(valid & (u >= 0.2), lengths, 0).to(torch.int32)
+    j = torch.arange(w, device=dev)
+    data = torch.where(j[None, :] < lengths[:, None], data, 0)
+    return data.contiguous(), lengths, valid
+
+
+def _sector_bytes(torch, lengths, w: int) -> int:
+    """Bytes of the 32-byte sectors of a row-major [n, w] matrix that hold
+    a byte inside some row's length."""
+    if w >= 32:
+        return int(((lengths.long() + 31) // 32).sum()) * 32
+    k = 32 // w
+    pad = (-lengths.numel()) % k
+    ln = torch.cat([lengths, lengths.new_zeros(pad)]).view(-1, k)
+    return int((ln > 0).any(1).sum()) * 32
+
+
+def _same_strings(torch, got, want, what: str) -> None:
+    for g, w_, name in zip(got, want, ("data", "lengths", "validity")):
+        if g.shape != w_.shape or not torch.equal(g, w_):
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 "version")
+
+
+def _column_operand(torch, gen, n: int, lo: int, hi: int, dev, extra=()):
+    vals = torch.randint(lo, hi + 1, (n,), device=dev, generator=gen)
+    for x in extra:
+        vals = torch.where(torch.rand(n, device=dev, generator=gen) < 0.1,
+                           x, vals)
+    return vals, torch.rand(n, device=dev, generator=gen) >= 0.1
+
+
+def check_substring(torch, dev, phones) -> dict:
+    """K13a against its plain version on the 2^24-row stress batch (every
+    width from 4 to 256; pos in [-W-2, W+2] and len in [-2, W+2] plus
+    2^31-1, literal and as columns with nulls) and at q22's shape (the
+    SF10 c_phone column, W 16, substring(c_phone, 1, 2)), exactly; timed
+    at q22's shape."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import strings as OS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(131)
+    cases = 0
+    for w, n in STRING_STRESS_ROWS.items():
+        s = _stress_strings(torch, gen, n, w, dev)
+        pos = _column_operand(torch, gen, n, -w - 2, w + 2, dev, (0,))
+        ln = _column_operand(torch, gen, n, -2, w + 2, dev, (INT32_MAX,))
+        literals = [(1, 2), (0, 3), (-1, 1), (-3, 2), (3, -1), (w // 2, w),
+                    (w + 2, 1), (-w - 2, w + 2), (2, INT32_MAX),
+                    (-2, INT32_MAX)]
+        for p, l in literals + [(pos, ln), (pos, 5), (1, ln)]:
+            _same_strings(torch, OS.substring(*s, p, l),
+                          OS.substring_plain(*s, p, l),
+                          f"K13a W={w} pos={p if isinstance(p, int) else 'col'}"
+                          f" len={l if isinstance(l, int) else 'col'}")
+            cases += 1
+        del s, pos, ln
+        torch.cuda.empty_cache()
+    data, lengths, valid = phones
+    n, w = data.shape
+    _same_strings(torch, OS.substring(data, lengths, valid, 1, 2),
+                  OS.substring_plain(data, lengths, valid, 1, 2), "K13a q22")
+    ms = _time_ms(torch, lambda: OS.substring(data, lengths, valid, 1, 2),
+                  reps=20)
+    plain_ms = _time_ms(torch, lambda: OS.substring_plain(
+        data, lengths, valid, 1, 2))
+    # the kernel alone: its C entry point on preallocated outputs, apart
+    # from the wrapper's allocations and checks
+    out = [torch.empty_like(data), torch.empty_like(lengths),
+           torch.empty_like(valid)]
+    args = [data.data_ptr(), lengths.data_ptr(), valid.data_ptr(), n, w,
+            None, None, 1, None, None, 2] + [t.data_ptr() for t in out] + [
+        native.stream_ptr(dev)]
+    lib = native.lib("string_substr")
+    kernel_ms = _time_ms(torch, lambda: lib.srt_substring(*args), reps=50)
+    # in: the sectors of the bytes inside the lengths, lengths, validity;
+    # out: the whole W-wide rows, lengths, validity
+    nbytes = _sector_bytes(torch, lengths, w) + 5 * n + n * w + 5 * n
+    print(f"[K13a substring] checked {cases} (width, pos, len) cases on "
+          f"2^24 stress rows over W 4..256 and q22's shape: equal; timed "
+          f"rows={n} W={w} ms={ms:.4f} (the kernel alone {kernel_ms:.4f}) "
+          f"plain_ms={plain_ms:.4f} "
+          f"library_ms=none (no PyTorch call computes a UTF-8 substring) "
+          f"bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+    return dict(name="substring", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/string_substr.cu",
+                replaces="spark_rapids_tpu/expr/strings.py:174",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=None)
+
+
+def _doubled(torch, data, lengths, valid):
+    """Each row twice over, in a matrix twice as wide (a needle wider than
+    the column's W once the row is longer than W / 2)."""
+    n, w = data.shape
+    j = torch.arange(2 * w, device=data.device)
+    ln = lengths.long()[:, None]
+    src = torch.where(j[None, :] < ln, j[None, :], j[None, :] - ln)
+    out = torch.gather(data, 1, src.clamp(0, w - 1))
+    out = torch.where(j[None, :] < 2 * ln, out, 0).contiguous()
+    return out, (2 * lengths).to(torch.int32), valid
+
+
+def check_string_match(torch, dev, ptypes) -> dict:
+    """K13b against its plain version in every mode on the 2^24-row stress
+    batch (literal needles, the empty one and one wider than W included,
+    and needle columns: pieces of each row, and each row doubled) and at
+    q14's shape (the joined p_type rows, W 32, prefix 'PROMO'), exactly;
+    timed at q14's shape."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import strings as OS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(132)
+    cases, hits = 0, 0
+    for w, n in STRING_STRESS_ROWS.items():
+        s = _stress_strings(torch, gen, n, w, dev)
+        pos = _column_operand(torch, gen, n, 1, w, dev)
+        ln = _column_operand(torch, gen, n, 0, w // 2, dev)
+        needles = [OS.literal_needle(t, dev) for t in
+                   _STRESS_NEEDLES + ["x" * (w + 4)]]
+        needles.append(OS.substring_plain(*s, pos, ln))
+        needles.append(_doubled(torch, *s))
+        for mode in OS.MATCH_MODES:
+            for nd in needles:
+                got = OS.string_match(mode, *s, *nd)
+                want = OS.string_match_plain(mode, *s, *nd)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"K13b W={w} {mode} needle width "
+                                         f"{nd[0].shape[1]} rows "
+                                         f"{nd[0].shape[0]}: differs")
+                hits += int(got[0].sum())
+                cases += 1
+        del s, pos, ln, needles
+        torch.cuda.empty_cache()
+    data, lengths, valid = ptypes
+    n, w = data.shape
+    nd = OS.literal_needle("PROMO", dev)
+    got = OS.string_match("prefix", data, lengths, valid, *nd)
+    want = OS.string_match_plain("prefix", data, lengths, valid, *nd)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("K13b q14 prefix: differs")
+    ms = _time_ms(torch, lambda: OS.string_match("prefix", data, lengths,
+                                                 valid, *nd), reps=20)
+    plain_ms = _time_ms(torch, lambda: OS.string_match_plain(
+        "prefix", data, lengths, valid, *nd))
+    # the kernel alone, as for K13a
+    out = [torch.empty_like(valid), torch.empty_like(valid)]
+    args = [OS.MATCH_MODES["prefix"], data.data_ptr(), lengths.data_ptr(),
+            valid.data_ptr(), n, w] + [t.data_ptr() for t in nd] + [
+        0, nd[0].shape[1]] + [t.data_ptr() for t in out] + [
+        native.stream_ptr(dev)]
+    lib = native.lib("string_match")
+    kernel_ms = _time_ms(torch, lambda: lib.srt_string_match(*args), reps=50)
+    k = int(nd[1][0])
+
+    def library():
+        return (torch.eq(data[:, :k], nd[0][:, :k]).all(1)
+                & (lengths >= k) & valid)
+
+    if not torch.equal(library(), got[0]):
+        raise AssertionError("K13b q14: the library call disagrees")
+    lib_ms = _time_ms(torch, library, reps=20)
+    # in: the first sector of every valid row at least k long, lengths,
+    # validity; out: match and validity
+    need = (valid & (lengths >= k)).to(torch.int32) * k
+    nbytes = _sector_bytes(torch, need, w) + 5 * n + 2 * n
+    print(f"[K13b string match] checked {cases} (width, mode, needle) cases "
+          f"on 2^24 stress rows ({hits} matches) and q14's shape: equal; "
+          f"timed rows={n} W={w} prefix 'PROMO' ms={ms:.4f} (the kernel "
+          f"alone {kernel_ms:.4f}) "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (torch.eq over "
+          f"the first {k} bytes .all(1) plus the length test) "
+          f"bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+    return dict(name="string_match", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/string_match.cu",
+                replaces="spark_rapids_tpu/expr/strings.py:294",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+def _strings_np(table, name: str):
+    """(python strings with None, validity) of one string column."""
+    c = table.column(name).combine_chunks()
+    return (np.array(c.to_pylist(), dtype=object),
+            c.is_valid().to_numpy(zero_copy_only=False))
+
+
+def reference_q15(data_dir: str) -> tuple:
+    """q15 over the parquet with numpy/pyarrow alone: (ca_zip, sum of
+    cs_sales_price) of the sales in 2001Q1 whose address has one of nine
+    zip prefixes or a state of CA/WA/GA, or whose price tops 500; first
+    100 zips ascending (null first).  Also the rows of the three joins
+    (the input of q15's filter, where the substring runs)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    def read(t, cols):
+        return pq.read_table(os.path.join(data_dir, t), columns=cols)
+
+    dd = read("date_dim", ["d_date_sk", "d_qoy", "d_year"])
+    dsk, _ = _arrow_col(dd, "d_date_sk")
+    qoy, _ = _arrow_col(dd, "d_qoy")
+    year, _ = _arrow_col(dd, "d_year")
+    dates = dsk[(qoy == 1) & (year == 2001)]
+    cs = read("catalog_sales", ["cs_sold_date_sk", "cs_bill_customer_sk",
+                                "cs_sales_price"])
+    sold, sold_valid = _arrow_col(cs, "cs_sold_date_sk")
+    cust, cust_valid = _arrow_col(cs, "cs_bill_customer_sk")
+    price, price_valid = _arrow_col(cs, "cs_sales_price")
+    cu = read("customer", ["c_customer_sk", "c_current_addr_sk"])
+    csk, _ = _arrow_col(cu, "c_customer_sk")
+    caddr, caddr_valid = _arrow_col(cu, "c_current_addr_sk")
+    ca = read("customer_address", ["ca_address_sk", "ca_state", "ca_zip"])
+    ask, _ = _arrow_col(ca, "ca_address_sk")
+    states, state_valid = _strings_np(ca, "ca_state")
+    zips, zip_valid = _strings_np(ca, "ca_zip")
+    zip5 = pc.utf8_slice_codeunits(ca.column("ca_zip").combine_chunks(),
+                                   0, 5)
+    zip_hit = pc.fill_null(pc.is_in(zip5, value_set=pa.array(
+        list(_Q15_ZIPS))), False).to_numpy(zero_copy_only=False)
+    state_hit = state_valid & np.isin(states, ["CA", "WA", "GA"])
+    idx = np.nonzero(sold_valid & np.isin(sold, dates) & cust_valid)[0]
+    crow = _lookup(csk, cust[idx])
+    idx, crow = idx[crow >= 0], crow[crow >= 0]
+    k = caddr_valid[crow]
+    idx, crow = idx[k], crow[k]
+    arow = _lookup(ask, caddr[crow])
+    idx, arow = idx[arow >= 0], arow[arow >= 0]
+    joined = len(idx)
+    keep = zip_hit[arow] | state_hit[arow] | (price_valid[idx]
+                                               & (price[idx] > 500.0))
+    idx, arow = idx[keep], arow[keep]
+    sums: dict = {}
+    for z, zv, p, pv in zip(zips[arow], zip_valid[arow], price[idx],
+                            price_valid[idx]):
+        key = z if zv else None
+        tot = sums.setdefault(key, [0.0, False])
+        if pv:
+            tot[0] += float(p)
+            tot[1] = True
+    rows = [(k_, v[0] if v[1] else None) for k_, v in sums.items()]
+    rows.sort(key=lambda r: (r[0] is not None, r[0] or ""))
+    return rows[:100], joined
+
+
+def _check_keyed_doubles(label: str, got, want, exact: int) -> None:
+    """Rows equal in order: the first ``exact`` fields exactly, doubles
+    after them within F64_RTOL."""
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{label}: {len(got)} rows, numpy/pyarrow "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        if g[:exact] != w[:exact] or len(g) != len(w):
+            raise AssertionError(f"{label} row {g} != {w}")
+        for a, b in zip(g[exact:], w[exact:]):
+            if (a is None) != (b is None) or (
+                    b is not None and not abs(a - b) <= F64_RTOL * abs(b)):
+                raise AssertionError(f"{label} row {g} != {w} (doubles "
+                                     f"rtol {F64_RTOL})")
+
+
+def reference_q14(data_dir: str):
+    """q14 over the parquet with numpy/pyarrow alone; also the part rows
+    of the joined lineitem rows (q14's p_type input) and the part table's
+    p_type column."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    li = pq.read_table(os.path.join(data_dir, "lineitem"),
+                       columns=["l_partkey", "l_shipdate",
+                                "l_extendedprice", "l_discount"])
+    ship = li.column("l_shipdate").combine_chunks().cast("int32") \
+        .to_numpy(zero_copy_only=False)
+    lo = (_dt.date(1995, 9, 1) - _dt.date(1970, 1, 1)).days
+    hi = (_dt.date(1995, 10, 1) - _dt.date(1970, 1, 1)).days
+    keep = (ship >= lo) & (ship < hi)
+    pk, _ = _arrow_col(li, "l_partkey")
+    price, _ = _arrow_col(li, "l_extendedprice")
+    disc, _ = _arrow_col(li, "l_discount")
+    pt = pq.read_table(os.path.join(data_dir, "part"),
+                       columns=["p_partkey", "p_type"])
+    psk, _ = _arrow_col(pt, "p_partkey")
+    ptype = pt.column("p_type").combine_chunks()
+    promo = pc.fill_null(pc.starts_with(ptype, "PROMO"), False) \
+        .to_numpy(zero_copy_only=False)
+    prow = _lookup(psk, pk[keep])
+    dp = (price[keep] * (1.0 - disc[keep]))[prow >= 0]
+    prow = prow[prow >= 0]
+    value = 100.0 * float(dp[promo[prow]].sum()) / float(dp.sum())
+    return [(value,)], prow, ptype
+
+
+def reference_q22(data_dir: str):
+    """q22 over the parquet with numpy/pyarrow alone: (cntrycode, count,
+    sum of c_acctbal) of customers whose phone starts with one of seven
+    codes, whose balance is above the average positive balance of those,
+    and who placed no order; by code.  Also the smallest relative gap
+    between a balance and that average."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    cu = pq.read_table(os.path.join(data_dir, "customer"),
+                       columns=["c_custkey", "c_phone", "c_acctbal"])
+    ck, _ = _arrow_col(cu, "c_custkey")
+    bal, _ = _arrow_col(cu, "c_acctbal")
+    code = pc.utf8_slice_codeunits(cu.column("c_phone").combine_chunks(),
+                                   0, 2)
+    codes = np.array(pc.fill_null(code, "").to_pylist(), dtype=object)
+    m = pc.fill_null(pc.is_in(code, value_set=pa.array(list(_TPCH_CODES))),
+                     False).to_numpy(zero_copy_only=False)
+    avg = float(bal[m & (bal > 0.0)].mean())
+    gap = float(np.min(np.abs(bal[m] - avg)) / abs(avg))
+    od = pq.read_table(os.path.join(data_dir, "orders"),
+                       columns=["o_custkey"])
+    ok, _ = _arrow_col(od, "o_custkey")
+    sel = m & (bal > avg) & ~np.isin(ck, np.unique(ok))
+    rows = []
+    for c in sorted(set(codes[sel])):
+        g = sel & (codes == c)
+        rows.append((c, int(g.sum()), float(bal[g].sum())))
+    return rows, gap
+
+
+def _device_strings(torch, dev, arr):
+    """(data, lengths, validity) of a pyarrow string array on the card,
+    each in an allocation of its own (aligned for the kernels' word
+    reads)."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    rb = pa.RecordBatch.from_arrays([arr], names=["s"])
+    c = ColumnBatch.from_arrow(rb, dev).columns[0]
+    return c.data.clone(), c.lengths.clone(), c.validity.clone()
+
+
+_STRING_ENTRIES = ("substring", "string_match")
+
+
+def run_string_phase(torch, dev, sf: float, warm: int):
+    """K13a and K13b against their plain versions, then TPC-DS q15 (SF10,
+    default layout, AQE on) and TPC-H q14 and q22 (``sf``, seed 7), each
+    cold + warm and checked against numpy/pyarrow; returns ({kernel:
+    entry}, {path: launches})."""
+    from spark_rapids_tpu_torch.bench import tpcds_gen, tpch_gen
+    from spark_rapids_tpu_torch.bench.profile_query import TPCH_OTHER
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    from spark_rapids_tpu_torch.bench.tpch_queries import q14, q22
+    from spark_rapids_tpu_torch.conf import ADVISORY_PARTITION_BYTES
+    tpch_dir = os.path.join(ROOT, ".bench_data", f"tpch_sf{sf:g}_seed7")
+    tpcds_dir = os.path.join(ROOT, ".bench_data",
+                             f"tpcds_sf{Q6_SF:g}_seed42_default")
+    q15, tables = TPCDS_QUERIES["q15"]
+    t0 = time.perf_counter()
+    tpch_gen.generate_tpch(tpch_dir, sf=sf, seed=7, tables=("lineitem",))
+    tpch_gen.generate_tpch(tpch_dir, sf=sf, seed=7, tables=TPCH_OTHER)
+    tpcds_gen.generate_tpcds(tpcds_dir, sf=Q6_SF, seed=42, tables=tables,
+                             rows_per_file=DEFAULT_ROWS_PER_FILE)
+    print(f"[strings] TPC-H SF{sf:g} {list(TPCH_OTHER)} and TPC-DS "
+          f"SF{Q6_SF:g} {list(tables)} ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    want15, joined15 = reference_q15(tpcds_dir)
+    want14, prow, ptype = reference_q14(tpch_dir)
+    want22, gap22 = reference_q22(tpch_dir)
+    print(f"[strings] numpy/pyarrow references in "
+          f"{time.perf_counter() - t0:.1f} s: q15 filters {joined15} "
+          f"joined rows; q14 joins {len(prow)} "
+          f"lineitem rows to part; q22's closest |c_acctbal - avg| / avg "
+          f"is {gap22:.3e}", flush=True)
+    if gap22 <= 10 * F64_RTOL:
+        raise AssertionError("a q22 balance lies within the comparison "
+                             "tolerance of the average")
+    import pyarrow.parquet as pq
+    phones = pq.read_table(os.path.join(tpch_dir, "customer"),
+                           columns=["c_phone"]).column("c_phone") \
+        .combine_chunks()
+    entries = {
+        "substring": check_substring(
+            torch, dev, _device_strings(torch, dev, phones)),
+        "string_match": check_string_match(
+            torch, dev, _device_strings(torch, dev, ptype.take(prow)))}
+    del phones, prow, ptype
+    torch.cuda.empty_cache()
+    session = _cuda_session()
+    explain = q15(session, tpcds_dir).explain()
+    if explain.index("FilterExec") > explain.index("JoinExec") or \
+            explain.count("JoinExec") != 3:
+        raise AssertionError("q15 does not filter above its three joins")
+    paths = {}
+    paths["q15"] = _drive(
+        torch, "q15", lambda: q15(session, tpcds_dir),
+        lambda r: _check_keyed_doubles("q15", r, want15, 1),
+        _Q6_ENTRIES + _SHUFFLE_ENTRIES + _STRING_ENTRIES, warm,
+        ("matched_build_rows", "murmur3_columns", "key_ids",
+         "string_match"), zero=("partition_ids_for_keys", "group_by_part"))
+    advisory = ADVISORY_PARTITION_BYTES.get(session.conf.settings)
+    for desc, sizes in _map_side_bytes(torch, q15(session, tpcds_dir)):
+        print(f"[q15 exchange] {desc}: map side {sum(sizes.values())} "
+              f"bytes (advisory {advisory}), coalesced into partition 0, "
+              f"K9/K10 not run; by partition {sizes}", flush=True)
+    paths["q14"] = _drive(
+        torch, "q14", lambda: q14(session, tpch_dir),
+        lambda r: _check_keyed_doubles("q14", r, want14, 0),
+        _Q6_ENTRIES + _STRING_ENTRIES, warm,
+        ("segment_flags", "key_ids", "matched_build_rows", "substring"))
+    paths["q22"] = _drive(
+        torch, "q22", lambda: q22(session, tpch_dir),
+        lambda r: _check_keyed_doubles("q22", r, want22, 2),
+        _Q6_ENTRIES + _STRING_ENTRIES, warm,
+        ("key_ids", "matched_build_rows", "string_match"))
+    if "JoinExec[anti" not in q22(session, tpch_dir).explain():
+        raise AssertionError("q22 planned no anti join")
+    return entries, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
-                    help="TPC-H scale factor of the q1 phase (q6 runs "
-                    "at SF10 always)")
+                    help="TPC-H scale factor of q1, q14 and q22 (the "
+                    "TPC-DS queries run at SF10 always)")
     ap.add_argument("--warm", type=int, default=3,
                     help="warm runs of each query")
     args = ap.parse_args(argv)
@@ -1817,6 +2289,11 @@ def main(argv=None) -> int:
     paths.update(run_exchange_paths(torch, args.warm))
     torch.cuda.empty_cache()
     paths.update(run_window_paths(torch, args.warm))
+    torch.cuda.empty_cache()
+    string_entries, string_paths = run_string_phase(torch, dev, args.sf,
+                                                    args.warm)
+    entries.update(string_entries)
+    paths.update(string_paths)
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

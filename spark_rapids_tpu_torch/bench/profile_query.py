@@ -1,15 +1,16 @@
-"""Where a query's time goes on the card: TPC-H q1, TPC-DS q6, q51 or
-q63, or the ``top_customers`` repartition.
+"""Where a query's time goes on the card: TPC-H q1, q14 or q22, TPC-DS
+q6, q15, q51 or q63, or the ``top_customers`` repartition.
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
-``bench/tpch_gen.py`` (q1: lineitem) or ``bench/tpcds_gen.py`` (the
-TPC-DS query's tables), reused when present, then:
+``bench/tpch_gen.py`` (the TPC-H query's tables) or ``bench/tpcds_gen.py``
+(the TPC-DS query's tables), reused when present, then:
 
 * times a cold and a warm run (host clock, ending in a device
   synchronise);
 * times the largest parquet scan alone (host decode + pinned upload),
-  draining the planned tree's scan of the fact table (lineitem;
-  store_sales);
+  draining the planned tree's scan of the fact table (lineitem for q1
+  and q14, orders for q22, catalog_sales for q15, store_sales for the
+  other TPC-DS queries);
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
   the run and the kernels that take most of it.
@@ -18,7 +19,7 @@ TPC-DS query's tables), reused when present, then:
 table, so q6 plans no exchange; ``--layout default`` writes the
 generator's 2^20-row files, so the scan has 8 partitions and the grouped
 aggregate runs partial -> exchange -> final (the repartition query and
-the window queries q51 and q63 always read this layout).  ``--conf
+the queries q15, q51 and q63 always read this layout).  ``--conf
 key=value`` sets a session conf, e.g.
 ``spark.sql.adaptive.enabled=false``.
 
@@ -29,6 +30,7 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
         --layout default --conf spark.sql.adaptive.enabled=false
     python -m spark_rapids_tpu_torch.bench.profile_query --query repartition
     python -m spark_rapids_tpu_torch.bench.profile_query --query q51
+    python -m spark_rapids_tpu_torch.bench.profile_query --query q22
 """
 from __future__ import annotations
 
@@ -43,9 +45,18 @@ from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.bench import tpcds_gen, tpch_gen
 from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
                                                         top_customers)
-from spark_rapids_tpu_torch.bench.tpch_queries import q1
+from spark_rapids_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from spark_rapids_tpu_torch.exec.core import ExecCtx
 from spark_rapids_tpu_torch.io import ParquetScanExec
+
+#: the TPC-H tables of q14 and q22 beside lineitem, written in one call
+#: (as chip_smoke.py writes them)
+TPCH_OTHER = ("customer", "orders", "part")
+#: TPC-H query -> (the table groups it reads, one generator call each; its
+#: largest table)
+_TPCH = {"q1": ((("lineitem",),), "lineitem"),
+         "q14": ((("lineitem",), TPCH_OTHER), "lineitem"),
+         "q22": ((TPCH_OTHER,), "orders")}
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -76,25 +87,28 @@ def _timed(fn) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--query",
-                    choices=("q1", "q6", "q51", "q63", "repartition"),
+                    choices=("q1", "q14", "q22", "q6", "q15", "q51", "q63",
+                             "repartition"),
                     default="q6")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--layout", choices=("onefile", "default"),
                     default="onefile",
-                    help="TPC-DS file layout (repartition, q51 and q63: "
-                    "always default)")
+                    help="TPC-DS file layout (repartition, q15, q51 and "
+                    "q63: always default)")
     ap.add_argument("--conf", action="append", default=[],
                     metavar="KEY=VALUE", help="a session conf entry")
     ap.add_argument("--top", type=int, default=12,
                     help="kernels listed by device time")
     args = ap.parse_args(argv)
     bench = os.path.join(_ROOT, ".bench_data")
-    if args.query == "q1":
+    if args.query in _TPCH:
         data_dir = os.path.join(bench, f"tpch_sf{args.sf:g}_seed7")
-        tpch_gen.generate_tpch(data_dir, sf=args.sf, seed=7,
-                               tables=("lineitem",))
-        query, fact = q1, ("lineitem", tpch_gen.table_row_counts(args.sf)[
-            "lineitem"])
+        groups, big = _TPCH[args.query]
+        for tables in groups:
+            tpch_gen.generate_tpch(data_dir, sf=args.sf, seed=7,
+                                   tables=tables)
+        query = TPCH_QUERIES[args.query]
+        fact = (big, tpch_gen.table_row_counts(args.sf)[big])
     else:
         query, tables = TPCDS_QUERIES[
             args.query if args.query in TPCDS_QUERIES else "q6"]
@@ -107,8 +121,8 @@ def main(argv=None) -> int:
         tpcds_gen.generate_tpcds(
             data_dir, sf=args.sf, seed=42, tables=tables,
             rows_per_file=1 << 40 if args.layout == "onefile" else 1 << 20)
-        fact = ("store_sales",
-                tpcds_gen.table_row_counts(args.sf)["store_sales"])
+        big = "catalog_sales" if args.query == "q15" else "store_sales"
+        fact = (big, tpcds_gen.table_row_counts(args.sf)[big])
     session = TorchSession(dict(kv.split("=", 1) for kv in args.conf))
     df = query(session, data_dir)
     cold = _timed(df.collect)

@@ -1,5 +1,5 @@
-"""TPC-DS-shaped data generator for the tables of q3, q6, q42, q51, q52,
-q53 and q63 (port of ``spark_rapids_tpu/bench/tpcds_gen.py``).
+"""TPC-DS-shaped data generator for the tables of q3, q6, q15, q42, q51,
+q52, q53 and q63 (port of ``spark_rapids_tpu/bench/tpcds_gen.py``).
 
 It writes the same tables as the reference generator for the same scale
 factor and seed: the same per-table ``default_rng(seed + crc32(name) %
@@ -29,7 +29,7 @@ __all__ = ["generate_tpcds", "table_row_counts", "TABLES"]
 
 #: the tables this port generates (those of its TPC-DS queries)
 TABLES = ("date_dim", "item", "customer", "customer_address", "store",
-          "store_sales", "web_sales")
+          "store_sales", "catalog_sales", "web_sales")
 
 #: bump when generated schemas change; tables regenerate on mismatch
 _SCHEMA_VERSION = "v6"
@@ -376,6 +376,71 @@ def _gen_store_sales(rng, n: int, counts) -> dict[str, np.ndarray]:
     }
 
 
+def _gen_catalog_sales(rng, n: int, counts) -> dict[str, np.ndarray]:
+    qty, price, wholesale, ext = _sales_common(rng, n, counts, "cs")
+    sold = (rng.integers(_SALES_DATE_LO, _SALES_DATE_HI + 1, n)
+            + _DATE_SK_EPOCH).astype(np.int64)
+    return {
+        "cs_sold_date_sk": _with_nulls(rng, sold.astype(np.int32), 0.02),
+        "cs_sold_time_sk": _with_nulls(
+            rng, rng.integers(0, 86_400, n).astype(np.int32), 0.02),
+        "cs_ship_date_sk": _with_nulls(
+            rng, (sold + rng.integers(1, 120, n)).astype(np.int32), 0.02),
+        "cs_item_sk": rng.integers(1, counts["item"] + 1, n).astype(np.int32),
+        "cs_order_number": rng.integers(1, max(n // 2, 2),
+                                        n).astype(np.int64),
+        "cs_bill_customer_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer"] + 1, n).astype(np.int32),
+            0.03),
+        "cs_bill_cdemo_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer_demographics"] + 1,
+                              n).astype(np.int32), 0.03),
+        "cs_bill_hdemo_sk": _with_nulls(
+            rng, rng.integers(1, counts["household_demographics"] + 1,
+                              n).astype(np.int32), 0.03),
+        "cs_bill_addr_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer_address"] + 1,
+                              n).astype(np.int32), 0.03),
+        "cs_ship_customer_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer"] + 1, n).astype(np.int32),
+            0.03),
+        "cs_ship_addr_sk": _with_nulls(
+            rng, rng.integers(1, counts["customer_address"] + 1,
+                              n).astype(np.int32), 0.03),
+        "cs_ship_mode_sk": _with_nulls(
+            rng, rng.integers(1, counts["ship_mode"] + 1,
+                              n).astype(np.int32), 0.02),
+        "cs_warehouse_sk": _with_nulls(
+            rng, rng.integers(1, counts["warehouse"] + 1,
+                              n).astype(np.int32), 0.02),
+        "cs_call_center_sk": _with_nulls(
+            rng, rng.integers(1, counts["call_center"] + 1,
+                              n).astype(np.int32), 0.02),
+        "cs_catalog_page_sk": _with_nulls(
+            rng, rng.integers(1, counts["catalog_page"] + 1,
+                              n).astype(np.int32), 0.02),
+        "cs_promo_sk": _with_nulls(
+            rng, rng.integers(1, counts["promotion"] + 1, n).astype(np.int32),
+            0.02),
+        "cs_quantity": qty,
+        "cs_list_price": np.round(price * rng.uniform(1.0, 1.5, n), 2),
+        "cs_sales_price": price,
+        "cs_ext_sales_price": ext,
+        "cs_ext_list_price": np.round(price * rng.uniform(1.0, 1.5, n)
+                                      * qty, 2),
+        "cs_ext_discount_amt": np.round(
+            ext * rng.choice([0.0, 0.0, 0.05, 0.2], n), 2),
+        "cs_ext_ship_cost": np.round(ext * rng.uniform(0.01, 0.1, n), 2),
+        "cs_wholesale_cost": wholesale,
+        "cs_ext_wholesale_cost": np.round(wholesale * qty, 2),
+        "cs_coupon_amt": np.round(
+            ext * rng.choice([0.0, 0.0, 0.0, 0.1, 0.3], n), 2),
+        "cs_net_paid": np.round(ext * rng.uniform(0.7, 1.0, n), 2),
+        "cs_net_paid_inc_tax": np.round(ext * 1.08, 2),
+        "cs_net_profit": np.round(ext - wholesale * qty, 2),
+    }
+
+
 def _gen_web_sales(rng, n: int, counts) -> dict[str, np.ndarray]:
     qty, price, wholesale, ext = _sales_common(rng, n, counts, "ws")
     sold = (rng.integers(_SALES_DATE_LO, _SALES_DATE_HI + 1, n)
@@ -447,6 +512,8 @@ _GENERATORS = {
     "store": lambda rng, counts: _gen_store(rng, counts["store"]),
     "store_sales": lambda rng, counts: _gen_store_sales(
         rng, counts["store_sales"], counts),
+    "catalog_sales": lambda rng, counts: _gen_catalog_sales(
+        rng, counts["catalog_sales"], counts),
     "web_sales": lambda rng, counts: _gen_web_sales(
         rng, counts["web_sales"], counts),
 }

@@ -1,5 +1,5 @@
 """TPC-DS queries as DataFrame code (port of
-``spark_rapids_tpu/bench/tpcds_queries.py``: q3, q6, q42, q52, q53, q63,
+``spark_rapids_tpu/bench/tpcds_queries.py``: q3, q6, q15, q42, q52, q53, q63,
 and of ``tpcds_queries5.py``: q51, the ones whose operators the port
 has), and :func:`top_customers`, an explicit repartition of the fact
 table.
@@ -18,12 +18,13 @@ from spark_rapids_tpu_torch.expr.aggregates import (Average, CountStar, Max,
 from spark_rapids_tpu_torch.expr.arithmetic import Abs
 from spark_rapids_tpu_torch.expr.conditional import Coalesce
 from spark_rapids_tpu_torch.expr.core import col, lit
-from spark_rapids_tpu_torch.expr.predicates import In
+from spark_rapids_tpu_torch.expr.predicates import In, Or
+from spark_rapids_tpu_torch.expr.strings import Substring
 from spark_rapids_tpu_torch.expr.window import (CURRENT_ROW, UNBOUNDED,
                                                 WindowExpression,
                                                 WindowFrame, WindowSpec)
 
-__all__ = ["TPCDS_QUERIES", "q3", "q6", "q42", "q51", "q52", "q53", "q63",
+__all__ = ["TPCDS_QUERIES", "q3", "q6", "q15", "q42", "q51", "q52", "q53", "q63",
            "top_customers"]
 
 
@@ -88,6 +89,35 @@ def q6(session, data_dir: str):
         .where(col("cnt") >= lit(10)) \
         .order_by(("cnt", True)) \
         .limit(100)
+
+
+def q15(session, data_dir: str):
+    """TPC-DS q15: catalog sales by customer zip for 2001Q1 (zip prefix
+    / state / big-ticket filter, applied after the three joins)."""
+    cs = _t(session, data_dir, "catalog_sales",
+            ["cs_sold_date_sk", "cs_bill_customer_sk", "cs_sales_price"])
+    cust = _t(session, data_dir, "customer",
+              ["c_customer_sk", "c_current_addr_sk"])
+    ca = _t(session, data_dir, "customer_address",
+            ["ca_address_sk", "ca_state", "ca_zip"])
+    dt = _t(session, data_dir, "date_dim",
+            ["d_date_sk", "d_qoy", "d_year"]) \
+        .where((col("d_qoy") == lit(1)) & (col("d_year") == lit(2001))) \
+        .select(col("d_date_sk"))
+    zips = ["85669", "86197", "88274", "83405", "86475",
+            "85392", "85460", "80348", "81792"]
+    cond = Or(Or(In(Substring(col("ca_zip"), lit(1), lit(5)),
+                    [lit(z) for z in zips]),
+                 In(col("ca_state"), [lit(s) for s in
+                                      ("CA", "WA", "GA")])),
+              col("cs_sales_price") > lit(500.0))
+    return cs.join(cust, on=[("cs_bill_customer_sk", "c_customer_sk")]) \
+        .join(ca, on=[("c_current_addr_sk", "ca_address_sk")]) \
+        .join(dt, on=[("cs_sold_date_sk", "d_date_sk")]) \
+        .where(cond) \
+        .group_by("ca_zip") \
+        .agg(Sum(col("cs_sales_price")).alias("sum_price")) \
+        .order_by(("ca_zip", True)).limit(100)
 
 
 def q42(session, data_dir: str):
@@ -246,6 +276,8 @@ TPCDS_QUERIES = {
     "q3": (q3, ("date_dim", "item", "store_sales")),
     "q6": (q6, ("date_dim", "item", "customer", "customer_address",
                 "store_sales")),
+    "q15": (q15, ("date_dim", "customer", "customer_address",
+                  "catalog_sales")),
     "q42": (q42, ("date_dim", "item", "store_sales")),
     "q52": (q52, ("date_dim", "item", "store_sales")),
     "q51": (q51, ("date_dim", "store_sales", "web_sales")),

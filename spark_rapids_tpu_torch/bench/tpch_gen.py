@@ -9,7 +9,8 @@ scale factor of 10 (60M lineitem rows) generates within a benchmark run:
   the drawn codes, and the large ones (lineitem, orders) with pyarrow
   compute instead of a Python loop per row;
 * lineitem line numbers come from a vectorized run-position computation
-  instead of a per-row loop.
+  instead of a per-row loop;
+* lineitem, drawn last, is not drawn at all when it is not written.
 """
 from __future__ import annotations
 
@@ -322,10 +323,11 @@ def generate_tpch(data_dir: str, sf: float = 0.01, seed: int = 7,
                                          counts["supplier"])
     datasets["orders"] = _gen_orders(rng, counts["orders"],
                                      counts["customer"])
-    datasets["lineitem"] = _gen_lineitem(rng, counts["lineitem"],
-                                         datasets["orders"],
-                                         counts["part"],
-                                         counts["supplier"])
+    if "lineitem" in want:  # drawn last: the other tables do not wait
+        datasets["lineitem"] = _gen_lineitem(rng, counts["lineitem"],
+                                             datasets["orders"],
+                                             counts["part"],
+                                             counts["supplier"])
     for t in TABLES:
         if t in want:
             _write_parquet(os.path.join(data_dir, t), datasets.pop(t))

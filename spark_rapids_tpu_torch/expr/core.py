@@ -247,6 +247,26 @@ class Expression:
         return In(self, [v if isinstance(v, Expression) else Literal.infer(v)
                          for v in values])
 
+    def substr(self, pos, length) -> "Expression":
+        from spark_rapids_tpu_torch.expr.strings import Substring
+        return Substring(self, Literal.infer(pos), Literal.infer(length))
+
+    def startswith(self, s) -> "Expression":
+        from spark_rapids_tpu_torch.expr.strings import StartsWith
+        return self._bin(s, StartsWith)
+
+    def endswith(self, s) -> "Expression":
+        from spark_rapids_tpu_torch.expr.strings import EndsWith
+        return self._bin(s, EndsWith)
+
+    def contains(self, s) -> "Expression":
+        from spark_rapids_tpu_torch.expr.strings import Contains
+        return self._bin(s, Contains)
+
+    def like(self, pattern: str) -> "Expression":
+        from spark_rapids_tpu_torch.expr.strings import Like
+        return Like(self, pattern)
+
 
 class Literal(Expression):
     sql_name = "Literal"

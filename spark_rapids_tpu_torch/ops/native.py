@@ -40,6 +40,8 @@ SOURCES = {
     "partition_group": "partition_group.cu",
     "window_segments": "window_segments.cu",
     "window_agg": "window_agg.cu",
+    "string_substr": "string_substr.cu",
+    "string_match": "string_match.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -101,6 +103,14 @@ _SIGNATURES = {
         "srt_window_agg": [_I, _P, _P, _I, _I, _P, _P, _P, _L, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _P],
         "srt_window_agg_piece_bytes": [],
+    },
+    "string_substr": {
+        "srt_substring": [_P, _P, _P, _L, _I, _P, _P, _L, _P, _P, _L, _P,
+                          _P, _P, _P],
+    },
+    "string_match": {
+        "srt_string_match": [_I, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I,
+                             _P, _P, _P],
     },
 }
 

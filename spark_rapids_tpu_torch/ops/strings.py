@@ -1,0 +1,278 @@
+"""String kernels: Spark ``substring`` (K13a) and literal matching (K13b).
+
+Port of the device branches of ``spark_rapids_tpu/expr/strings.py``:
+``_char_starts`` (:29) with ``Substring._device`` (:174), and the byte
+comparisons of ``StartsWith`` (:294), ``EndsWith`` (:310), ``Contains``
+(:329) and the ``equals`` shape of ``Like`` (``predicates.py:58``
+``_string_eq``).  Strings are the column contract's byte matrices: uint8
+``[n, W]`` (W a power of two >= 4) with int32 lengths and bool validity.
+
+* K13a, ``csrc/string_substr.cu``: one thread per row of up to 32 bytes,
+  a group of ``min(W / 4, 32)`` lanes per wider row, counts the row's
+  character starts (a byte is a start when ``(b & 0xC0) != 0x80``),
+  resolves ``pos`` and ``len`` as Spark's
+  ``UTF8String.substringSQL`` does, in 64-bit arithmetic, finds the byte
+  offsets of the first and the past-the-end character, and writes the
+  bytes between them to the front of the output row with zeros after
+  them (equality, ``In``, sort words and group keys compare whole padded
+  rows).
+* K13b, ``csrc/string_match.cu``: one thread per row matches a needle --
+  one row broadcast to every row (a literal) or a column -- at the row's
+  start (prefix), end (suffix), any offset (contains) or as the whole
+  row (equals).  An empty needle matches every valid row but in equals
+  mode, where it matches the empty string.
+
+The reference computes ``start + len`` in int32, so ``substring('hello',
+2, 2147483647)`` wraps to ``''`` there (ROADMAP.md Queue 3); both
+versions here give Spark's ``'ello'``.
+
+Beside each kernel is its plain PyTorch version.  A wrapper takes it only
+for a tensor on the CPU; on a CUDA tensor it launches its kernel or
+raises.  Each wrapper counts its kernel launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch.columnar.column import round_string_width
+from spark_rapids_tpu_torch.ops import native
+from spark_rapids_tpu_torch.ops.kernels import ptr
+
+__all__ = ["substring", "substring_plain", "string_match",
+           "string_match_plain", "literal_needle", "MATCH_MODES"]
+
+#: mode codes of csrc/string_match.cu
+MATCH_MODES = {"prefix": 0, "suffix": 1, "contains": 2, "equals": 3}
+
+_I64_MAX = (1 << 63) - 1
+_I64_MIN = -(1 << 63)
+
+
+def _check_strings(data, lengths, validity, what: str) -> None:
+    if data.dtype != torch.uint8 or data.dim() != 2:
+        raise ValueError(f"{what}: strings must be uint8 [n, W], got "
+                         f"{data.dtype}{tuple(data.shape)}")
+    n, w = data.shape
+    if w < 4 or w % 4:
+        raise ValueError(f"{what}: string width {w} is not a multiple of 4")
+    if lengths.shape != (n,) or validity.shape != (n,):
+        raise ValueError(f"{what}: lengths and validity must be [{n}]")
+
+
+def _int_operand(v, n: int, dev):
+    """An int64 [n] tensor and its validity for a scalar or a column."""
+    if isinstance(v, tuple):
+        data, valid = v
+        return data.to(torch.int64), valid
+    return (torch.full((n,), int(v), dtype=torch.int64, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# K13a: substring
+# ---------------------------------------------------------------------------
+
+def substring(data: torch.Tensor, lengths: torch.Tensor,
+              validity: torch.Tensor, pos, length):
+    """Spark ``substring(str, pos, len)`` of every row, by character.
+
+    ``pos`` and ``length`` are each a python int (a literal) or a pair
+    (integer tensor [n], bool validity [n]).  Returns (uint8 [n, W] with
+    zeros after each result, int32 lengths, bool validity); the result is
+    null where the string, ``pos`` or ``length`` is."""
+    _check_strings(data, lengths, validity, "substring")
+    if data.device.type == "cpu":
+        return substring_plain(data, lengths, validity, pos, length)
+    return _substring_cuda(data, lengths, validity, pos, length)
+
+
+substring.launches = 0
+
+
+def substring_plain(data: torch.Tensor, lengths: torch.Tensor,
+                    validity: torch.Tensor, pos, length):
+    """Plain PyTorch version of :func:`substring` (any device)."""
+    n, w = data.shape
+    dev = data.device
+    j = torch.arange(w, device=dev)
+    starts = ((data & 0xC0) != 0x80) & (j[None, :] < lengths.long()[:, None])
+    nchars = starts.sum(1)
+    p, p_ok = _int_operand(pos, n, dev)
+    ln, l_ok = _int_operand(length, n, dev)
+    start = torch.where(p > 0, p - 1, torch.where(p < 0, nchars + p, 0))
+    # start + len, saturated at the int64 limits (torch wraps)
+    end = torch.where((ln > 0) & (start > _I64_MAX - ln), _I64_MAX,
+                      torch.where((ln < 0) & (start < _I64_MIN - ln),
+                                  _I64_MIN, start + ln))
+    start = start.clamp(min=0)
+    valid = validity & p_ok & l_ok
+    first = torch.minimum(start, nchars)
+    last = torch.minimum(end, nchars)
+    empty = ~valid | (start >= end) | (first >= last)
+    counts = torch.cumsum(starts.to(torch.int64), 1)
+
+    def byte_of(k):
+        hit = starts & (counts == (k + 1)[:, None])
+        return torch.where(hit.any(1), hit.to(torch.uint8).argmax(1),
+                           lengths.long())
+
+    sb = torch.where(empty, 0, byte_of(first))
+    new_len = torch.where(empty, 0, byte_of(last) - sb)
+    idx = (sb[:, None] + j[None, :]).clamp(max=w - 1)
+    out = torch.gather(data, 1, idx)
+    out = torch.where(j[None, :] < new_len[:, None], out,
+                      torch.zeros((), dtype=torch.uint8, device=dev))
+    return out, new_len.to(torch.int32), valid
+
+
+def _substring_cuda(data, lengths, validity, pos, length):
+    n, w = data.shape
+    dev = data.device
+    out = torch.empty((n, w), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(n, dtype=torch.int32, device=dev)
+    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, out_len, out_valid
+    lib = native.lib("string_substr")
+    data = data.contiguous()
+    if data.data_ptr() % 16:
+        data = data.clone()  # the kernel reads rows as aligned words
+    keep = []  # contiguous operands stay alive until the launch is queued
+
+    def operand(v):
+        if isinstance(v, tuple):
+            d = v[0].to(torch.int64).contiguous()
+            m = v[1].contiguous()
+            if d.shape != (n,) or m.shape != (n,):
+                raise ValueError(f"substring operand must be [{n}]")
+            keep.extend((d, m))
+            return ptr(d), ptr(m), 0
+        return None, None, int(v)
+
+    pos_p, pos_v, pos_s = operand(pos)
+    len_p, len_v, len_s = operand(length)
+    lengths = lengths.to(torch.int32).contiguous()
+    validity = validity.contiguous()
+    native.check(lib.srt_substring(
+        ptr(data), ptr(lengths), ptr(validity), n, w, pos_p, pos_v, pos_s,
+        len_p, len_v, len_s, ptr(out), ptr(out_len), ptr(out_valid),
+        native.stream_ptr(dev)), "srt_substring")
+    substring.launches += 1
+    return out, out_len, out_valid
+
+
+# ---------------------------------------------------------------------------
+# K13b: literal match
+# ---------------------------------------------------------------------------
+
+def _check_match(mode, data, lengths, validity, needle, needle_lengths,
+                 needle_validity) -> None:
+    if mode not in MATCH_MODES:
+        raise ValueError(f"string match mode {mode!r}")
+    _check_strings(data, lengths, validity, "string_match")
+    _check_strings(needle, needle_lengths, needle_validity,
+                   "string_match needle")
+    if needle.shape[0] not in (1, data.shape[0]):
+        raise ValueError(f"needle rows {needle.shape[0]}: 1 or "
+                         f"{data.shape[0]}")
+
+
+def literal_needle(s: str, device):
+    """(uint8 [1, W], int32 [1], bool [1]) of one string: a literal
+    needle, matched against every row."""
+    bs = s.encode("utf-8")
+    row = np.zeros((1, round_string_width(max(len(bs), 1))), dtype=np.uint8)
+    row[0, :len(bs)] = np.frombuffer(bs, dtype=np.uint8)
+    return (torch.from_numpy(row).to(device),
+            torch.tensor([len(bs)], dtype=torch.int32, device=device),
+            torch.ones(1, dtype=torch.bool, device=device))
+
+
+def string_match(mode: str, data: torch.Tensor, lengths: torch.Tensor,
+                 validity: torch.Tensor, needle: torch.Tensor,
+                 needle_lengths: torch.Tensor,
+                 needle_validity: torch.Tensor):
+    """Match ``needle`` against every row: ``mode`` is prefix, suffix,
+    contains or equals.  ``needle`` is uint8 [1, Wb] (one row for every
+    row: a literal) or [n, Wb] (a column), with its lengths and validity.
+    Returns (bool match [n], bool validity [n]); invalid rows are false."""
+    if data.device.type == "cpu":
+        return string_match_plain(mode, data, lengths, validity, needle,
+                                  needle_lengths, needle_validity)
+    return _string_match_cuda(mode, data, lengths, validity, needle,
+                              needle_lengths, needle_validity)
+
+
+string_match.launches = 0
+
+
+def string_match_plain(mode: str, data: torch.Tensor, lengths: torch.Tensor,
+                       validity: torch.Tensor, needle: torch.Tensor,
+                       needle_lengths: torch.Tensor,
+                       needle_validity: torch.Tensor):
+    """Plain PyTorch version of :func:`string_match` (any device)."""
+    _check_match(mode, data, lengths, validity, needle, needle_lengths,
+                 needle_validity)
+    n, wa = data.shape
+    dev = data.device
+    la = lengths.long()
+    lb = needle_lengths.long().expand(n)
+    valid = validity & needle_validity.expand(n)
+    # a needle longer than the row never matches, so only the first
+    # wa needle bytes are ever compared
+    wb = min(needle.shape[1], wa)
+    b = needle[:, :wb].expand(n, wb)
+    j = torch.arange(wb, device=dev)
+    within = j[None, :] < lb[:, None]
+
+    def at(offset):
+        """Row bytes [offset, offset + wb) (offset [n]), clipped."""
+        idx = (offset[:, None] + j[None, :]).clamp(0, wa - 1)
+        return torch.gather(data, 1, idx)
+
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    if mode == "prefix":
+        match = (~within | (at(zero) == b)).all(1) & (la >= lb)
+    elif mode == "suffix":
+        match = (~within | (at(la - lb) == b)).all(1) & (la >= lb)
+    elif mode == "equals":
+        match = (~within | (at(zero) == b)).all(1) & (la == lb)
+    else:
+        match = torch.zeros(n, dtype=torch.bool, device=dev)
+        for s in range(wa + 1):
+            hit = (~within | (at(zero + s) == b)).all(1) & (s + lb <= la)
+            match |= hit
+    return match & valid, valid
+
+
+def _string_match_cuda(mode, data, lengths, validity, needle,
+                       needle_lengths, needle_validity):
+    _check_match(mode, data, lengths, validity, needle, needle_lengths,
+                 needle_validity)
+    n, wa = data.shape
+    dev = data.device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, out_valid
+    if needle.device != dev:
+        raise ValueError(f"needle on {needle.device}, strings on {dev}")
+    lib = native.lib("string_match")
+    data = data.contiguous()
+    needle = needle.contiguous()
+    if data.data_ptr() % 16:
+        data = data.clone()  # prefix and equals compare aligned words
+    if needle.data_ptr() % 16:
+        needle = needle.clone()
+    lengths = lengths.to(torch.int32).contiguous()
+    needle_lengths = needle_lengths.to(torch.int32).contiguous()
+    validity = validity.contiguous()
+    needle_validity = needle_validity.contiguous()
+    native.check(lib.srt_string_match(
+        MATCH_MODES[mode], ptr(data), ptr(lengths), ptr(validity), n, wa,
+        ptr(needle), ptr(needle_lengths), ptr(needle_validity),
+        1 if needle.shape[0] > 1 else 0, needle.shape[1], ptr(out),
+        ptr(out_valid), native.stream_ptr(dev)), "srt_string_match")
+    string_match.launches += 1
+    return out, out_valid

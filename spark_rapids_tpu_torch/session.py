@@ -3,9 +3,10 @@
 ``TorchSession(conf)`` runs on the CUDA card and raises when there is none;
 ``TorchSession(conf, device="cpu")`` runs the kernels' plain PyTorch
 versions on the CPU (the tests do this).  The DataFrame methods are the
-ones TPC-H q1 and TPC-DS q6 use -- ``read_parquet``, ``select``,
-``where``, ``join``, ``group_by().agg()``, ``order_by``, ``limit``,
-``collect``, ``explain`` -- and ``repartition``; ``select`` takes window
+ones the port's TPC-H and TPC-DS builders use -- ``read_parquet``,
+``select``, ``where``, ``with_column``, ``join``, ``group_by().agg()``,
+``agg``, ``order_by``, ``limit``, ``collect``, ``explain`` -- and
+``repartition``; ``select`` takes window
 expressions (``expr/window.py``), which the planner lowers to
 ``WindowExec``s.  Admission,
 cancellation, the result cache and the serving planes wait for later
@@ -60,8 +61,21 @@ class DataFrame:
     def where(self, condition) -> "DataFrame":
         return DataFrame(self._s, L.Filter(condition, self._plan))
 
+    def with_column(self, name: str, expr) -> "DataFrame":
+        """The columns plus ``expr`` as ``name``; a column of that name
+        is replaced in its position (Spark's withColumn)."""
+        names = self.schema.names
+        if name in names:
+            return self.select(*[expr.alias(name) if n == name else col(n)
+                                 for n in names])
+        return self.select(*[col(n) for n in names], expr.alias(name))
+
     def group_by(self, *keys) -> "GroupedData":
         return GroupedData(self, [self._col_or_expr(k) for k in keys])
+
+    def agg(self, *aggs) -> "DataFrame":
+        """Aggregate over all rows (one output row)."""
+        return GroupedData(self, []).agg(*aggs)
 
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":

@@ -488,3 +488,115 @@ def test_window_queries_on_cuda_match_cpu(dev, tmp_path):
                     assert math.isclose(a, b, rel_tol=1e-9), (name, g, w)
                 else:
                     assert a == b, (name, g, w)
+
+
+# ---------------------------------------------------------------------------
+# string kernels K13a (substring) and K13b (literal match)
+# ---------------------------------------------------------------------------
+
+_PIECES = [b"a", b"Z", b" ", b"\x00", "é".encode(), "€".encode(),
+           "😀".encode(), b"\x80"]
+
+
+def _string_rows(rng, n: int, w: int):
+    """uint8 [n, w], int32 lengths, bool validity of seeded strings (ASCII,
+    NUL, 2/3/4-byte characters, lone continuation bytes; empty and null
+    rows)."""
+    data = np.zeros((n, w), np.uint8)
+    lengths = np.zeros(n, np.int32)
+    valid = rng.random(n) >= 0.1
+    for i in np.nonzero(valid)[0]:
+        cap, bs = int(rng.integers(0, w + 1)), b""
+        while True:
+            p = _PIECES[int(rng.integers(0, len(_PIECES)))]
+            if len(bs) + len(p) > cap:
+                break
+            bs += p
+        data[i, :len(bs)] = np.frombuffer(bs, np.uint8)
+        lengths[i] = len(bs)
+    return data, lengths, valid
+
+
+def _on(dev, *arrays):
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def _same_tuple(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("w", [4, 8, 12, 16, 32, 64, 128, 256])
+def test_substring_matches_plain(dev, w):
+    from spark_rapids_tpu_torch.ops import strings as STR
+    rng = np.random.default_rng(w)
+    n = 3001
+    s = _on(dev, *_string_rows(rng, n, w))
+    pos = _on(dev, rng.integers(-w - 2, w + 3, n), rng.random(n) >= 0.1)
+    ln = rng.integers(-2, w + 3, n)
+    ln[rng.random(n) < 0.1] = 2 ** 31 - 1
+    ln = _on(dev, ln.astype(np.int32), rng.random(n) >= 0.1)
+    cases = [(1, 2), (0, 3), (-1, 1), (-3, 2), (3, -1), (w + 2, 1),
+             (-w - 2, w + 2), (2, 2 ** 31 - 1), (pos, ln), (pos, 4),
+             (1, ln)]
+    for p, l in cases:
+        before = STR.substring.launches
+        got = STR.substring(*s, p, l)
+        assert STR.substring.launches == before + 1
+        _same_tuple(got, STR.substring_plain(*s, p, l))
+    # a row slice (offset base) and an empty batch
+    _same_tuple(STR.substring(*(t[7:] for t in s), 2, 3),
+                STR.substring_plain(*(t[7:] for t in s), 2, 3))
+    out = STR.substring(*(t[:0] for t in s), 1, 1)
+    assert out[0].shape == (0, w)
+
+
+@pytest.mark.parametrize("mode", ["prefix", "suffix", "contains", "equals"])
+@pytest.mark.parametrize("w", [4, 16, 64, 256])
+def test_string_match_matches_plain(dev, mode, w):
+    from spark_rapids_tpu_torch.ops import strings as STR
+    rng = np.random.default_rng(w + 7)
+    n = 2003
+    s = _on(dev, *_string_rows(rng, n, w))
+    needles = [STR.literal_needle(t, dev)
+               for t in ["", "a", "é", "€a", "😀", "\x00", "x" * (w + 4)]]
+    # needle columns: pieces of each row, and rows of another width
+    pos = _on(dev, rng.integers(1, w + 1, n), np.ones(n, bool))
+    ln = _on(dev, rng.integers(0, w // 2 + 1, n), rng.random(n) >= 0.1)
+    needles.append(STR.substring_plain(*s, pos, ln))
+    needles.append(_on(dev, *_string_rows(rng, n, 2 * w)))
+    for nd in needles:
+        before = STR.string_match.launches
+        got = STR.string_match(mode, *s, *nd)
+        assert STR.string_match.launches == before + 1
+        _same_tuple(got, STR.string_match_plain(mode, *s, *nd))
+
+
+def test_string_queries_on_cuda_match_cpu(dev, tmp_path):
+    """q14 and q22 at SF0.01, q15 at sf0.1 in a multi-file layout: K13a
+    runs on q15 and q22, K13b on q14, and the rows are the CPU's."""
+    import math
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    from spark_rapids_tpu_torch.bench.tpch_queries import q14, q22
+    from spark_rapids_tpu_torch.ops import strings as STR
+    tdir, ddir = str(tmp_path / "tpch"), str(tmp_path / "tpcds")
+    tpch_gen.generate_tpch(tdir, sf=0.01)
+    q15, tables = TPCDS_QUERIES["q15"]
+    tpcds_gen.generate_tpcds(ddir, sf=0.1, tables=tables,
+                             rows_per_file=1 << 15)
+    for name, q, d, counter in (("q14", q14, tdir, STR.string_match),
+                                ("q22", q22, tdir, STR.substring),
+                                ("q15", q15, ddir, STR.substring)):
+        before = counter.launches
+        got = q(TorchSession(), d).collect()
+        assert counter.launches > before, name
+        want = q(TorchSession(device="cpu"), d).collect()
+        assert len(got) == len(want) > 0, name
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert math.isclose(a, b, rel_tol=1e-9), (name, g, w)
+                else:
+                    assert a == b, (name, g, w)

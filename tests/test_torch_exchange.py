@@ -396,8 +396,8 @@ def test_multifile_layout(tpcds_dir, tmp_path):
         assert a.equals(b)
 
 
-_TPCDS_CASES = [("q3", True), ("q6", True), ("q6", False), ("q42", True),
-                ("q52", True)]
+_TPCDS_CASES = [("q3", True), ("q6", True), ("q6", False), ("q15", True),
+                ("q42", True), ("q52", True)]
 
 
 @pytest.mark.parametrize("name,aqe", _TPCDS_CASES)

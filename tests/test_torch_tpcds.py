@@ -73,10 +73,10 @@ def test_generator_reuses_and_counts(dirs, tmp_path):
     counts = pgen.table_row_counts(10)
     assert counts == {k: v for k, v in jgen.table_row_counts(10).items()
                       if k in counts}
-    assert (counts["store_sales"], counts["customer"],
-            counts["customer_address"], counts["item"],
-            counts["date_dim"]) == (28_800_000, 501_187, 250_593, 56_920,
-                                    73_049)
+    assert (counts["store_sales"], counts["catalog_sales"],
+            counts["customer"], counts["customer_address"], counts["item"],
+            counts["date_dim"]) == (28_800_000, 14_400_000, 501_187,
+                                    250_593, 56_920, 73_049)
     # the default layout splits a table into 2^20-row files, as the JAX one
     pgen.generate_tpcds(str(tmp_path), sf=0.01, tables=("date_dim",),
                         rows_per_file=30_000)
