@@ -13,7 +13,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
 3. per kernel (K1 sort, K2 compact, K3 gather, K4 segmented aggregate;
    K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
    phase 6; K12a window segment extents, K12b window frame aggregates in
-   phase 7; K13a, K13b in phase 8): seeded inputs
+   phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -59,8 +59,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
    'PROMO%') and q22 (substring(c_phone, 1, 2), a scalar subquery, an
    anti join), each cold + warm, checked against numpy/pyarrow; K13a
    must launch on q15 and q22, K13b on q14;
-9. print the kernel table as one JSON line (launches per path), the card
-   line, and last the result line {"ok": true, "device": {...}}.
+9. K13c concat (both modes, 1 to 8 pieces, columns and literals, widths
+   4 to 256) and K13d ASCII case map (both directions) held exactly
+   against their plain versions on ~2^24 stress rows and at the paths'
+   shapes (q84_all_cities' coalesced names, q24's ca_country); K1's
+   packed-key limbs for q24's 10-key group-by and one K6 call at q24's
+   (2^20 + 2.88M)-row shape; then TPC-DS q24, q84 and q84_all_cities
+   (SF10, default layout, AQE on; store_returns and the demographics
+   tables added) cold + warm against numpy/pyarrow: q84 must return 0
+   rows and q24 at least 1; K13d must launch on q24, K13c on
+   q84_all_cities;
+10. print the kernel table as one JSON line (launches per path), the
+   card line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -687,7 +697,9 @@ def _counters() -> dict:
             "running_or_bounded_agg": {
                 "running_or_bounded_agg": W.running_or_bounded_agg},
             "substring": {"substring": STR.substring},
-            "string_match": {"string_match": STR.string_match}}
+            "string_match": {"string_match": STR.string_match},
+            "concat": {"concat": STR.concat},
+            "case_map": {"case_map": STR.case_map}}
 
 
 _Q1_ENTRIES = ("sort_permutation", "compact", "gather_columns",
@@ -2232,6 +2244,450 @@ def run_string_phase(torch, dev, sf: float, warm: int):
     return entries, paths
 
 
+# ---------------------------------------------------------------------------
+# string kernels K13c (concat) and K13d (ASCII case map); q24 and q84
+# ---------------------------------------------------------------------------
+
+#: literal pieces of the K13c stress checks (a null one is added)
+_CONCAT_LITERALS = [", ", "é-", "", "abcdefghijklmnopqrstu😀"]
+#: the K13c stress cases: pieces as "s" (the width's stress column), "h"
+#: (a column a quarter as wide) or an index into the literals, "n" a null
+#: literal; 1 to 8 pieces
+_CONCAT_STRESS = [["s"], ["s", 0], [1, "s", "h"], ["h", "n", "s"],
+                  ["s", 3, "h", 2], ["s", 0, "h", "s", 1, "h", "s", "h"]]
+
+
+def _concat_pieces(torch, OS, spec, s, h, dev):
+    out = []
+    for p in spec:
+        if p == "s":
+            out.append(s)
+        elif p == "h":
+            out.append(h)
+        elif p == "n":
+            d, ln, v = OS.literal_needle("x", dev)
+            out.append((d, ln, ~v))
+        else:
+            out.append(OS.literal_needle(_CONCAT_LITERALS[p], dev))
+    return out
+
+
+def _concat_bytes(torch, pieces, out_w: int, n: int) -> int:
+    """Bytes K13c must move: each column piece's sectors inside its
+    lengths, its lengths and validity, a literal row once; the output
+    rows, lengths and validity."""
+    total = n * out_w + 5 * n
+    for d, ln, _v in pieces:
+        if d.shape[0] == 1:
+            total += d.shape[1] + 5
+        else:
+            total += _sector_bytes(torch, ln, d.shape[1]) + 5 * n
+    return total
+
+
+def check_concat(torch, dev, names) -> dict:
+    """K13c against its plain version in both modes on the 2^24-row stress
+    batch (every width from 4 to 256; 1 to 8 pieces, columns of two widths,
+    literal pieces, the empty and a null one) and at q84_all_cities' shape
+    (the coalesced last and first names of the customers that reach the
+    Concat, with ', ' between them), exactly; timed at that shape."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import strings as OS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(133)
+    cases = 0
+    for w, n in STRING_STRESS_ROWS.items():
+        n = n // 2 if w >= 128 else n  # 8 pieces of W 256 are 1 KiB rows
+        s = _stress_strings(torch, gen, n, w, dev)
+        h = _stress_strings(torch, gen, n, max(4, w // 4), dev)
+        for spec in _CONCAT_STRESS:
+            pieces = _concat_pieces(torch, OS, spec, s, h, dev)
+            for sep in (None, ", "):
+                _same_strings(torch, OS.concat(pieces, sep),
+                              OS.concat_plain(pieces, sep),
+                              f"K13c W={w} pieces={spec} sep={sep!r}")
+                cases += 1
+            del pieces
+            torch.cuda.empty_cache()
+        del s, h
+        torch.cuda.empty_cache()
+    last, first = names
+    n = last[0].shape[0]
+    pieces = [last, OS.literal_needle(", ", dev), first]
+    got = OS.concat(pieces)
+    _same_strings(torch, got, OS.concat_plain(pieces), "K13c q84")
+    out_w = got[0].shape[1]
+    ms = _time_ms(torch, lambda: OS.concat(pieces), reps=20)
+    plain_ms = _time_ms(torch, lambda: OS.concat_plain(pieces))
+    # the kernel alone: its C entry point on preallocated outputs
+    import ctypes
+    ptrs = ctypes.c_void_p * 3
+    args = [3, ptrs(*[p[0].data_ptr() for p in pieces]),
+            (ctypes.c_int * 3)(*[p[0].shape[1] for p in pieces]),
+            ptrs(*[p[1].data_ptr() for p in pieces]),
+            ptrs(*[p[2].data_ptr() for p in pieces]),
+            (ctypes.c_int * 3)(1, 0, 1), n, None, 0, 0, 0, out_w] + [
+        t.data_ptr() for t in got] + [native.stream_ptr(dev)]
+    lib = native.lib("string_concat")
+    kernel_ms = _time_ms(torch, lambda: lib.srt_concat(*args), reps=50)
+    nbytes = _concat_bytes(torch, pieces, out_w, n)
+    print(f"[K13c concat] checked {cases} (width, pieces, mode) cases on "
+          f"~2^24 stress rows over W 4..256 and q84_all_cities' shape: "
+          f"equal; timed rows={n} pieces W "
+          f"{[p[0].shape[1] for p in pieces]} -> W {out_w} ms={ms:.4f} "
+          f"(the kernel alone {kernel_ms:.4f}) plain_ms={plain_ms:.4f} "
+          f"library_ms=none (no PyTorch call "
+          f"concatenates variable-length rows) "
+          f"bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+    return dict(name="concat", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/string_concat.cu",
+                replaces="spark_rapids_tpu/expr/strings.py:252",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=None)
+
+
+def check_case_map(torch, dev, countries) -> dict:
+    """K13d against its plain version in both directions on the 2^24-row
+    stress batch (every width from 4 to 256, letters of both cases
+    planted, and row counts that leave a tail shorter than one 16-byte
+    vector) and at q24's shape (the SF10 ca_country column, W 16, upper),
+    exactly; timed at q24's shape."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import strings as OS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(134)
+    cases = 0
+    for w, n in STRING_STRESS_ROWS.items():
+        s = _stress_strings(torch, gen, n + 1, w, dev)
+        # ASCII letters and their neighbours on a third of the bytes
+        letters = torch.tensor(list(b"aAzZmM@[`{"), dtype=torch.uint8,
+                               device=dev)
+        pick = torch.randint(0, len(letters), s[0].shape, device=dev,
+                             generator=gen)
+        plant = (torch.rand(s[0].shape, device=dev, generator=gen) < 0.33) \
+            & (torch.arange(w, device=dev)[None, :] < s[1][:, None])
+        data = torch.where(plant, letters[pick], s[0]).contiguous()
+        for upper in (True, False):
+            for rows in (n + 1, n - 3):
+                t = (data[:rows], s[1][:rows], s[2][:rows])
+                _same_strings(torch, OS.case_map(*t, upper),
+                              OS.case_map_plain(*t, upper),
+                              f"K13d W={w} rows={rows} upper={upper}")
+                cases += 1
+        del s, data, pick, plant
+        torch.cuda.empty_cache()
+    data, lengths, valid = countries
+    n, w = data.shape
+    got = OS.case_map(data, lengths, valid, True)
+    _same_strings(torch, got, OS.case_map_plain(data, lengths, valid, True),
+                  "K13d q24")
+    ms = _time_ms(torch, lambda: OS.case_map(data, lengths, valid, True),
+                  reps=20)
+    plain_ms = _time_ms(torch, lambda: OS.case_map_plain(data, lengths,
+                                                         valid, True))
+    out = torch.empty_like(data)
+    lib = native.lib("string_case")
+    args = [data.data_ptr(), out.data_ptr(), n * w, 1,
+            native.stream_ptr(dev)]
+    kernel_ms = _time_ms(torch, lambda: lib.srt_case_map(*args), reps=50)
+    # in: the sectors inside the lengths; out: the whole rows (lengths and
+    # validity are shared, not moved)
+    nbytes = _sector_bytes(torch, lengths, w) + n * w
+    print(f"[K13d case map] checked {cases} (width, rows, direction) cases "
+          f"on 2^24 stress rows and q24's shape: equal; timed rows={n} "
+          f"W={w} upper ms={ms:.4f} (the kernel alone {kernel_ms:.4f}) "
+          f"plain_ms={plain_ms:.4f} library_ms=none (no PyTorch call maps "
+          f"ASCII case) bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+    return dict(name="case_map", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/string_case.cu",
+                replaces="spark_rapids_tpu/expr/strings.py:63",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=None)
+
+
+def _key(v, ok):
+    return v if ok else None
+
+
+def reference_q24(data_dir: str):
+    """q24 over the parquet with numpy/pyarrow alone: (c_last_name,
+    c_first_name, s_store_name, paid) of the pale-item groups above 5% of
+    the average net paid, ordered ascending with nulls first.  Also the
+    smallest relative gap between a group's paid and the threshold."""
+    import pyarrow.parquet as pq
+
+    def read(t, cols):
+        return pq.read_table(os.path.join(data_dir, t), columns=cols)
+
+    st = read("store", ["s_store_sk", "s_store_name", "s_market_id",
+                        "s_state", "s_zip"])
+    ssk, _ = _arrow_col(st, "s_store_sk")
+    market, _ = _arrow_col(st, "s_market_id")
+    sname, sname_ok = _strings_np(st, "s_store_name")
+    sstate, sstate_ok = _strings_np(st, "s_state")
+    szip, szip_ok = _strings_np(st, "s_zip")
+    ss = read("store_sales", ["ss_ticket_number", "ss_item_sk",
+                              "ss_customer_sk", "ss_store_sk",
+                              "ss_net_paid"])
+    store, store_ok = _arrow_col(ss, "ss_store_sk")
+    keep = np.nonzero(store_ok & np.isin(store, ssk[market == 8]))[0]
+    ticket, _ = _arrow_col(ss, "ss_ticket_number")
+    item, _ = _arrow_col(ss, "ss_item_sk")
+    cust, cust_ok = _arrow_col(ss, "ss_customer_sk")
+    paid, _ = _arrow_col(ss, "ss_net_paid")
+    del ss
+    sr = read("store_returns", ["sr_ticket_number", "sr_item_sk"])
+    rt, _ = _arrow_col(sr, "sr_ticket_number")
+    ri, _ = _arrow_col(sr, "sr_item_sk")
+    # (ticket, item) as one int64; a pair may repeat on either side
+    rkey = np.sort(rt.astype(np.int64) * (1 << 20) + ri)
+    lkey = ticket[keep].astype(np.int64) * (1 << 20) + item[keep]
+    mult = np.searchsorted(rkey, lkey, "right") - \
+        np.searchsorted(rkey, lkey, "left")
+    rows = np.repeat(keep, mult)
+    it = read("item", ["i_item_sk", "i_color", "i_current_price",
+                       "i_manager_id", "i_units", "i_size"])
+    isk, _ = _arrow_col(it, "i_item_sk")
+    icols = [_strings_np(it, "i_color"), _arrow_col(it, "i_current_price"),
+             _arrow_col(it, "i_manager_id"), _strings_np(it, "i_units"),
+             _strings_np(it, "i_size")]
+    cu = read("customer", ["c_customer_sk", "c_first_name", "c_last_name",
+                           "c_birth_country"])
+    csk, _ = _arrow_col(cu, "c_customer_sk")
+    first, first_ok = _strings_np(cu, "c_first_name")
+    last, last_ok = _strings_np(cu, "c_last_name")
+    born, born_ok = _strings_np(cu, "c_birth_country")
+    ca = read("customer_address", ["ca_address_sk", "ca_state",
+                                   "ca_country", "ca_zip"])
+    astate, astate_ok = _strings_np(ca, "ca_state")
+    country, country_ok = _strings_np(ca, "ca_country")
+    azip, azip_ok = _strings_np(ca, "ca_zip")
+    by_key: dict = {}
+    zips = set(szip[(market == 8) & szip_ok])
+    for a in np.nonzero(country_ok & azip_ok)[0]:
+        if azip[a] in zips:
+            by_key.setdefault((country[a].upper(), azip[a]), []).append(a)
+    rows = rows[cust_ok[rows]]
+    srow = _lookup(ssk, store[rows])
+    irow = _lookup(isk, item[rows])
+    crow = _lookup(csk, cust[rows])
+    ok = (crow >= 0) & (irow >= 0)
+    rows, srow, irow, crow = rows[ok], srow[ok], irow[ok], crow[ok]
+    groups: dict = {}
+    for r, s, i, c in zip(rows, srow, irow, crow):
+        if not (born_ok[c] and szip_ok[s]):
+            continue
+        for a in by_key.get((born[c], szip[s]), ()):
+            k = (_key(last[c], last_ok[c]), _key(first[c], first_ok[c]),
+                 _key(sname[s], sname_ok[s]),
+                 _key(astate[a], astate_ok[a]),
+                 _key(sstate[s], sstate_ok[s])) + tuple(
+                _key(v[i], m[i]) for v, m in icols)
+            groups[k] = groups.get(k, 0.0) + float(paid[r])
+    if not groups:
+        return [], float("inf")
+    threshold = 0.05 * (sum(groups.values()) / len(groups))
+    pale: dict = {}
+    for k, v in groups.items():
+        if k[5] == "pale":
+            pale[k[:3]] = pale.get(k[:3], 0.0) + v
+    gap = min((abs(v - threshold) / abs(threshold) for v in pale.values()),
+              default=float("inf"))
+    out = [k + (v,) for k, v in pale.items() if v > threshold]
+    out.sort(key=lambda r: tuple((x is not None, x if x is not None else "")
+                                 for x in r[:3]) + (r[3],))
+    return out, gap
+
+
+def reference_q84(data_dir: str, city):
+    """q84 (``city`` None: q84_all_cities) over the parquet with
+    numpy/pyarrow alone: (customer_id, 'last, first') of the first 100
+    customers by id.  Also the coalesced last and first names of every
+    customer that reaches the Concat (the kernel's input on the path)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    def read(t, cols=None):
+        return pq.read_table(os.path.join(data_dir, t), columns=cols)
+
+    cu = read("customer", ["c_customer_id", "c_first_name", "c_last_name",
+                           "c_current_addr_sk", "c_current_cdemo_sk",
+                           "c_current_hdemo_sk"])
+    ca = read("customer_address", ["ca_address_sk", "ca_city"])
+    ask, _ = _arrow_col(ca, "ca_address_sk")
+    if city is not None:
+        cities, cities_ok = _strings_np(ca, "ca_city")
+        ask = ask[cities_ok & (cities == city)]
+    hd = read("household_demographics", ["hd_demo_sk", "hd_income_band_sk"])
+    hsk, _ = _arrow_col(hd, "hd_demo_sk")
+    band, band_ok = _arrow_col(hd, "hd_income_band_sk")
+    ib = read("income_band")
+    bsk, _ = _arrow_col(ib, "ib_income_band_sk")
+    lo, _ = _arrow_col(ib, "ib_lower_bound")
+    hi, _ = _arrow_col(ib, "ib_upper_bound")
+    bands = bsk[(lo >= 38128) & (hi <= 38128 + 50000)]
+    cdsk, _ = _arrow_col(read("customer_demographics", ["cd_demo_sk"]),
+                         "cd_demo_sk")
+    rcd, rcd_ok = _arrow_col(read("store_returns", ["sr_cdemo_sk"]),
+                             "sr_cdemo_sk")
+    addr, addr_ok = _arrow_col(cu, "c_current_addr_sk")
+    cdemo, cdemo_ok = _arrow_col(cu, "c_current_cdemo_sk")
+    hdemo, hdemo_ok = _arrow_col(cu, "c_current_hdemo_sk")
+    hrow = _lookup(hsk, hdemo)
+    hband = np.where(hrow >= 0, band[hrow], 0)
+    hband_ok = (hrow >= 0) & band_ok[np.maximum(hrow, 0)]
+    sel = (addr_ok & np.isin(addr, ask) & hdemo_ok & hband_ok
+           & np.isin(hband, bands) & cdemo_ok & np.isin(cdemo, cdsk)
+           & np.isin(cdemo, np.unique(rcd[rcd_ok])))
+    idx = np.nonzero(sel)[0]
+    cid = np.array(cu.column("c_customer_id").combine_chunks().to_pylist(),
+                   dtype=object)
+    lastc = pc.fill_null(cu.column("c_last_name").combine_chunks(), "")
+    firstc = pc.fill_null(cu.column("c_first_name").combine_chunks(), "")
+    lastn = np.array(lastc.to_pylist(), dtype=object)
+    firstn = np.array(firstc.to_pylist(), dtype=object)
+    out = sorted((cid[i], f"{lastn[i]}, {firstn[i]}") for i in idx)[:100]
+    take = pa.array(idx, type=pa.int64())
+    return out, (lastc.take(take), firstc.take(take))
+
+
+def _packed_key_limbs(data_dir: str) -> tuple:
+    """(bits, limbs) of K1's packed key over q24's 10 group-by keys, at
+    the widths the scans give their columns."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops.sort import key_layout
+    keys = [("customer", "c_last_name"), ("customer", "c_first_name"),
+            ("store", "s_store_name"), ("customer_address", "ca_state"),
+            ("store", "s_state"), ("item", "i_color"),
+            ("item", "i_current_price"), ("item", "i_manager_id"),
+            ("item", "i_units"), ("item", "i_size")]
+    bits = 0
+    for t, c in keys:
+        arr = pq.read_table(os.path.join(data_dir, t), columns=[c]) \
+            .column(c).combine_chunks()
+        rb = pa.RecordBatch.from_arrays([arr], names=[c])
+        import torch
+        col = ColumnBatch.from_arrow(rb, torch.device("cpu")).columns[0]
+        bits += key_layout(col)[2]
+    return bits, (bits + 63) // 64
+
+
+def time_q24_key_ids(torch, dev, data_dir: str) -> float:
+    """ms of one K6 call (its K1 sort, K3 gather and K4 flags included) at
+    q24's first join: one 2^20-row store_sales file against all of
+    store_returns, keyed on (ticket, item)."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import join as J
+    f = sorted(x for x in os.listdir(os.path.join(data_dir, "store_sales"))
+               if x.endswith(".parquet"))[0]
+    lt = pq.read_table(os.path.join(data_dir, "store_sales", f),
+                       columns=["ss_ticket_number", "ss_item_sk"])
+    rt = pq.read_table(os.path.join(data_dir, "store_returns"),
+                       columns=["sr_ticket_number", "sr_item_sk"])
+    lb = ColumnBatch.from_arrow(lt.combine_chunks().to_batches()[0], dev)
+    rb = ColumnBatch.from_arrow(rt.combine_chunks().to_batches()[0], dev)
+    ms = _time_ms(torch, lambda: J._key_ids(lb, rb, [0, 1], [0, 1]))
+    print(f"[q24 K6] one _key_ids call at {lb.num_rows} + {rb.num_rows} "
+          f"rows (ticket, item): ms={ms:.3f}", flush=True)
+    return ms
+
+
+_CASE_ENTRIES = ("concat", "case_map")
+
+
+def run_concat_case_phase(torch, dev, warm: int):
+    """K13c and K13d against their plain versions, then TPC-DS q24, q84 and
+    q84_all_cities (SF10, default layout, AQE on), each cold + warm and
+    checked against numpy/pyarrow; returns ({kernel: entry}, {path:
+    launches})."""
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    tpcds_dir = os.path.join(ROOT, ".bench_data",
+                             f"tpcds_sf{Q6_SF:g}_seed42_default")
+    need = set(TPCDS_QUERIES["q24"][1]) | set(TPCDS_QUERIES["q84"][1])
+    tables = [t for t in tpcds_gen.TABLES if t in need]
+    t0 = time.perf_counter()
+    tpcds_gen.generate_tpcds(tpcds_dir, sf=Q6_SF, seed=42, tables=tables,
+                             rows_per_file=DEFAULT_ROWS_PER_FILE)
+    print(f"[q24/q84] TPC-DS SF{Q6_SF:g} {tables} ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    want24, gap24 = reference_q24(tpcds_dir)
+    want84, _names = reference_q84(tpcds_dir, "Edgewood")
+    want84a, names = reference_q84(tpcds_dir, None)
+    print(f"[q24/q84] numpy/pyarrow references in "
+          f"{time.perf_counter() - t0:.1f} s: q24 {len(want24)} rows "
+          f"(closest |paid - threshold| / threshold {gap24:.3e}); q84 "
+          f"{len(want84)} rows; q84_all_cities concatenates "
+          f"{len(names[0])} names", flush=True)
+    if want84:
+        raise AssertionError("q84 has rows: the generator wrote Edgewood")
+    if not want24:
+        raise AssertionError("q24 has no rows at SF10")
+    if gap24 <= 10 * F64_RTOL:
+        raise AssertionError("a q24 group lies within the comparison "
+                             "tolerance of the threshold")
+    import pyarrow.parquet as pq
+    countries = pq.read_table(os.path.join(tpcds_dir, "customer_address"),
+                              columns=["ca_country"]).column("ca_country") \
+        .combine_chunks()
+    entries = {
+        "concat": check_concat(torch, dev, tuple(
+            _device_strings(torch, dev, a) for a in names)),
+        "case_map": check_case_map(
+            torch, dev, _device_strings(torch, dev, countries))}
+    del countries, names
+    torch.cuda.empty_cache()
+    bits, limbs = _packed_key_limbs(tpcds_dir)
+    print(f"[q24 K1] the 10-key group-by packs {bits} bits: {limbs} "
+          f"64-bit limbs", flush=True)
+    time_q24_key_ids(torch, dev, tpcds_dir)
+    torch.cuda.empty_cache()
+    session = _cuda_session()
+    q24 = TPCDS_QUERIES["q24"][0]
+    q84 = TPCDS_QUERIES["q84"][0]
+    q84a = TPCDS_QUERIES["q84_all_cities"][0]
+    every = _Q6_ENTRIES + _SHUFFLE_ENTRIES + _STRING_ENTRIES + _CASE_ENTRIES
+    # AQE coalesces every exchange's map side (K9/K10 0); no K13a/K13b
+    not_run = ("partition_ids_for_keys", "murmur3_columns", "group_by_part",
+               "substring", "string_match")
+    paths = {}
+    paths["q24"] = _drive(
+        torch, "q24", lambda: q24(session, tpcds_dir),
+        lambda r: _check_keyed_doubles("q24", r, want24, 3), every, warm,
+        ("matched_build_rows",), zero=not_run + ("concat",))
+
+    def check84(rows):
+        if rows:
+            raise AssertionError(f"q84 returned {len(rows)} rows")
+
+    # q84: no customer survives the semi join against the empty Edgewood
+    # side, so nothing is gathered, expanded, concatenated or aggregated
+    paths["q84"] = _drive(
+        torch, "q84", lambda: q84(session, tpcds_dir), check84, every, warm,
+        ("gather_columns", "segment_aggregate", "segment_flags",
+         "join_indices_from_probe", "matched_build_rows"),
+        zero=not_run + ("key_ids", "concat", "case_map"))
+
+    def check84a(rows):
+        if rows != want84a:
+            raise AssertionError(f"q84_all_cities rows differ: {rows[:3]} "
+                                 f"vs {want84a[:3]}")
+
+    paths["q84_all_cities"] = _drive(
+        torch, "q84_all_cities", lambda: q84a(session, tpcds_dir), check84a,
+        every, warm,
+        ("segment_aggregate", "segment_flags", "matched_build_rows"),
+        zero=not_run + ("key_ids", "case_map"))
+    return entries, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -2294,6 +2750,10 @@ def main(argv=None) -> int:
                                                     args.warm)
     entries.update(string_entries)
     paths.update(string_paths)
+    torch.cuda.empty_cache()
+    case_entries, case_paths = run_concat_case_phase(torch, dev, args.warm)
+    entries.update(case_entries)
+    paths.update(case_paths)
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

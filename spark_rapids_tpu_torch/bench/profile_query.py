@@ -1,16 +1,18 @@
 """Where a query's time goes on the card: TPC-H q1, q14 or q22, TPC-DS
-q6, q15, q51 or q63, or the ``top_customers`` repartition.
+q6, q15, q24, q51, q63, q84 or q84_all_cities, or the ``top_customers``
+repartition.
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
 ``bench/tpch_gen.py`` (the TPC-H query's tables) or ``bench/tpcds_gen.py``
 (the TPC-DS query's tables), reused when present, then:
 
 * times a cold and a warm run (host clock, ending in a device
-  synchronise);
+  synchronise), each building the query -- so q6's and q24's scalar
+  subqueries, collected while the query is built, are inside the time;
 * times the largest parquet scan alone (host decode + pinned upload),
   draining the planned tree's scan of the fact table (lineitem for q1
-  and q14, orders for q22, catalog_sales for q15, store_sales for the
-  other TPC-DS queries);
+  and q14, orders for q22, catalog_sales for q15, store_returns for q84
+  and q84_all_cities, store_sales for the other TPC-DS queries);
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
   the run and the kernels that take most of it.
@@ -19,7 +21,8 @@ Runs the query through ``TorchSession()`` on CUDA over data generated by
 table, so q6 plans no exchange; ``--layout default`` writes the
 generator's 2^20-row files, so the scan has 8 partitions and the grouped
 aggregate runs partial -> exchange -> final (the repartition query and
-the queries q15, q51 and q63 always read this layout).  ``--conf
+the queries q15, q24, q51, q63, q84 and q84_all_cities always read this
+layout).  ``--conf
 key=value`` sets a session conf, e.g.
 ``spark.sql.adaptive.enabled=false``.
 
@@ -31,6 +34,7 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
     python -m spark_rapids_tpu_torch.bench.profile_query --query repartition
     python -m spark_rapids_tpu_torch.bench.profile_query --query q51
     python -m spark_rapids_tpu_torch.bench.profile_query --query q22
+    python -m spark_rapids_tpu_torch.bench.profile_query --query q24
 """
 from __future__ import annotations
 
@@ -87,14 +91,14 @@ def _timed(fn) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--query",
-                    choices=("q1", "q14", "q22", "q6", "q15", "q51", "q63",
-                             "repartition"),
+                    choices=("q1", "q14", "q22", "q6", "q15", "q24", "q51",
+                             "q63", "q84", "q84_all_cities", "repartition"),
                     default="q6")
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--layout", choices=("onefile", "default"),
                     default="onefile",
-                    help="TPC-DS file layout (repartition, q15, q51 and "
-                    "q63: always default)")
+                    help="TPC-DS file layout (every TPC-DS query but q6: "
+                    "always default)")
     ap.add_argument("--conf", action="append", default=[],
                     metavar="KEY=VALUE", help="a session conf entry")
     ap.add_argument("--top", type=int, default=12,
@@ -121,21 +125,26 @@ def main(argv=None) -> int:
         tpcds_gen.generate_tpcds(
             data_dir, sf=args.sf, seed=42, tables=tables,
             rows_per_file=1 << 40 if args.layout == "onefile" else 1 << 20)
-        big = "catalog_sales" if args.query == "q15" else "store_sales"
+        big = {"q15": "catalog_sales", "q84": "store_returns",
+               "q84_all_cities": "store_returns"}.get(args.query,
+                                                      "store_sales")
         fact = (big, tpcds_gen.table_row_counts(args.sf)[big])
     session = TorchSession(dict(kv.split("=", 1) for kv in args.conf))
-    df = query(session, data_dir)
-    cold = _timed(df.collect)
-    warm = _timed(df.collect)
+
+    def run():
+        return query(session, data_dir).collect()
+
+    cold = _timed(run)
+    warm = _timed(run)
     ctx = ExecCtx(device=session.device, conf=session.conf)
-    scan = _fact_scan(df._prepared(), fact[0])
+    scan = _fact_scan(query(session, data_dir)._prepared(), fact[0])
     scan_s = _timed(lambda: [b for b in scan.execute(ctx)])
 
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        df.collect()
+        run()
         torch.cuda.synchronize()
     prof_wall = time.perf_counter() - t0
     from torch.autograd import DeviceType

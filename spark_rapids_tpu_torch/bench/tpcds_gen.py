@@ -1,5 +1,5 @@
-"""TPC-DS-shaped data generator for the tables of q3, q6, q15, q42, q51,
-q52, q53 and q63 (port of ``spark_rapids_tpu/bench/tpcds_gen.py``).
+"""TPC-DS-shaped data generator for the tables of q3, q6, q15, q24, q42,
+q51, q52, q53, q63 and q84 (port of ``spark_rapids_tpu/bench/tpcds_gen.py``).
 
 It writes the same tables as the reference generator for the same scale
 factor and seed: the same per-table ``default_rng(seed + crc32(name) %
@@ -15,6 +15,12 @@ Row counts, key ranges, null fractions and surrogate-key conventions are
 dsdgen-like (store_sales ~2.88M rows per SF); the values are synthetic,
 not dsdgen's.  ``rows_per_file`` sets the file layout; each file holds
 row groups of 2^20 rows.
+
+store_returns is sampled from the rows of store_sales, as the
+reference samples it: generated in the same call, store_sales is held in
+memory until its returns are written; already on disk, it is generated
+again in memory from its own rng (the same rows, since the stamp pins sf
+and seed).
 """
 from __future__ import annotations
 
@@ -29,10 +35,15 @@ __all__ = ["generate_tpcds", "table_row_counts", "TABLES"]
 
 #: the tables this port generates (those of its TPC-DS queries)
 TABLES = ("date_dim", "item", "customer", "customer_address", "store",
-          "store_sales", "catalog_sales", "web_sales")
+          "customer_demographics", "household_demographics", "income_band",
+          "store_sales", "store_returns", "catalog_sales", "web_sales")
 
 #: bump when generated schemas change; tables regenerate on mismatch
 _SCHEMA_VERSION = "v6"
+
+#: a returns table is sampled from its parent's rows, so that joins on
+#: (item_sk, ticket number) match
+_RETURNS_PARENT = {"store_returns": "store_sales"}
 
 #: rows per parquet row group (pyarrow's default, stated)
 _ROW_GROUP = 1 << 20
@@ -320,6 +331,50 @@ def _gen_store(rng, n: int) -> dict[str, np.ndarray]:
     }
 
 
+def _gen_customer_demographics(rng, n: int) -> dict[str, np.ndarray]:
+    eds = ["Primary", "Secondary", "College", "2 yr Degree", "4 yr Degree",
+           "Advanced Degree", "Unknown"]
+    return {
+        "cd_demo_sk": np.arange(1, n + 1, dtype=np.int32),
+        "cd_gender": np.array([("M", "F")[v] for v in
+                               rng.integers(0, 2, n)], dtype=object),
+        "cd_marital_status": np.array(
+            [("M", "S", "D", "W", "U")[v] for v in rng.integers(0, 5, n)],
+            dtype=object),
+        "cd_education_status": np.array(
+            [eds[v] for v in rng.integers(0, len(eds), n)], dtype=object),
+        "cd_purchase_estimate": (rng.integers(1, 21, n) * 500).astype(
+            np.int32),
+        "cd_credit_rating": np.array(
+            [("Low Risk", "Good", "High Risk", "Unknown")[v]
+             for v in rng.integers(0, 4, n)], dtype=object),
+        "cd_dep_count": rng.integers(0, 7, n).astype(np.int32),
+        "cd_dep_employed_count": rng.integers(0, 7, n).astype(np.int32),
+        "cd_dep_college_count": rng.integers(0, 7, n).astype(np.int32),
+    }
+
+
+def _gen_household_demographics(rng, n: int) -> dict[str, np.ndarray]:
+    return {
+        "hd_demo_sk": np.arange(1, n + 1, dtype=np.int32),
+        "hd_dep_count": rng.integers(0, 10, n).astype(np.int32),
+        "hd_vehicle_count": rng.integers(-1, 5, n).astype(np.int32),
+        "hd_buy_potential": np.array(
+            [(">10000", "5001-10000", "1001-5000", "501-1000", "0-500",
+              "Unknown")[v] for v in rng.integers(0, 6, n)], dtype=object),
+        "hd_income_band_sk": rng.integers(1, 21, n).astype(np.int32),
+    }
+
+
+def _gen_income_band(rng, n: int) -> dict[str, np.ndarray]:
+    sk = np.arange(1, n + 1, dtype=np.int32)
+    return {
+        "ib_income_band_sk": sk,
+        "ib_lower_bound": ((sk - 1) * 10_000).astype(np.int32),
+        "ib_upper_bound": (sk * 10_000 - 1).astype(np.int32),
+    }
+
+
 def _sales_common(rng, n, counts, prefix):
     qty = rng.integers(1, 101, n).astype(np.int32)
     price = np.round(np.exp(rng.normal(2.5, 1.0, n)).clip(0.01, 300.0), 2)
@@ -500,6 +555,70 @@ def _gen_web_sales(rng, n: int, counts) -> dict[str, np.ndarray]:
     }
 
 
+def _pick(col, idx):
+    """Parent column values at row indices ``idx`` (a nullable column
+    keeps its nulls)."""
+    if isinstance(col, _Nullable):
+        return _Nullable(col.values[idx], col.mask[idx])
+    return np.asarray(col)[idx]
+
+
+def _ret_date_col(rng, ret_date: np.ndarray, null_frac: float) -> _Nullable:
+    """returned_date_sk: the sentinel 0 (the parent's sold date was null)
+    is null, as dsdgen writes it, and ~null_frac more nulls are drawn."""
+    col = _with_nulls(rng, ret_date, null_frac)
+    return _Nullable(ret_date, col.mask | (ret_date == 0))
+
+
+def _returns_common(rng, parent: dict, n: int, item_col: str,
+                    date_col: str, qty_col: str, price_col: str):
+    """Sample n parent rows; returned date = sold date + U(1,90) days,
+    return qty <= sold qty, amounts derived from the parent price."""
+    pn = len(parent[item_col])
+    idx = rng.choice(pn, size=min(n, pn), replace=False)
+    idx.sort()
+    sold = parent[date_col]
+    if isinstance(sold, _Nullable):
+        sold_days = np.where(sold.mask[idx], 0,
+                             sold.values[idx]).astype(np.int64)
+    else:
+        sold_days = np.asarray(sold)[idx].astype(np.int64)
+    ret_date = np.where(sold_days > 0,
+                        sold_days + rng.integers(1, 91, len(idx)),
+                        0).astype(np.int64)
+    qty = np.asarray(parent[qty_col])[idx].astype(np.int64)
+    rqty = rng.integers(1, np.maximum(qty, 1) + 1).astype(np.int32)
+    price = np.asarray(parent[price_col])[idx].astype(np.float64)
+    amt = np.round(price * rqty, 2)
+    return idx, ret_date, rqty, amt
+
+
+def _gen_store_returns(rng, counts, parent: dict) -> dict[str, np.ndarray]:
+    n = counts["store_returns"]
+    idx, ret_date, rqty, amt = _returns_common(
+        rng, parent, n, "ss_item_sk",
+        "ss_sold_date_sk", "ss_quantity", "ss_sales_price")
+    return {
+        "sr_returned_date_sk": _ret_date_col(rng, ret_date, 0.02),
+        "sr_item_sk": _pick(parent["ss_item_sk"], idx).astype(np.int32),
+        "sr_ticket_number": _pick(parent["ss_ticket_number"],
+                                  idx).astype(np.int64),
+        "sr_customer_sk": _pick(parent["ss_customer_sk"], idx),
+        "sr_cdemo_sk": _pick(parent["ss_cdemo_sk"], idx),
+        "sr_store_sk": _pick(parent["ss_store_sk"], idx),
+        "sr_reason_sk": _with_nulls(
+            rng, rng.integers(1, counts["reason"] + 1,
+                              len(idx)).astype(np.int32), 0.02),
+        "sr_return_quantity": _with_nulls(rng, rqty, 0.02),
+        "sr_return_amt": amt,
+        "sr_net_loss": np.round(amt * rng.uniform(0.3, 1.1, len(idx)), 2),
+        "sr_fee": np.round(rng.uniform(0.5, 100.0, len(idx)), 2),
+        "sr_refunded_cash": np.round(amt * rng.uniform(0.0, 1.0, len(idx)),
+                                     2),
+        "sr_return_amt_inc_tax": np.round(amt * 1.08, 2),
+    }
+
+
 _GENERATORS = {
     "date_dim": lambda rng, counts: _gen_date_dim(counts),
     "item": lambda rng, counts: _gen_item(rng, counts["item"]),
@@ -510,6 +629,12 @@ _GENERATORS = {
     "customer_address": lambda rng, counts: _gen_customer_address(
         rng, counts["customer_address"]),
     "store": lambda rng, counts: _gen_store(rng, counts["store"]),
+    "customer_demographics": lambda rng, counts: _gen_customer_demographics(
+        rng, counts["customer_demographics"]),
+    "household_demographics": lambda rng, counts:
+        _gen_household_demographics(rng, counts["household_demographics"]),
+    "income_band": lambda rng, counts: _gen_income_band(
+        rng, counts["income_band"]),
     "store_sales": lambda rng, counts: _gen_store_sales(
         rng, counts["store_sales"], counts),
     "catalog_sales": lambda rng, counts: _gen_catalog_sales(
@@ -517,6 +642,8 @@ _GENERATORS = {
     "web_sales": lambda rng, counts: _gen_web_sales(
         rng, counts["web_sales"], counts),
 }
+
+_RETURNS_GENERATORS = {"store_returns": _gen_store_returns}
 
 
 def _arrow(arr, is_date: bool):
@@ -565,16 +692,36 @@ def generate_tpcds(data_dir: str, sf: float = 0.01, seed: int = 42,
     is present is reused; any other is regenerated."""
     counts = table_row_counts(sf)
     stamp = f"_{_SCHEMA_VERSION}_sf{sf:g}_seed{seed}_rpf{rows_per_file}"
+
+    def needs_gen(t: str) -> bool:
+        return not os.path.exists(os.path.join(data_dir, t, stamp))
+
+    def rng_of(t: str):
+        return np.random.default_rng(seed + zlib.crc32(t.encode()) % 1000)
+
     written = {}
+    # a parent's rows, held only until its returns table is written
+    parents: dict[str, dict] = {}
     for t in tables:
         out = os.path.join(data_dir, t)
         written[t] = counts[t]
-        if os.path.exists(os.path.join(out, stamp)):
+        if not needs_gen(t):
             continue
         if os.path.isdir(out):
             shutil.rmtree(out)
-        rng = np.random.default_rng(seed + zlib.crc32(t.encode()) % 1000)
-        data = _GENERATORS[t](rng, counts)
+        if t in _RETURNS_GENERATORS:
+            pname = _RETURNS_PARENT[t]
+            parent = parents.pop(pname, None)
+            if parent is None:  # on disk: the same rows, made again
+                parent = _GENERATORS[pname](rng_of(pname), counts)
+            data = _RETURNS_GENERATORS[t](rng_of(t), counts, parent)
+            del parent
+        else:
+            data = _GENERATORS[t](rng_of(t), counts)
+            ret = next((r for r, p in _RETURNS_PARENT.items() if p == t),
+                       None)
+            if ret in tables and needs_gen(ret):
+                parents[t] = data
         _write_parquet(out, data, rows_per_file,
                        date_cols=("d_date",) if t == "date_dim" else ())
         del data

@@ -1,13 +1,15 @@
 """TPC-DS queries as DataFrame code (port of
 ``spark_rapids_tpu/bench/tpcds_queries.py``: q3, q6, q15, q42, q52, q53, q63,
-and of ``tpcds_queries5.py``: q51, the ones whose operators the port
-has), and :func:`top_customers`, an explicit repartition of the fact
-table.
+of ``tpcds_queries4.py``: q84, and of ``tpcds_queries5.py``: q24 and q51,
+the ones whose operators the port has), :func:`q84_all_cities`, q84
+without its city filter, and :func:`top_customers`, an explicit
+repartition of the fact table.
 
 Each builder takes a :class:`TorchSession` and the data directory and
 returns a DataFrame over the generated tables (``bench/tpcds_gen.py``).
-q6's scalar subquery (the month_seq) is evaluated eagerly and folded in as
-a literal -- the plan shape Spark produces after subquery execution.
+q6's scalar subquery (the month_seq) and q24's (5% of the average net
+paid) are evaluated eagerly and folded in as literals -- the plan shape
+Spark produces after subquery execution.
 """
 from __future__ import annotations
 
@@ -19,13 +21,13 @@ from spark_rapids_tpu_torch.expr.arithmetic import Abs
 from spark_rapids_tpu_torch.expr.conditional import Coalesce
 from spark_rapids_tpu_torch.expr.core import col, lit
 from spark_rapids_tpu_torch.expr.predicates import In, Or
-from spark_rapids_tpu_torch.expr.strings import Substring
+from spark_rapids_tpu_torch.expr.strings import Concat, Substring, Upper
 from spark_rapids_tpu_torch.expr.window import (CURRENT_ROW, UNBOUNDED,
                                                 WindowExpression,
                                                 WindowFrame, WindowSpec)
 
-__all__ = ["TPCDS_QUERIES", "q3", "q6", "q15", "q42", "q51", "q52", "q53", "q63",
-           "top_customers"]
+__all__ = ["TPCDS_QUERIES", "q3", "q6", "q15", "q24", "q42", "q51", "q52",
+           "q53", "q63", "q84", "q84_all_cities", "top_customers"]
 
 
 def _t(session, data_dir: str, table: str, columns=None):
@@ -258,6 +260,97 @@ def q63(session, data_dir: str):
                             ("accent", "dresses", "fiction", "shirts")]))
 
 
+def _q84(session, data_dir: str, city):
+    cu = _t(session, data_dir, "customer",
+            ["c_customer_sk", "c_customer_id", "c_first_name",
+             "c_last_name", "c_current_addr_sk", "c_current_cdemo_sk",
+             "c_current_hdemo_sk"])
+    ca = _t(session, data_dir, "customer_address",
+            ["ca_address_sk", "ca_city"])
+    if city is not None:
+        ca = ca.where(col("ca_city") == lit(city))
+    ca = ca.select(col("ca_address_sk"))
+    hd = _t(session, data_dir, "household_demographics",
+            ["hd_demo_sk", "hd_income_band_sk"])
+    ib = _t(session, data_dir, "income_band") \
+        .where((col("ib_lower_bound") >= lit(38128))
+               & (col("ib_upper_bound") <= lit(38128 + 50000))) \
+        .select(col("ib_income_band_sk"))
+    sr = _t(session, data_dir, "store_returns", ["sr_cdemo_sk"]) \
+        .select(col("sr_cdemo_sk"))
+    cd = _t(session, data_dir, "customer_demographics", ["cd_demo_sk"])
+    name = Concat(Coalesce(col("c_last_name"), lit("")), lit(", "),
+                  Coalesce(col("c_first_name"), lit("")))
+    return cu.join(ca, on=[("c_current_addr_sk", "ca_address_sk")],
+                   how="semi") \
+        .join(hd, on=[("c_current_hdemo_sk", "hd_demo_sk")]) \
+        .join(ib, on=[("hd_income_band_sk", "ib_income_band_sk")],
+              how="semi") \
+        .join(cd, on=[("c_current_cdemo_sk", "cd_demo_sk")]) \
+        .join(sr, on=[("cd_demo_sk", "sr_cdemo_sk")], how="semi") \
+        .select(col("c_customer_id").alias("customer_id"),
+                name.alias("customername")) \
+        .order_by(("customer_id", True)).limit(100)
+
+
+def q84(session, data_dir: str):
+    """TPC-DS q84: Edgewood customers in an income band with store
+    returns."""
+    return _q84(session, data_dir, "Edgewood")
+
+
+def q84_all_cities(session, data_dir: str):
+    """q84 without its ``ca_city = 'Edgewood'`` filter, nothing else
+    changed (the semi join on customer_address stays).  The generator
+    writes cities City000..City399 and never Edgewood, so q84 as written
+    returns no rows at any scale and its Concat sees none; this variant
+    concatenates the names of every customer in the income bands."""
+    return _q84(session, data_dir, None)
+
+
+def q24(session, data_dir: str):
+    """TPC-DS q24a: pale-item net paid per customer/store, above 5% of
+    the average."""
+    ss = _t(session, data_dir, "store_sales",
+            ["ss_ticket_number", "ss_item_sk", "ss_customer_sk",
+             "ss_store_sk", "ss_net_paid"])
+    sr = _t(session, data_dir, "store_returns",
+            ["sr_ticket_number", "sr_item_sk"])
+    st = _t(session, data_dir, "store",
+            ["s_store_sk", "s_store_name", "s_market_id", "s_state",
+             "s_zip"]) \
+        .where(col("s_market_id") == lit(8))
+    it = _t(session, data_dir, "item",
+            ["i_item_sk", "i_color", "i_current_price", "i_manager_id",
+             "i_units", "i_size"])
+    cu = _t(session, data_dir, "customer",
+            ["c_customer_sk", "c_first_name", "c_last_name",
+             "c_birth_country"])
+    ca = _t(session, data_dir, "customer_address",
+            ["ca_address_sk", "ca_state", "ca_country", "ca_zip"]) \
+        .with_column("ca_country_up", Upper(col("ca_country")))
+    base = ss.join(sr, on=[("ss_ticket_number", "sr_ticket_number"),
+                           ("ss_item_sk", "sr_item_sk")]) \
+        .join(st, on=[("ss_store_sk", "s_store_sk")]) \
+        .join(it, on=[("ss_item_sk", "i_item_sk")]) \
+        .join(cu, on=[("ss_customer_sk", "c_customer_sk")]) \
+        .join(ca, on=[("c_birth_country", "ca_country_up"),
+                      ("s_zip", "ca_zip")])
+    ssales = base.group_by("c_last_name", "c_first_name", "s_store_name",
+                           "ca_state", "s_state", "i_color",
+                           "i_current_price", "i_manager_id", "i_units",
+                           "i_size") \
+        .agg(Sum(col("ss_net_paid")).alias("netpaid"))
+    avg_rows = ssales.agg(Average(col("netpaid")).alias("a")).collect()
+    threshold = 0.05 * float(avg_rows[0][0] or 0.0)
+    return ssales.where(col("i_color") == lit("pale")) \
+        .group_by("c_last_name", "c_first_name", "s_store_name") \
+        .agg(Sum(col("netpaid")).alias("paid")) \
+        .where(col("paid") > lit(threshold)) \
+        .order_by(("c_last_name", True), ("c_first_name", True),
+                  ("s_store_name", True), ("paid", True))
+
+
 def top_customers(session, data_dir: str):
     """The 100 customers with the most store purchases (the null customer
     included), over store_sales hash-repartitioned on the customer key:
@@ -283,4 +376,12 @@ TPCDS_QUERIES = {
     "q51": (q51, ("date_dim", "store_sales", "web_sales")),
     "q53": (q53, ("date_dim", "item", "store", "store_sales")),
     "q63": (q63, ("date_dim", "item", "store", "store_sales")),
+    "q24": (q24, ("item", "customer", "customer_address", "store",
+                  "store_sales", "store_returns")),
+    "q84": (q84, ("customer", "customer_address", "customer_demographics",
+                  "household_demographics", "income_band",
+                  "store_returns")),
+    "q84_all_cities": (q84_all_cities, (
+        "customer", "customer_address", "customer_demographics",
+        "household_demographics", "income_band", "store_returns")),
 }

@@ -42,6 +42,8 @@ SOURCES = {
     "window_agg": "window_agg.cu",
     "string_substr": "string_substr.cu",
     "string_match": "string_match.cu",
+    "string_concat": "string_concat.cu",
+    "string_case": "string_case.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -111,6 +113,13 @@ _SIGNATURES = {
     "string_match": {
         "srt_string_match": [_I, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I,
                              _P, _P, _P],
+    },
+    "string_concat": {
+        "srt_concat": [_I, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P,
+                       _P, _P, _P],
+    },
+    "string_case": {
+        "srt_case_map": [_P, _P, _L, _I, _P],
     },
 }
 

@@ -1,11 +1,15 @@
-"""String kernels: Spark ``substring`` (K13a) and literal matching (K13b).
+"""String kernels: Spark ``substring`` (K13a), literal matching (K13b),
+concatenation (K13c) and ASCII case mapping (K13d).
 
 Port of the device branches of ``spark_rapids_tpu/expr/strings.py``:
-``_char_starts`` (:29) with ``Substring._device`` (:174), and the byte
+``_char_starts`` (:29) with ``Substring._device`` (:174), the byte
 comparisons of ``StartsWith`` (:294), ``EndsWith`` (:310), ``Contains``
 (:329) and the ``equals`` shape of ``Like`` (``predicates.py:58``
-``_string_eq``).  Strings are the column contract's byte matrices: uint8
-``[n, W]`` (W a power of two >= 4) with int32 lengths and bool validity.
+``_string_eq``), ``_concat2_device`` (:252) as ``Concat`` (:235) and
+``ConcatWs`` (:484) fold it, and ``Upper._device`` (:63) and
+``Lower._device`` (:76).  Strings are the column contract's byte
+matrices: uint8 ``[n, W]`` (W a power of two >= 4) with int32 lengths
+and bool validity.
 
 * K13a, ``csrc/string_substr.cu``: one thread per row of up to 32 bytes,
   a group of ``min(W / 4, 32)`` lanes per wider row, counts the row's
@@ -21,6 +25,19 @@ comparisons of ``StartsWith`` (:294), ``EndsWith`` (:310), ``Contains``
   start (prefix), end (suffix), any offset (contains) or as the whole
   row (equals).  An empty needle matches every valid row but in equals
   mode, where it matches the empty string.
+* K13c, ``csrc/string_concat.cu``: up to 8 pieces (columns, or one-row
+  literals read by every row) laid end to end, in Concat mode (null where
+  any piece is) or ConcatWs mode (null pieces skipped, a separator
+  between two non-null pieces, never null).  The output width is
+  ``round_string_width`` of the pieces' widths plus the separators', so
+  no length is read back to the host.  One thread per output row of up
+  to 32 bytes, a lane per 16-byte vector of a wider row; each lane
+  builds whole output words from two funnel-shifted source words per
+  piece.
+* K13d, ``csrc/string_case.cu``: a flat pass of 16-byte vectors over the
+  padded matrix mapping ``a-z`` to ``A-Z`` (or back), four bytes a word
+  at a time; bytes >= 0x80 and the zero tail pass unchanged, and the
+  lengths and validity are the input's (not copied).
 
 The reference computes ``start + len`` in int32, so ``substring('hello',
 2, 2147483647)`` wraps to ``''`` there (ROADMAP.md Queue 3); both
@@ -32,6 +49,8 @@ raises.  Each wrapper counts its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -40,7 +59,9 @@ from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops.kernels import ptr
 
 __all__ = ["substring", "substring_plain", "string_match",
-           "string_match_plain", "literal_needle", "MATCH_MODES"]
+           "string_match_plain", "literal_needle", "MATCH_MODES", "concat",
+           "concat_plain", "concat_width", "case_map", "case_map_plain",
+           "MAX_PIECES"]
 
 #: mode codes of csrc/string_match.cu
 MATCH_MODES = {"prefix": 0, "suffix": 1, "contains": 2, "equals": 3}
@@ -276,3 +297,209 @@ def _string_match_cuda(mode, data, lengths, validity, needle,
         ptr(out_valid), native.stream_ptr(dev)), "srt_string_match")
     string_match.launches += 1
     return out, out_valid
+
+
+# ---------------------------------------------------------------------------
+# K13c: concat / concat_ws
+# ---------------------------------------------------------------------------
+
+#: pieces one K13c launch takes (csrc/string_concat.cu kMaxPieces)
+MAX_PIECES = 8
+
+
+def _check_pieces(pieces, sep):
+    if not pieces:
+        raise ValueError("concat: no pieces")
+    n = next((p[0].shape[0] for p in pieces if p[0].shape[0] != 1), 1)
+    for data, lengths, validity in pieces:
+        _check_strings(data, lengths, validity, "concat piece")
+        if data.shape[0] not in (1, n):
+            raise ValueError(f"concat piece rows {data.shape[0]}: 1 or {n}")
+    if sep is not None and len(pieces) > MAX_PIECES:
+        raise ValueError(f"concat_ws over {len(pieces)} pieces: at most "
+                         f"{MAX_PIECES}")
+    return n
+
+
+def _sep_bytes(sep) -> bytes | None:
+    return None if sep is None else sep.encode("utf-8")
+
+
+def concat_width(pieces, sep=None) -> int:
+    """Output width of :func:`concat`: the pieces' widths and the
+    separators' bytes, rounded up by ``round_string_width``."""
+    w = sum(p[0].shape[1] for p in pieces)
+    sb = _sep_bytes(sep)
+    if sb is not None:
+        w += (len(pieces) - 1) * len(sb)
+    return round_string_width(w)
+
+
+def concat(pieces, sep=None):
+    """Concatenate string pieces row by row.
+
+    ``pieces`` is a list of (uint8 [m, W], int32 [m], bool [m]) with m the
+    row count n or 1 (a literal, read by every row).  ``sep`` None is
+    Spark ``concat``: the result is null where any piece is.  ``sep`` a
+    str is ``concat_ws``: null pieces are skipped, ``sep`` goes between
+    two non-null pieces, and the result is never null.  Returns (uint8
+    [n, concat_width], int32 lengths, bool validity) with zeros after each
+    result."""
+    n = _check_pieces(pieces, sep)
+    if pieces[0][0].device.type == "cpu":
+        return concat_plain(pieces, sep)
+    if sep is None and len(pieces) > MAX_PIECES:
+        # concat is associative: fold the first MAX_PIECES into one piece
+        head = concat(pieces[:MAX_PIECES])
+        return concat([head] + list(pieces[MAX_PIECES:]))
+    return _concat_cuda(pieces, sep, n)
+
+
+concat.launches = 0
+
+
+def _concat2(da, la, db, lb):
+    """``_concat2_device``: row a's bytes, then row b's, zeros after."""
+    n, wa = da.shape
+    wb = db.shape[1]
+    w = round_string_width(wa + wb)
+    j = torch.arange(w, device=da.device)[None, :]
+    la, lb = la.long()[:, None], lb.long()[:, None]
+    av = torch.gather(da, 1, j.clamp(0, wa - 1).expand(n, w))
+    bv = torch.gather(db, 1, (j - la).clamp(0, wb - 1))
+    out = torch.where(j < la, av, bv)
+    new_len = la + lb
+    out = torch.where(j < new_len, out, torch.zeros((), dtype=torch.uint8,
+                                                    device=da.device))
+    return out, new_len[:, 0].to(torch.int32)
+
+
+def concat_plain(pieces, sep=None):
+    """Plain PyTorch version of :func:`concat` (any device): the
+    reference's pairwise fold, each step cut to the widths folded so far
+    (no row is longer, and the rounded widths would otherwise double with
+    every step), then to :func:`concat_width`."""
+    n = _check_pieces(pieces, sep)
+    dev = pieces[0][0].device
+    full = [(d.expand(n, -1), ln.expand(n), v.expand(n))
+            for d, ln, v in pieces]
+    sb = _sep_bytes(sep)
+
+    def step(data, lengths, d, ln, bound):
+        data, lengths = _concat2(data, lengths, d, ln)
+        return data[:, :round_string_width(bound)], lengths
+
+    if sb is None:
+        validity = full[0][2]
+        data, lengths = full[0][0], full[0][1]
+        bound = data.shape[1]
+        for d, ln, v in full[1:]:
+            validity = validity & v
+            bound += d.shape[1]
+            data, lengths = step(data, lengths, d, ln, bound)
+        data = torch.where(validity[:, None], data,
+                           torch.zeros((), dtype=torch.uint8, device=dev))
+        lengths = torch.where(validity, lengths, 0).to(torch.int32)
+    else:
+        sd, sl, _sv = literal_needle(sep, dev)
+        sd = sd.expand(n, -1)
+        data = torch.zeros((n, 4), dtype=torch.uint8, device=dev)
+        lengths = torch.zeros(n, dtype=torch.int32, device=dev)
+        have_any = torch.zeros(n, dtype=torch.bool, device=dev)
+        bound = 0
+        for i, (d, ln, v) in enumerate(full):
+            if i:
+                bound += len(sb)
+                data, lengths = step(data, lengths, sd,
+                                     torch.where(have_any & v, sl, 0),
+                                     bound)
+            bound += d.shape[1]
+            data, lengths = step(data, lengths, d, torch.where(v, ln, 0),
+                                 bound)
+            have_any = have_any | v
+        validity = torch.ones(n, dtype=torch.bool, device=dev)
+    w = concat_width(pieces, sep)
+    if data.shape[1] < w:
+        data = torch.nn.functional.pad(data, (0, w - data.shape[1]))
+    return data[:, :w].contiguous(), lengths, validity.clone()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _concat_cuda(pieces, sep, n: int):
+    dev = pieces[0][0].device
+    w = concat_width(pieces, sep)
+    out = torch.empty((n, w), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(n, dtype=torch.int32, device=dev)
+    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, out_len, out_valid
+    lib = native.lib("string_concat")
+    keep = []  # the operands stay alive until the launch is queued
+    for d, ln, v in pieces:
+        if d.device != dev:
+            raise ValueError(f"concat piece on {d.device}, first on {dev}")
+        keep.append((_aligned(d), ln.to(torch.int32).contiguous(),
+                     v.contiguous()))
+    k = len(keep)
+    ptrs = ctypes.c_void_p * k
+    datas = ptrs(*[ptr(d) for d, _l, _v in keep])
+    lens = ptrs(*[ptr(ln) for _d, ln, _v in keep])
+    valids = ptrs(*[ptr(v) for _d, _l, v in keep])
+    widths = (ctypes.c_int * k)(*[d.shape[1] for d, _l, _v in keep])
+    rows = (ctypes.c_int * k)(*[int(d.shape[0] == n) for d, _l, _v in keep])
+    sb = _sep_bytes(sep)
+    sep_row = None if sb is None else literal_needle(sep, dev)[0]
+    native.check(lib.srt_concat(
+        k, datas, widths, lens, valids, rows, n,
+        None if sep_row is None else ptr(sep_row),
+        0 if sep_row is None else sep_row.shape[1], len(sb or b""),
+        int(sb is not None), w, ptr(out), ptr(out_len), ptr(out_valid),
+        native.stream_ptr(dev)), "srt_concat")
+    concat.launches += 1
+    return out, out_len, out_valid
+
+
+# ---------------------------------------------------------------------------
+# K13d: ASCII upper / lower
+# ---------------------------------------------------------------------------
+
+def case_map(data: torch.Tensor, lengths: torch.Tensor,
+             validity: torch.Tensor, upper: bool):
+    """ASCII ``upper`` (a-z to A-Z) or lower (A-Z to a-z) of every row;
+    other bytes, UTF-8 sequences among them, pass unchanged.  Returns
+    (uint8 [n, W], lengths, validity): the lengths and validity are the
+    input's own tensors."""
+    _check_strings(data, lengths, validity, "case_map")
+    if data.device.type == "cpu":
+        return case_map_plain(data, lengths, validity, upper)
+    return _case_map_cuda(data, lengths, validity, upper)
+
+
+case_map.launches = 0
+
+
+def case_map_plain(data: torch.Tensor, lengths: torch.Tensor,
+                   validity: torch.Tensor, upper: bool):
+    """Plain PyTorch version of :func:`case_map` (any device)."""
+    lo, hi, delta = (97, 122, -32) if upper else (65, 90, 32)
+    hit = (data >= lo) & (data <= hi)
+    return (torch.where(hit, data + delta, data).to(torch.uint8), lengths,
+            validity)
+
+
+def _case_map_cuda(data, lengths, validity, upper):
+    n, w = data.shape
+    out = torch.empty((n, w), dtype=torch.uint8, device=data.device)
+    if n == 0:
+        return out, lengths, validity
+    lib = native.lib("string_case")
+    data = _aligned(data)  # the kernel reads 16-byte vectors
+    native.check(lib.srt_case_map(
+        ptr(data), ptr(out), n * w, 1 if upper else 0,
+        native.stream_ptr(data.device)), "srt_case_map")
+    case_map.launches += 1
+    return out, lengths, validity

@@ -513,3 +513,163 @@ def test_if_takes_the_false_branch_on_a_null_predicate():
     want = jpred.eval([_jval(data, np.ones(2, bool), JT.StringType(),
                              np.array([11, 11], np.int32))], _jctx(2))
     assert got.data.tolist() == np.asarray(want.data).tolist()
+
+
+# ---------------------------------------------------------------------------
+# K13c: Concat / ConcatWs, K13d: Upper / Lower
+# ---------------------------------------------------------------------------
+
+def _values(v):
+    """(row bytes up to each length or None, lengths) of a string Val
+    from either package: the values, whatever the matrix width."""
+    data, valid, lengths = (np.asarray(x) for x in (
+        _j(v) if isinstance(v, JC.Val) else _p(v)))
+    rows = [bytes(data[i, :lengths[i]]) if valid[i] else None
+            for i in range(len(valid))]
+    return rows, lengths
+
+
+def _assert_zero_tail(v):
+    data, _valid, lengths = _p(v)
+    assert not (data * (np.arange(data.shape[1])[None, :]
+                        >= lengths[:, None])).any()
+
+
+_CONCAT_CASES = [
+    # (piece widths; a str is a literal piece, None a null literal)
+    [16],
+    [8, 32],
+    [4, ", ", 64],
+    [16, "", 8, "é-", 4],
+    [256, 4, 128],
+    [8, None, 16],
+    ["ab", 16, "😀"],
+]
+
+
+@pytest.mark.parametrize("case", range(len(_CONCAT_CASES)))
+@pytest.mark.parametrize("ws", [False, True])
+def test_concat_matches_jax(case, ws):
+    rng = np.random.default_rng(500 + case)
+    spec = _CONCAT_CASES[case]
+    s, ps = JT.StringType(), PT.StringType()
+    jkids, pkids, jvals, pvals = [], [], [], []
+    for item in spec:
+        if isinstance(item, int):
+            data, lengths, valid = _rows(rng, N, item)
+            k = len(jvals)
+            jkids.append(JC.BoundReference(k, s))
+            pkids.append(PC.BoundReference(k, ps))
+            jvals.append(_jval(data, valid, s, lengths))
+            pvals.append(_pval(data, valid, ps, lengths))
+        else:
+            jkids.append(JC.Literal(item, s))
+            pkids.append(PC.Literal(item, ps))
+    if ws:
+        je, pe = JS.ConcatWs("|é", *jkids), PS.ConcatWs("|é", *pkids)
+    else:
+        je, pe = JS.Concat(*jkids), PS.Concat(*pkids)
+    want = je.eval(jvals, _jctx(N))
+    got = pe.eval(pvals, _pctx(N))
+    assert _values(got)[0] == _values(want)[0]
+    assert np.array_equal(_values(got)[1], _values(want)[1])
+    _assert_zero_tail(got)
+    nulls = sum(r is None for r in _values(got)[0])
+    if ws:
+        assert nulls == 0 and not pe.nullable
+    else:
+        assert nulls > 0 or len(jvals) == 0
+
+
+def test_concat_of_literals_fills_every_row():
+    ps = PT.StringType()
+    e = PS.Concat(PC.Literal("ab", ps), PC.Literal("c", ps))
+    v = e.eval([], _pctx(5))
+    assert _values(v)[0] == [b"abc"] * 5
+    v = PS.ConcatWs(",", PC.Literal(None, ps), PC.Literal("x", ps)).eval(
+        [], _pctx(0))
+    assert v.data.shape[0] == 0
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("upper", [True, False])
+def test_upper_lower_match_jax(w, upper):
+    rng = np.random.default_rng(600 + w)
+    data, lengths, valid = _rows(rng, N, w)
+    # ASCII letters of both cases and the bytes next to their ranges
+    letters = np.frombuffer(b"aAzZ@[`{mM", np.uint8)
+    for i in range(0, N, 3):
+        if valid[i] and lengths[i]:
+            j = int(rng.integers(0, lengths[i]))
+            if data[i, j] < 0x80:
+                data[i, j] = letters[int(rng.integers(0, len(letters)))]
+    s, ps = JT.StringType(), PT.StringType()
+    jcls, pcls = (JS.Upper, PS.Upper) if upper else (JS.Lower, PS.Lower)
+    want = jcls(JC.BoundReference(0, s)).eval(
+        [_jval(data, valid, s, lengths)], _jctx(N))
+    got = pcls(PC.BoundReference(0, ps)).eval(
+        [_pval(data, valid, ps, lengths)], _pctx(N))
+    _assert_same(_p(got), _j(want))
+    changed = (got.data.numpy() != data).sum()
+    assert changed > 0
+    # multi-byte UTF-8 passes through: é stays é in both packages
+    e = np.zeros((1, 4), np.uint8)
+    e[0, :3] = np.frombuffer("aé".encode(), np.uint8)
+    got = pcls(PC.BoundReference(0, ps)).eval(
+        [_pval(e, np.ones(1, bool), ps, np.array([3], np.int32))], _pctx(1))
+    assert bytes(got.data[0, :3].tolist()).decode() == \
+        ("Aé" if upper else "aé")
+
+
+def test_concat_and_case_map_do_not_fall_back_off_the_cpu(monkeypatch):
+    def no_kernel(name):
+        raise RuntimeError(f"no {name} kernel")
+
+    monkeypatch.setattr(native, "lib", no_kernel)
+    data, lengths, valid = _meta_strings()
+    lit = _meta_strings(1, 4)
+    for sep in (None, ", "):
+        with pytest.raises(RuntimeError, match="no string_concat kernel"):
+            OS.concat([(data, lengths, valid), lit], sep)
+    for upper in (True, False):
+        with pytest.raises(RuntimeError, match="no string_case kernel"):
+            OS.case_map(data, lengths, valid, upper)
+
+
+def test_concat_and_case_map_run_the_plain_versions_on_the_cpu(
+        monkeypatch):
+    def no_kernel(name):
+        raise AssertionError(f"{name} kernel built on the CPU")
+
+    monkeypatch.setattr(native, "lib", no_kernel)
+    rng = np.random.default_rng(6)
+    a = tuple(torch.from_numpy(x) for x in _rows(rng, 50, 16))
+    b = tuple(torch.from_numpy(x) for x in _rows(rng, 50, 8))
+    lit = OS.literal_needle(", ", CPU)
+    before = (OS.concat.launches, OS.case_map.launches)
+    for sep in (None, "-"):
+        got = OS.concat([a, lit, b], sep)
+        want = OS.concat_plain([a, lit, b], sep)
+        assert got[0].shape == (50, OS.concat_width([a, lit, b], sep))
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    for upper in (True, False):
+        got = OS.case_map(*a, upper)
+        want = OS.case_map_plain(*a, upper)
+        assert torch.equal(got[0], want[0])
+        assert got[1] is a[1] and got[2] is a[2]  # shared, not copied
+    assert (OS.concat.launches, OS.case_map.launches) == before
+
+
+def test_concat_checks_its_pieces():
+    a = (torch.zeros((3, 8), dtype=torch.uint8),
+         torch.zeros(3, dtype=torch.int32), torch.ones(3, dtype=torch.bool))
+    with pytest.raises(ValueError, match="no pieces"):
+        OS.concat([])
+    with pytest.raises(ValueError, match="piece rows"):
+        OS.concat([a, tuple(t[:2] for t in a)])
+    with pytest.raises(ValueError, match="at most 8"):
+        OS.concat([a] * 9, ",")
+    # concat (no separator) of more than 8 pieces folds
+    got = OS.concat([a] * 9)
+    assert got[0].shape == (3, 128) and got[2].all()
