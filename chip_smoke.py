@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
 3. per kernel (K1 sort, K2 compact, K3 gather, K4 segmented aggregate;
    K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
    phase 6; K12a window segment extents, K12b window frame aggregates in
-   phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9): seeded inputs
+   phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9; K13i, K4p in
+   phase 10): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -69,7 +70,21 @@ Phases (any failure exits non-zero; no phase's error is caught):
    tables added) cold + warm against numpy/pyarrow: q84 must return 0
    rows and q24 at least 1; K13d must launch on q24, K13c on
    q84_all_cities;
-10. print the kernel table as one JSON line (launches per path), the
+10. the mortgage jobs: generate 1M loans (the generator's sf 1000, seed
+   7; ~17.4M performance rows, ~1.7 GB of pipe-delimited text) into
+   .bench_data/ (reused when there); K13i hex and K4p the percentile
+   pick held exactly against their plain versions on 2^24 stress rows
+   (every digit count, both signs, nulls; one giant segment, one-row
+   and empty segments, NaN, +-inf, -0.0, q from 0 to 1) and at the
+   path's shapes (one scan batch of loan-id hashes, after K9's hash mode
+   is held against numpy's murmur3; every hash group's rates, ~17.4M rows
+   in ~1M groups, 4 q's); one performance file's scan alone; then
+   percentiles, agg_join and simple_agg through TorchSession(), each cold
+   + warm against an independent numpy/pyarrow evaluation (its own
+   murmur3 and hex, np.lexsort, the reference's Round): K13i, K4p and
+   K9's hash mode must launch on percentiles, K13i, K9's hash mode and
+   K6 on agg_join;
+11. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -699,7 +714,10 @@ def _counters() -> dict:
             "substring": {"substring": STR.substring},
             "string_match": {"string_match": STR.string_match},
             "concat": {"concat": STR.concat},
-            "case_map": {"case_map": STR.case_map}}
+            "case_map": {"case_map": STR.case_map},
+            "hex_string": {"hex_string": STR.hex_string},
+            "segment_percentile": {
+                "segment_percentile": G.segment_percentile}}
 
 
 _Q1_ENTRIES = ("sort_permutation", "compact", "gather_columns",
@@ -709,7 +727,8 @@ _Q6_ENTRIES = _Q1_ENTRIES + ("join_probe_fast", "join_key_ids",
 _SHUFFLE_ENTRIES = ("partition_ids_for_keys", "group_by_part")
 #: counters of kernels that q6 does not run: the matched-build bitmap
 #: serves full outer joins only, and q6's joins are all inner; K9's hash
-#: mode serves the Murmur3Hash expression, which no path here evaluates
+#: mode serves the Murmur3Hash expression, which only the mortgage jobs
+#: evaluate
 _OFF_Q6_PATH = ("matched_build_rows", "murmur3_columns")
 
 
@@ -2688,6 +2707,455 @@ def run_concat_case_phase(torch, dev, warm: int):
     return entries, paths
 
 
+# ---------------------------------------------------------------------------
+# the mortgage phase: K13i (hex of a long) and K4p (the percentile pick);
+# simple_agg, percentiles and agg_join over 1M loans
+# ---------------------------------------------------------------------------
+
+#: the generator's scale: thousands of loans (1M loans, ~17.4M
+#: performance rows over the four 2003 quarters)
+MORTGAGE_SF = 1000
+#: the fractions of the K4p stress checks (the path's are 0.5 .. 0.99)
+_STRESS_QS = [0.0, 0.25, 0.5, 0.75, 0.9, 0.99, 1.0]
+_PATH_QS = [0.5, 0.75, 0.9, 0.99]
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _murmur3_long(v: np.ndarray) -> np.ndarray:
+    """Spark's hash(long) (murmur3 x86_32, seed 42) of an int64 array, as
+    int32, in numpy uint64 arithmetic (every product of two 32-bit values
+    fits, then is cut to 32 bits)."""
+    u = np.ascontiguousarray(v, dtype=np.int64).view(np.uint64)
+
+    def mul(a, c):
+        return (a * np.uint64(c)) & _M32
+
+    def rotl(x, r):
+        return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & _M32
+
+    def mix_k1(k):
+        return mul(rotl(mul(k, 0xCC9E2D51), 15), 0x1B873593)
+
+    def mix_h1(h, k):
+        return (rotl(h ^ k, 13) * np.uint64(5) + np.uint64(0xE6546B64)) & _M32
+
+    h = np.full(u.shape, 42, np.uint64)
+    h = mix_h1(h, mix_k1(u & _M32))
+    h = mix_h1(h, mix_k1(u >> np.uint64(32)))
+    h ^= np.uint64(8)
+    h ^= h >> np.uint64(16)
+    h = mul(h, 0x85EBCA6B)
+    h ^= h >> np.uint64(13)
+    h = mul(h, 0xC2B2AE35)
+    h ^= h >> np.uint64(16)
+    return h.astype(np.uint32).view(np.int32)
+
+
+def _hex(h: int) -> str:
+    """Spark hex of an int hash cast to long."""
+    return format(int(h) & (2 ** 64 - 1), "X")
+
+
+def _round4(x: np.ndarray) -> np.ndarray:
+    """The reference's Round(x, 4) as its device runs it (XLA folds the
+    division by 10^4 into a product with 10^-4)."""
+    mag = np.abs(x)
+    r = np.floor(mag * 1e4 + 0.5) * (1.0 / 1e4)
+    return np.where(x < 0, -r, r)
+
+
+def _read_csvs(data_dir: str, sub: str, schema, columns) -> dict:
+    """The named columns of every quarter's file, in quarter order, as
+    pyarrow arrays."""
+    import glob
+    import pyarrow as pa
+    import pyarrow.csv as pc
+    at = schema.to_arrow()
+    tables = []
+    for p in sorted(glob.glob(os.path.join(data_dir, sub, "*.txt_0"))):
+        tables.append(pc.read_csv(
+            p, read_options=pc.ReadOptions(column_names=at.names),
+            parse_options=pc.ParseOptions(delimiter="|"),
+            convert_options=pc.ConvertOptions(
+                column_types={f.name: f.type for f in at},
+                include_columns=columns)))
+    t = pa.concat_tables(tables)
+    return {c: t.column(c).combine_chunks() for c in columns}
+
+
+def reference_mortgage(data_dir: str) -> dict:
+    """The three jobs over the CSV files with numpy/pyarrow alone: its own
+    murmur3 of a long and Python's hex, np.lexsort for the percentiles,
+    the reference's Round formula.  Also the path's K4p inputs (each
+    hash group's rates in ascending order, the groups' starts and
+    counts), a batch of loan ids and the data's counts."""
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.bench.mortgage_gen import (acq_schema,
+                                                           perf_schema)
+    perf = _read_csvs(data_dir, "perf", perf_schema(),
+                      ["loan_id", "monthly_reporting_period",
+                       "interest_rate"])
+    acq = _read_csvs(data_dir, "acq", acq_schema(),
+                     ["loan_id", "orig_interest_rate", "dti", "zip"])
+    p_id = perf["loan_id"].to_numpy()
+    rate = perf["interest_rate"].to_numpy(zero_copy_only=False)
+    month = pc.cast(pc.utf8_slice_codeunits(
+        perf["monthly_reporting_period"], 0, 2), "int64").to_numpy()
+    a_id = acq["loan_id"].to_numpy()
+    if len(np.unique(a_id)) != len(a_id) or \
+            not np.isin(p_id, a_id).all():
+        raise AssertionError("mortgage data: loan ids not unique in the "
+                             "acquisitions or missing there")
+    order_a = np.argsort(a_id, kind="stable")
+    loan = order_a[np.searchsorted(a_id, p_id, sorter=order_a)]
+    a_hash = _murmur3_long(a_id)
+    uniq = np.unique(a_hash)
+    hexes = {int(h): _hex(h) for h in uniq}
+    by_hex = sorted(uniq.tolist(), key=lambda h: hexes[h])
+    rank = {h: i for i, h in enumerate(by_hex)}
+    a_group = np.array([rank[int(h)] for h in a_hash], np.int64)
+    p_group = a_group[loan]
+
+    # percentiles: rows by (group, rate); every group's stats
+    order = np.lexsort((rate, p_group))
+    g_sorted, r_sorted = p_group[order], rate[order]
+    starts = np.flatnonzero(np.r_[True, g_sorted[1:] != g_sorted[:-1]])
+    counts = np.diff(np.r_[starts, len(g_sorted)])
+    gid = g_sorted[starts]
+    vmin = r_sorted[starts]
+    vmax = r_sorted[starts + counts - 1]
+    avg = np.add.reduceat(r_sorted, starts) / counts
+    pct = []
+    for q in _PATH_QS:
+        pos = (counts - 1).astype(np.float64) * q
+        lo, hi = np.floor(pos), np.ceil(pos)
+        vlo = r_sorted[starts + lo.astype(np.int64)]
+        vhi = r_sorted[starts + hi.astype(np.int64)]
+        pct.append(vlo + (vhi - vlo) * (pos - lo))
+    top = np.argsort(gid)[:1000]
+    pct_rows = [(hexes[by_hex[gid[i]]], *(float(x) for x in (
+        _round4(vmin[i]), _round4(vmax[i]), _round4(avg[i]),
+        *(_round4(p[i]) for p in pct)))) for i in top]
+    avg_top = avg[top]
+
+    # agg_join: min rate per hash; per hash over the acquisitions in
+    # quarter order, the first non-null original rate and the max dti
+    a_rate = acq["orig_interest_rate"].to_numpy(zero_copy_only=False)
+    a_dti = acq["dti"].to_numpy(zero_copy_only=False)
+    order_g = np.argsort(a_group, kind="stable")
+    ga = a_group[order_g]
+    a_starts = np.flatnonzero(np.r_[True, ga[1:] != ga[:-1]])
+    a_ends = np.r_[a_starts[1:], len(ga)]
+    have = np.flatnonzero(~np.isnan(a_rate[order_g]))
+    at = np.minimum(np.searchsorted(have, a_starts), max(len(have) - 1, 0))
+    first_rate = np.where((len(have) > 0) & (have[at] < a_ends),
+                          a_rate[order_g][have[at]], np.nan)
+    max_dti = np.fmax.reduceat(a_dti[order_g], a_starts)
+    at_group = np.searchsorted(ga[a_starts], gid[top])
+    join_rows = []
+    for i, k in zip(top, at_group):
+        h = hexes[by_hex[gid[i]]]
+        fr, dti = first_rate[k], max_dti[k]
+        join_rows.append((h, float(vmin[i]), h,
+                          None if np.isnan(fr) else float(fr),
+                          0.0 if np.isnan(dti) else float(dti)))
+
+    # simple_agg: max rate per (month, loan); min of those per (zip, month)
+    k1 = loan.astype(np.int64) * 13 + month
+    o1 = np.argsort(k1, kind="stable")
+    k1s = k1[o1]
+    s1 = np.flatnonzero(np.r_[True, k1s[1:] != k1s[:-1]])
+    max_rate = np.maximum.reduceat(rate[o1], s1)
+    zips = acq["zip"].to_numpy()[k1s[s1] // 13]
+    k2 = zips.astype(np.int64) * 13 + k1s[s1] % 13
+    o2 = np.argsort(k2, kind="stable")
+    k2s = k2[o2]
+    s2 = np.flatnonzero(np.r_[True, k2s[1:] != k2s[:-1]])
+    min_rate = np.minimum.reduceat(max_rate[o2], s2)
+    simple_rows = list(zip((k2s[s2] // 13).tolist(), (k2s[s2] % 13).tolist(),
+                           min_rate.tolist()))
+    return {"simple_agg": simple_rows, "percentiles": pct_rows,
+            "avg": avg_top, "agg_join": join_rows,
+            "perf_rows": len(p_id), "loans": len(a_id),
+            "collided": len(a_id) - len(uniq),
+            "k4p": (r_sorted, starts, counts), "loan_ids": p_id}
+
+
+def _check_percentiles(rows, want, avg) -> int:
+    """Rows in order, doubles within F64_RTOL; the average, a sum taken in
+    another order, may round to either side of a tie it lies within 1e-12
+    of.  Returns the number of such near ties."""
+    if len(rows) != len(want):
+        raise AssertionError(f"percentiles: {len(rows)} rows, numpy "
+                             f"{len(want)}")
+    near = 0
+    for g, w, a in zip(rows, want, avg):
+        if g[0] != w[0] or len(g) != len(w):
+            raise AssertionError(f"percentiles row {g} != {w}")
+        sides = {float(_round4(np.float64(a) * (1 - 1e-12))),
+                 float(_round4(np.float64(a) * (1 + 1e-12)))}
+        near += len(sides) > 1
+        for j, (x, y) in enumerate(zip(g[1:], w[1:])):
+            ok = abs(x - y) <= F64_RTOL * abs(y)
+            if j == 2 and not ok:
+                ok = any(abs(x - s) <= F64_RTOL * abs(s) for s in sides)
+            if not ok:
+                raise AssertionError(f"percentiles row {g} != {w} (rtol "
+                                     f"{F64_RTOL})")
+    return near
+
+
+def check_hex(torch, dev, rng, loan_ids) -> dict:
+    """K13i against its plain version on 2^24 stress rows (random longs
+    shifted to every digit count, 0, +-1, the extremes, int32 values of
+    both signs cast to long, nulls) and at the path's shape (the hashes of
+    one scan batch of loan_id, after K9's hash mode is held against numpy's
+    murmur3), exactly; timed at the path's shape."""
+    from spark_rapids_tpu_torch.ops import partition as P
+    from spark_rapids_tpu_torch.ops import strings as OS
+    n = 1 << 24
+    v = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64) \
+        >> rng.integers(0, 64, n)
+    i32 = rng.random(n) < 0.25
+    v[i32] = rng.integers(-2 ** 31, 2 ** 31, int(i32.sum()))
+    v[:6] = [0, 1, -1, 2 ** 63 - 1, -2 ** 63, -2 ** 31]
+    valid = rng.random(n) >= 0.1
+    valid[:6] = True
+    data = torch.from_numpy(np.where(valid, v, 0)).to(dev)
+    ok = torch.from_numpy(valid).to(dev)
+    got = OS.hex_string(data, ok)
+    _same_strings(torch, got, OS.hex_string_plain(data, ok), "K13i stress")
+    lens = set(torch.unique(got[1]).tolist())
+    if lens != set(range(17)):
+        raise AssertionError(f"K13i stress: digit counts {sorted(lens)}")
+    del data, ok, got
+    torch.cuda.empty_cache()
+    # the path: one scan batch of loan_id, hashed by K9's hash mode
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.bench.mortgage_gen import perf_schema
+    from spark_rapids_tpu_torch.conf import TorchConf
+    from spark_rapids_tpu_torch.expr.core import Val
+    from spark_rapids_tpu_torch.io.scan import _effective_batch_rows
+    rows = _effective_batch_rows(T.Schema(
+        [perf_schema().field("loan_id"),
+         perf_schema().field("interest_rate")]), TorchConf().settings)
+    ids = np.array(loan_ids[:rows])
+    col = Val(torch.from_numpy(ids).to(dev),
+              torch.ones(len(ids), dtype=torch.bool, device=dev), None,
+              T.LongType())
+    h = P.murmur3_columns([col], len(ids), dev)
+    if not np.array_equal(h.cpu().numpy(), _murmur3_long(ids)):
+        raise AssertionError("K9's hash mode differs from numpy's murmur3 "
+                             "of the loan ids")
+    h64 = h.to(torch.int64)
+    valid = torch.ones(len(ids), dtype=torch.bool, device=dev)
+    got = OS.hex_string(h64, valid)
+    _same_strings(torch, got, OS.hex_string_plain(h64, valid), "K13i path")
+    neg = int((h64 < 0).sum())
+    ms = _time_ms(torch, lambda: OS.hex_string(h64, valid), reps=20)
+    plain_ms = _time_ms(torch, lambda: OS.hex_string_plain(h64, valid))
+    nbytes = len(ids) * (8 + 1 + 16 + 4)
+    print(f"[K13i hex] 2^24 stress rows (every digit count 0..16) and one "
+          f"scan batch of {len(ids)} loan-id hashes ({neg} negative: 16 "
+          f"digits): equal; K9's hash mode equals numpy's murmur3; "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no PyTorch "
+          f"call formats hex) bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+    return dict(name="hex_string", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/string_hex.cu",
+                replaces="spark_rapids_tpu/expr/strings.py:781",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=None)
+
+
+def _same_pick(torch, got, want, what: str) -> None:
+    if not torch.equal(got[1], want[1]) or not torch.equal(
+            torch.signbit(got[0]), torch.signbit(want[0])) or \
+            not torch.equal(torch.isnan(got[0]), torch.isnan(want[0])):
+        raise AssertionError(f"{what}: validity or signs differ from the "
+                             "plain version")
+    both = ~torch.isnan(want[0])
+    if not torch.equal(got[0][both], want[0][both]):
+        raise AssertionError(f"{what}: values differ from the plain version")
+
+
+def check_percentile(torch, dev, rng, path) -> dict:
+    """K4p against its plain version on a 2^24-row stress batch (one giant
+    segment, many one-row segments, segments without values, NaN, +-inf,
+    -0.0, ties; q from 0 to 1) and at the path's shape (every hash group's
+    rates in order, ~17.4M rows in ~1M groups, 4 q's), exactly; timed at
+    the path's shape."""
+    from spark_rapids_tpu_torch.ops import segmented as G
+    n = 1 << 24
+    giant = 1 << 22
+    singles = 1 << 21
+    # segments of 2..20 rows (11 on average) fill ~11/12 of the rest; the
+    # last one takes what is left
+    rest = rng.integers(2, 21, (n - giant - singles) // 12)
+    sizes = np.r_[[giant], np.ones(singles, np.int64), rest]
+    sizes[-1] += n - int(sizes.sum())
+    counts = torch.from_numpy(sizes).to(dev)
+    starts = torch.cumsum(counts, 0) - counts
+    seg = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
+                                  counts)[torch.randperm(n, device=dev)]
+    pick = torch.tensor([-2.5, -0.0, 0.0, 1.0, float("nan"), float("inf"),
+                         -float("inf"), 3.0], dtype=torch.float64,
+                        device=dev)
+    vals = pick[torch.randint(0, 8, (n,), device=dev)] + torch.where(
+        torch.rand(n, device=dev) < 0.5, torch.rand(n, device=dev,
+                                                    dtype=torch.float64), 0.0)
+    # each segment ascending, NaN last (torch sorts NaN above every
+    # number): sorted values, then a stable sort by the shuffled segments
+    vals, _ = torch.sort(vals, stable=True)
+    _, order = torch.sort(seg, stable=True)
+    vals = vals[order]
+    # some segments have fewer valid values than rows, some none
+    cut = torch.where(torch.rand(len(sizes), device=dev) < 0.2,
+                      counts // 2, counts)
+    cut = torch.where(torch.rand(len(sizes), device=dev) < 0.05, 0, cut)
+    args = (vals.contiguous(), starts.to(torch.int32), cut, _STRESS_QS)
+    _same_pick(torch, G.segment_percentile(*args),
+               G.segment_percentile_plain(*args), "K4p stress")
+    del vals, seg, order, args
+    torch.cuda.empty_cache()
+    r_sorted, p_starts, p_counts = path
+    args = (torch.from_numpy(r_sorted).to(dev),
+            torch.from_numpy(p_starts.astype(np.int32)).to(dev),
+            torch.from_numpy(p_counts.astype(np.int64)).to(dev), _PATH_QS)
+    _same_pick(torch, G.segment_percentile(*args),
+               G.segment_percentile_plain(*args), "K4p path")
+    ms = _time_ms(torch, lambda: G.segment_percentile(*args), reps=20)
+    plain_ms = _time_ms(torch, lambda: G.segment_percentile_plain(*args))
+    groups = len(p_starts)
+    # a start and a count read once a group; two 8-byte gathers, the f64
+    # result and its validity byte a (group, q)
+    nbytes = groups * (4 + 8) + groups * len(_PATH_QS) * (8 + 8 + 8 + 1)
+    print(f"[K4p percentile] 2^24 stress rows ({len(sizes)} segments, q "
+          f"{_STRESS_QS}) and the path's {len(r_sorted)} rates in {groups} "
+          f"hash groups, q {_PATH_QS}: equal; ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms=none (no PyTorch call "
+          f"computes a segmented percentile) bound_ms="
+          f"{_bound_ms(nbytes):.4f}", flush=True)
+    return dict(name="segment_percentile", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/segmented.cu",
+                replaces="spark_rapids_tpu/ops/segmented.py:262",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=None)
+
+
+_MORTGAGE_ENTRIES = ("hex_string", "segment_percentile")
+
+
+def _all_but(entries, required) -> tuple:
+    """Every counter of ``entries`` but ``required`` (the counters a path
+    must leave at 0)."""
+    return tuple(k for e in entries for k in _counters()[e]
+                 if k not in required)
+
+
+def run_mortgage_phase(torch, dev, warm: int):
+    """K13i and K4p against their plain versions, then the mortgage jobs
+    over 1M loans, each cold + warm and checked against numpy/pyarrow;
+    returns ({kernel: entry}, {path: launches})."""
+    from spark_rapids_tpu_torch.bench import mortgage as M
+    from spark_rapids_tpu_torch.bench.mortgage_gen import perf_schema
+    from spark_rapids_tpu_torch.exec.core import ExecCtx
+    from spark_rapids_tpu_torch.io import CsvScanExec
+    data_dir = os.path.join(ROOT, ".bench_data",
+                            f"mortgage_sf{MORTGAGE_SF}_seed7")
+    t0 = time.perf_counter()
+    made = M.generate_mortgage(data_dir, sf=MORTGAGE_SF, seed=7)
+    gen_s = time.perf_counter() - t0
+    files = sorted(os.path.join(r, f) for r, _d, fs in os.walk(data_dir)
+                   for f in fs if f.endswith(".txt_0"))
+    t0 = time.perf_counter()
+    want = reference_mortgage(data_dir)
+    print(f"[mortgage] {'generated' if made else 'reused'} in {gen_s:.1f} "
+          f"s: {len(files)} files, {sum(os.path.getsize(f) for f in files)} "
+          f"bytes, {want['loans']} loans, {want['perf_rows']} performance "
+          f"rows, {want['collided']} loans whose 32-bit hash another loan "
+          f"has; numpy/pyarrow references in "
+          f"{time.perf_counter() - t0:.1f} s ({len(want['simple_agg'])} "
+          f"simple_agg rows)", flush=True)
+    rng = np.random.default_rng(7)
+    entries = {"hex_string": check_hex(torch, dev, rng, want["loan_ids"]),
+               "segment_percentile": check_percentile(torch, dev, rng,
+                                                      want["k4p"])}
+    del want["k4p"], want["loan_ids"]
+    torch.cuda.empty_cache()
+    session = _cuda_session()
+    perf1 = os.path.join(data_dir, "perf", "Performance_2003Q1.txt_0")
+    for _ in range(2):
+        scan = CsvScanExec(perf1, schema=perf_schema(), header=False,
+                           delimiter="|", columns=["loan_id",
+                                                   "interest_rate"])
+        ctx = ExecCtx(device=session.device, conf=session.conf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scanned = sum(b.num_rows for b in scan.execute(ctx))
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+    print(f"[mortgage] one performance file's scan alone (loan_id, "
+          f"interest_rate; host parse + upload), warm: {scanned} rows in "
+          f"{scan_s:.3f} s", flush=True)
+    every = _Q6_ENTRIES + _SHUFFLE_ENTRIES + _STRING_ENTRIES + \
+        _CASE_ENTRIES + _MORTGAGE_ENTRIES
+    base = ("sort_permutation", "gather_columns", "segment_aggregate",
+            "segment_flags")
+    strings = ("substring", "string_match", "concat", "case_map")
+    paths = {}
+    # one holistic aggregate: no exchange, no join, one K4p launch for the
+    # four q's; K9's hash mode and K13i once a scan batch
+    need = base + ("murmur3_columns", "hex_string", "segment_percentile")
+    near = []
+    paths["percentiles"] = _drive(
+        torch, "percentiles", lambda: M.MORTGAGE_QUERIES["percentiles"](
+            session, data_dir),
+        lambda r: near.append(_check_percentiles(r, want["percentiles"],
+                                                 want["avg"])),
+        every, warm, (), _all_but(every, need))
+    print(f"[percentiles] averages within 1e-12 of a rounding tie: "
+          f"{near[0]}", flush=True)
+    # the hash on both tables, a rank-path left join on it; the exchanges'
+    # map sides are coalesced (their K9/K10 and K2 may stay at 0)
+    need = base + ("murmur3_columns", "hex_string", "key_ids",
+                   "join_search", "join_indices_from_probe")
+    maybe = ("partition_ids_for_keys", "group_by_part", "compact")
+
+    def check_join(rows):
+        _check_keyed_doubles("agg_join", [(r[0], r[2]) + r[1:2] + r[3:]
+                                          for r in rows],
+                             [(r[0], r[2]) + r[1:2] + r[3:]
+                              for r in want["agg_join"]], 2)
+
+    paths["agg_join"] = _drive(
+        torch, "agg_join", lambda: M.MORTGAGE_QUERIES["agg_join"](
+            session, data_dir), check_join, every, warm, maybe,
+        _all_but(every, need + maybe))
+    # a long-keyed fast-path join and a hashed exchange of the (month,
+    # loan) partials; no hash expression, no strings
+    need = base + ("join_search", "build_prepare_fast",
+                   "join_indices_from_probe", "partition_ids_for_keys",
+                   "group_by_part")
+    maybe = ("compact",)
+
+    def check_simple(rows):
+        if rows != want["simple_agg"]:
+            bad = next(i for i, (a, b) in enumerate(zip(
+                rows, want["simple_agg"])) if a != b) \
+                if len(rows) == len(want["simple_agg"]) else None
+            raise AssertionError(f"simple_agg: {len(rows)} rows, numpy "
+                                 f"{len(want['simple_agg'])}; first "
+                                 f"difference at {bad}")
+
+    paths["simple_agg"] = _drive(
+        torch, "simple_agg", lambda: M.MORTGAGE_QUERIES["simple_agg"](
+            session, data_dir), check_simple, every, warm, maybe,
+        _all_but(every, need + maybe))
+    return entries, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -2754,6 +3222,11 @@ def main(argv=None) -> int:
     case_entries, case_paths = run_concat_case_phase(torch, dev, args.warm)
     entries.update(case_entries)
     paths.update(case_paths)
+    torch.cuda.empty_cache()
+    mortgage_entries, mortgage_paths = run_mortgage_phase(torch, dev,
+                                                          args.warm)
+    entries.update(mortgage_entries)
+    paths.update(mortgage_paths)
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

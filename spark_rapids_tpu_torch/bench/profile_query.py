@@ -1,10 +1,11 @@
 """Where a query's time goes on the card: TPC-H q1, q14 or q22, TPC-DS
-q6, q15, q24, q51, q63, q84 or q84_all_cities, or the ``top_customers``
-repartition.
+q6, q15, q24, q51, q63, q84 or q84_all_cities, the ``top_customers``
+repartition, or the mortgage jobs simple_agg, percentiles and agg_join.
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
-``bench/tpch_gen.py`` (the TPC-H query's tables) or ``bench/tpcds_gen.py``
-(the TPC-DS query's tables), reused when present, then:
+``bench/tpch_gen.py`` (the TPC-H query's tables), ``bench/tpcds_gen.py``
+(the TPC-DS query's tables) or ``bench/mortgage_gen.py`` (``--sf``
+thousand loans, 1000 by default, seed 7), reused when present, then:
 
 * times a cold and a warm run (host clock, ending in a device
   synchronise), each building the query -- so q6's and q24's scalar
@@ -12,7 +13,8 @@ Runs the query through ``TorchSession()`` on CUDA over data generated by
 * times the largest parquet scan alone (host decode + pinned upload),
   draining the planned tree's scan of the fact table (lineitem for q1
   and q14, orders for q22, catalog_sales for q15, store_returns for q84
-  and q84_all_cities, store_sales for the other TPC-DS queries);
+  and q84_all_cities, store_sales for the other TPC-DS queries, the
+  first quarter's performance file for the mortgage jobs);
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
   the run and the kernels that take most of it.
@@ -35,6 +37,7 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
     python -m spark_rapids_tpu_torch.bench.profile_query --query q51
     python -m spark_rapids_tpu_torch.bench.profile_query --query q22
     python -m spark_rapids_tpu_torch.bench.profile_query --query q24
+    python -m spark_rapids_tpu_torch.bench.profile_query --query percentiles
 """
 from __future__ import annotations
 
@@ -46,12 +49,12 @@ import time
 import torch
 
 from spark_rapids_tpu_torch import TorchSession
-from spark_rapids_tpu_torch.bench import tpcds_gen, tpch_gen
+from spark_rapids_tpu_torch.bench import mortgage, tpcds_gen, tpch_gen
 from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
                                                         top_customers)
 from spark_rapids_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from spark_rapids_tpu_torch.exec.core import ExecCtx
-from spark_rapids_tpu_torch.io import ParquetScanExec
+from spark_rapids_tpu_torch.io import FileScanExec
 
 #: the TPC-H tables of q14 and q22 beside lineitem, written in one call
 #: (as chip_smoke.py writes them)
@@ -62,6 +65,8 @@ _TPCH = {"q1": ((("lineitem",),), "lineitem"),
          "q14": ((("lineitem",), TPCH_OTHER), "lineitem"),
          "q22": ((TPCH_OTHER,), "orders")}
 
+_MORTGAGE = ("simple_agg", "percentiles", "agg_join")
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -71,7 +76,7 @@ def _fact_scan(node, table: str):
     stack = [node]
     while stack:
         node = stack.pop()
-        if isinstance(node, ParquetScanExec) and any(
+        if isinstance(node, FileScanExec) and any(
                 os.path.basename(os.path.dirname(f)) == table
                 or os.path.basename(f).startswith(table)
                 for f in node._files):
@@ -92,9 +97,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--query",
                     choices=("q1", "q14", "q22", "q6", "q15", "q24", "q51",
-                             "q63", "q84", "q84_all_cities", "repartition"),
-                    default="q6")
-    ap.add_argument("--sf", type=float, default=10.0)
+                             "q63", "q84", "q84_all_cities", "repartition")
+                    + _MORTGAGE, default="q6")
+    ap.add_argument("--sf", type=float, default=None,
+                    help="scale factor (default 10); for the mortgage "
+                    "jobs thousands of loans (default 1000)")
     ap.add_argument("--layout", choices=("onefile", "default"),
                     default="onefile",
                     help="TPC-DS file layout (every TPC-DS query but q6: "
@@ -105,7 +112,14 @@ def main(argv=None) -> int:
                     help="kernels listed by device time")
     args = ap.parse_args(argv)
     bench = os.path.join(_ROOT, ".bench_data")
-    if args.query in _TPCH:
+    if args.sf is None:
+        args.sf = 1000.0 if args.query in _MORTGAGE else 10.0
+    if args.query in _MORTGAGE:
+        data_dir = os.path.join(bench, f"mortgage_sf{args.sf:g}_seed7")
+        mortgage.generate_mortgage(data_dir, sf=args.sf, seed=7)
+        query = mortgage.MORTGAGE_QUERIES[args.query]
+        fact = ("Performance_2003Q1", None)
+    elif args.query in _TPCH:
         data_dir = os.path.join(bench, f"tpch_sf{args.sf:g}_seed7")
         groups, big = _TPCH[args.query]
         for tables in groups:
@@ -138,7 +152,11 @@ def main(argv=None) -> int:
     warm = _timed(run)
     ctx = ExecCtx(device=session.device, conf=session.conf)
     scan = _fact_scan(query(session, data_dir)._prepared(), fact[0])
-    scan_s = _timed(lambda: [b for b in scan.execute(ctx)])
+    # the batches are held on the card until the scan ends
+    scanned = []
+    scan_s = _timed(lambda: scanned.extend(scan.execute(ctx)))
+    scan_rows = sum(b.num_rows for b in scanned)
+    del scanned
 
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
@@ -160,7 +178,7 @@ def main(argv=None) -> int:
         "card": torch.cuda.get_device_name(0),
         "query": args.query, "sf": args.sf, "layout": args.layout,
         "conf": args.conf,
-        f"{fact[0]}_rows": fact[1],
+        f"{fact[0]}_rows": fact[1], "scan_rows": scan_rows,
         "cold_s": cold, "warm_s": warm, "scan_only_s": scan_s,
         "profiled_wall_s": prof_wall,
         "device_busy_s": device_us / 1e6 if rows else None,

@@ -28,19 +28,26 @@ from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     round_string_width,
                                                     torch_dtype)
 
-__all__ = ["ColumnBatch", "strings_to_matrix", "upload"]
+__all__ = ["ColumnBatch", "strings_to_matrix", "stage", "upload"]
+
+
+def stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host numpy leaf as a host tensor ready for ``device``: a pinned
+    copy for CUDA (so the copy to the card can be asynchronous), an owned
+    copy otherwise."""
+    arr = np.ascontiguousarray(arr)
+    if device.type != "cuda":
+        return torch.from_numpy(arr.copy())
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).pin_memory()
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host numpy leaf on ``device``: through pinned memory and an
     asynchronous copy on the current stream for CUDA, as an owned CPU
     tensor otherwise."""
-    arr = np.ascontiguousarray(arr)
-    if device.type != "cuda":
-        return torch.from_numpy(arr.copy())
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    return torch.from_numpy(arr).pin_memory().to(device, non_blocking=True)
+    return stage(arr, device).to(device, non_blocking=True)
 
 
 class ColumnBatch:
@@ -69,6 +76,16 @@ class ColumnBatch:
     @staticmethod
     def from_arrow(rb, device) -> "ColumnBatch":
         """Build a device batch from a pyarrow RecordBatch (H2D copy)."""
+        device = torch.device(device)
+        return ColumnBatch.stage_arrow(rb, device).to(device)
+
+    @staticmethod
+    def stage_arrow(rb, device) -> "ColumnBatch":
+        """The host half of :meth:`from_arrow`: a pyarrow RecordBatch
+        decoded into a batch of host tensors ready for ``device`` (pinned
+        for CUDA); ``.to(device)`` finishes it.  The scan decodes on its
+        prefetch thread and copies on the consumer's, so the card holds
+        only the batches the consumer does."""
         import pyarrow as pa
         device = torch.device(device)
         n = rb.num_rows
@@ -84,18 +101,32 @@ class ColumnBatch:
             dt = field.data_type
             if isinstance(dt, T.StringType):
                 bm, lens = strings_to_matrix(arr)
-                cols.append(DeviceColumn(upload(bm, device),
-                                         upload(validity, device), dt,
-                                         upload(lens, device)))
+                cols.append(DeviceColumn(stage(bm, device),
+                                         stage(validity, device), dt,
+                                         stage(lens, device)))
             elif isinstance(dt, (T.ArrayType, T.MapType)):
                 raise NotImplementedError(
                     f"{dt} columns are not ported yet (ROADMAP.md Queue 1 "
                     "item 8)")
             else:
                 data = T.arrow_fixed_to_numpy(arr, dt)
-                cols.append(DeviceColumn(upload(data, device),
-                                         upload(validity, device), dt))
-        return ColumnBatch(cols, n, schema, device)
+                cols.append(DeviceColumn(stage(data, device),
+                                         stage(validity, device), dt))
+        return ColumnBatch(cols, n, schema, torch.device("cpu"))
+
+    def to(self, device) -> "ColumnBatch":
+        """The batch on ``device`` (itself when it is there already):
+        asynchronous copies on the current stream from pinned leaves."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+
+        def move(t):
+            return None if t is None else t.to(device, non_blocking=True)
+
+        cols = [DeviceColumn(move(c.data), move(c.validity), c.dtype,
+                             move(c.lengths)) for c in self.columns]
+        return ColumnBatch(cols, self.num_rows, self.schema, device)
 
     @staticmethod
     def nulls(schema: T.Schema, num_rows: int, device) -> "ColumnBatch":
@@ -234,10 +265,19 @@ def strings_to_matrix(arr):
     w = round_string_width(max(maxw, 1))
     out = np.zeros((n, w), dtype=np.uint8)
     if n and databuf.size:
+        has = lens > 0
+        packed = int(offsets[-1] - offsets[0]) == int(lens.sum())
         if maxw == 1:
             # one-byte strings (flags, codes): a single strided copy
-            has = lens > 0
             out[has, 0] = databuf[offsets[:-1][has]]
+        elif maxw > 1 and packed and int(lens[has].min()) == maxw:
+            # fixed-width strings (dates, codes) stored back to back:
+            # one reshape of the data buffer
+            rows = databuf[offsets[0]:offsets[-1]].reshape(-1, maxw)
+            if rows.shape[0] == n:
+                out[:, :maxw] = rows
+            else:
+                out[has, :maxw] = rows
         elif maxw > 1:
             pos = offsets[:-1, None] + np.arange(w, dtype=np.int64)[None, :]
             mask = np.arange(w, dtype=np.int32)[None, :] < lens[:, None]

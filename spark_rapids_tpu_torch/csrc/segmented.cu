@@ -31,11 +31,23 @@
 // count_star, min/max over integers, booleans, dates and floats (Spark
 // NaN semantics: NaN is the largest value), and first/last with or without
 // ignoreNulls (as a row index; the wrapper gathers the values with K3).
-// String min/max and percentile are not covered here.
+// String min/max is not covered here.
 //
 // Bound on the H100: bytes.  Each aggregate reads its input column and its
 // validity once, plus one flag byte a row; the key columns are read once
 // by the flag kernel.  The outputs hold one row per group.
+//
+// K4p, the percentile pick (srt_seg_percentile), replaces
+// spark_rapids_tpu/ops/segmented.py:262-281: rows arrive sorted by (keys,
+// value ascending, value nulls last) from K1 (:84-91), so segment g's valid
+// values are values[start[g] .. start[g] + count[g]), NaN last.  One thread
+// per (q, segment) computes pos = (count - 1) * q, lo = floor(pos), hi =
+// ceil(pos) and v[lo] + (v[hi] - v[lo]) * (pos - lo); one launch serves
+// every q over a column.  Every step is written with an explicitly
+// rounded intrinsic, so nvcc cannot contract the multiply-add into an FMA
+// and the result equals the plain PyTorch version (and the reference's
+// formula) bit for bit: inf - inf gives NaN, as there.  Bound: bytes, per
+// (q, segment) a 4 B start, an 8 B count, two 8 B gathers, 8 B + 1 B out.
 #include "common.cuh"
 
 namespace srt_seg {
@@ -374,6 +386,36 @@ __global__ void seg_starts_kernel(const uint8_t* __restrict__ flags,
   }
 }
 
+__global__ void seg_percentile_kernel(const double* __restrict__ values,
+                                      int64_t n,
+                                      const int32_t* __restrict__ starts,
+                                      const long long* __restrict__ counts,
+                                      int G, const double* __restrict__ qs,
+                                      int nq, double* __restrict__ out,
+                                      uint8_t* __restrict__ out_valid) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (int64_t)G * nq) return;
+  const int64_t g = t % G;
+  const long long cnt = counts[g];
+  if (cnt <= 0) {
+    out[t] = 0.0;
+    out_valid[t] = 0;
+    return;
+  }
+  const double pos = __dmul_rn((double)(cnt - 1), qs[t / G]);
+  const double flo = floor(pos);
+  const long long lo = (long long)flo;
+  const long long hi = (long long)ceil(pos);
+  const double frac = __dsub_rn(pos, flo);
+  const int64_t base = starts[g];
+  const int64_t ilo = base + lo < n ? base + lo : n - 1;
+  const int64_t ihi = base + hi < n ? base + hi : n - 1;
+  const double vlo = values[ilo];
+  const double vhi = values[ihi];
+  out[t] = __dadd_rn(vlo, __dmul_rn(__dsub_rn(vhi, vlo), frac));
+  out_valid[t] = 1;
+}
+
 }  // namespace srt_seg
 
 using namespace srt_seg;
@@ -440,6 +482,22 @@ int srt_seg_agg(int op, const void* data, const void* valid, int kind,
     case kLastNonNull: launch_agg<Pick<true, false>>(v, f, n, to, s, G, slots, op, o, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// K4p: out and out_valid are [nq, G] (q-major); values float64 [n] sorted
+// within each segment, counts int64 [G] valid values per segment.
+int srt_seg_percentile(const void* values, int64_t n, const void* starts,
+                       const void* counts, int G, const void* qs, int nq,
+                       void* out, void* out_valid, void* stream) {
+  const int64_t threads = (int64_t)G * nq;
+  if (threads <= 0) return (int)cudaGetLastError();
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  seg_percentile_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)values, n, (const int32_t*)starts,
+      (const long long*)counts, G, (const double*)qs, nq, (double*)out,
+      (uint8_t*)out_valid);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,11 @@ The device kernel is sort-based (K1 + K3 + K4, ``ops/segmented.py``).  The
 per-batch loop is the reference's ``_run_device`` (:340-467): each input
 batch is reduced to its own group buffer; buffers collect until their
 summed rows cross ``_MERGE_PENDING_CAP``, then merge in one n-way concat +
-segmented merge; the final projection runs over the last buffer.
+segmented merge; the final projection runs over the last buffer.  A
+holistic aggregate (percentile, reference :81-95 and :353-361) has no
+merge: its raw input is concatenated once and reduced in one pass, and
+every percentile over one column rides one value-sort (the pre-projection
+keeps one column per distinct input).
 
 Modes (reference :52-263): ``complete`` aggregates every partition of the
 child in one pass; ``partial`` runs the update per child partition and
@@ -76,6 +80,17 @@ class HashAggregateExec(PlanNode):
                     seen[key] = len(self._aggs)
                     self._aggs.append(a)
         self._agg_index = seen
+        self._holistic = any(getattr(a, "requires_complete", False)
+                             for a in self._aggs)
+        if self._holistic and mode == "partial":
+            raise ValueError("holistic aggregates (percentile) cannot run "
+                             "in partial mode; plan a complete aggregation")
+        if self._holistic and any(op.startswith(("first", "last"))
+                                  for a in self._aggs for op in a.update_ops):
+            raise NotImplementedError(
+                "percentile cannot be combined with first/last in one "
+                "aggregation: the percentile value-sort would change which "
+                "row first/last observe")
 
         # pre-projection: [group keys..., one col per DISTINCT agg input]
         self._pre_exprs: list[Expression] = list(self._group_bound)
@@ -135,7 +150,8 @@ class HashAggregateExec(PlanNode):
         PlanNode.__init__(self, [child])
         self.mode = "final"
         for attr in ("_group_bound", "_group_names", "_result_raw",
-                     "_result_bound", "_aggs", "_agg_index", "_pre_exprs",
+                     "_result_bound", "_aggs", "_agg_index", "_holistic",
+                     "_pre_exprs",
                      "_agg_input_col", "_pre_schema", "_update_specs",
                      "_agg_offsets", "_buffer_schema", "_merge_specs",
                      "_final_exprs"):
@@ -227,6 +243,11 @@ class HashAggregateExec(PlanNode):
         child = self.children[0]
         child_it = drain_partitions(ctx, child) if self.mode == "complete" \
             else child.partition_iter(ctx, pid)
+        if self._holistic:
+            # no merge exists: concatenate the raw input once and reduce it
+            # in a single group-by pass
+            raw = list(child_it)
+            child_it = [dk.concat_batches(raw)] if len(raw) > 1 else raw
         key_idx = list(range(len(self._group_bound)))
         presorted = self._child_presorted()
         parts: list[ColumnBatch] = []

@@ -1,6 +1,6 @@
-"""Project, filter and limit execs (port of ``spark_rapids_tpu/exec/basic.py``
-:93 ProjectExec, :250 FilterExec, :408 LocalLimitExec, :428
-GlobalLimitExec)."""
+"""Project, filter, union and limit execs (port of
+``spark_rapids_tpu/exec/basic.py`` :93 ProjectExec, :250 FilterExec, :357
+UnionExec, :408 LocalLimitExec, :428 GlobalLimitExec)."""
 from __future__ import annotations
 
 from typing import Iterator, Sequence
@@ -14,7 +14,8 @@ from spark_rapids_tpu_torch.expr.core import (Alias, Expression,
                                               eval_device, output_name)
 from spark_rapids_tpu_torch.ops import kernels as dk
 
-__all__ = ["ProjectExec", "FilterExec", "LocalLimitExec", "GlobalLimitExec"]
+__all__ = ["ProjectExec", "FilterExec", "UnionExec", "LocalLimitExec",
+           "GlobalLimitExec"]
 
 
 class ProjectExec(PlanNode):
@@ -104,6 +105,37 @@ class FilterExec(PlanNode):
 
     def node_desc(self) -> str:
         return "FilterExec"
+
+
+class UnionExec(PlanNode):
+    """UNION ALL (GpuUnionExec): the children's partitions back to back,
+    each batch relabelled with the first child's schema."""
+
+    def __init__(self, children: Sequence[PlanNode]):
+        super().__init__(children)
+        want = [f.data_type for f in children[0].output_schema]
+        for c in children[1:]:
+            got = [f.data_type for f in c.output_schema]
+            if got != want:
+                raise ValueError(f"union schema mismatch: {got} vs {want}")
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self.children[0].output_schema
+
+    def num_partitions(self, ctx: ExecCtx) -> int:
+        return sum(c.num_partitions(ctx) for c in self.children)
+
+    def partition_iter(self, ctx: ExecCtx, pid: int) -> Iterator:
+        for c in self.children:
+            nparts = c.num_partitions(ctx)
+            if pid < nparts:
+                for b in c.partition_iter(ctx, pid):
+                    yield ColumnBatch(b.columns, b.num_rows,
+                                      self.output_schema, b.device)
+                return
+            pid -= nparts
+        raise IndexError("partition out of range")
 
 
 def _limited(it: Iterator, remaining: int) -> Iterator:

@@ -12,7 +12,8 @@ from spark_rapids_tpu_torch.expr.core import (BoundReference, Expression,
                                               Literal)
 
 __all__ = ["AggregateFunction", "Sum", "Count", "CountStar", "Min", "Max",
-           "Average", "is_aggregate", "has_aggregate"]
+           "Average", "First", "Last", "Percentile", "is_aggregate",
+           "has_aggregate"]
 
 
 class AggregateFunction(Expression):
@@ -171,3 +172,84 @@ class Average(AggregateFunction):
         s = BoundReference(offsets[0], T.DoubleType(), True)
         c = BoundReference(offsets[1], T.LongType(), True)
         return Divide(s, Cast(c, T.DoubleType()))
+
+
+class First(AggregateFunction):
+    """Spark first(x[, ignoreNulls]): the value of the first row of the
+    group in input order, or of its first non-null row."""
+    sql_name = "First"
+    _ops = ("first", "first_non_null")
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        self.children = (child,)
+        self.ignore_nulls = ignore_nulls
+        op = self._ops[int(bool(ignore_nulls))]
+        self.update_ops = (op,)
+        self.merge_ops = (op,)
+
+    def with_new_children(self, children):
+        return type(self)(children[0], self.ignore_nulls)
+
+    @property
+    def dtype(self):
+        return self.input.dtype
+
+    def intermediate_types(self):
+        return [self.dtype]
+
+    def final_expr(self, offsets):
+        return BoundReference(offsets[0], self.dtype, True)
+
+    def __repr__(self):
+        # the exec keys aggregates by repr: the two modes must differ
+        flag = ", ignore_nulls=True" if self.ignore_nulls else ""
+        return f"{self.sql_name}({self.input!r}{flag})"
+
+
+class Last(First):
+    """Spark last(x[, ignoreNulls])."""
+    sql_name = "Last"
+    _ops = ("last", "last_non_null")
+
+
+class Percentile(AggregateFunction):
+    """Exact percentile with linear interpolation at q * (n - 1) of the
+    group's non-null values in ascending order, NaN largest (Spark
+    Percentile).  Holistic: there is no mergeable intermediate, so the
+    planner keeps it in one complete aggregation (``requires_complete``)
+    and the exec reduces the whole input in one pass."""
+    sql_name = "Percentile"
+    update_ops = ("percentile",)
+    merge_ops = ()
+    requires_complete = True
+
+    def __init__(self, child: Expression, q: float):
+        super().__init__(child)
+        if not 0.0 <= float(q) <= 1.0:
+            raise ValueError(f"percentile fraction must be in [0, 1]: {q}")
+        self.q = float(q)
+
+    def with_new_children(self, children):
+        return Percentile(children[0], self.q)
+
+    @property
+    def dtype(self):
+        return T.DoubleType()
+
+    def coerced(self):
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        t = self.input.dtype
+        if not t.numeric:
+            raise TypeError(f"percentile over {t}")
+        if not isinstance(t, T.DoubleType):
+            return Percentile(Cast(self.input, T.DoubleType()), self.q)
+        return self
+
+    def intermediate_types(self):
+        return [T.DoubleType()]
+
+    def final_expr(self, offsets):
+        return BoundReference(offsets[0], T.DoubleType(), True)
+
+    def __repr__(self):
+        return f"Percentile({self.input!r}, {self.q})"

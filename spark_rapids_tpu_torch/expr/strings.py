@@ -1,12 +1,13 @@
 """String expressions: Substring, StartsWith, EndsWith, Contains, Like,
-Concat, ConcatWs, Upper, Lower.
+Concat, ConcatWs, Upper, Lower, Hex.
 
 Port of part of ``spark_rapids_tpu/expr/strings.py``.  Strings are padded
 uint8 byte matrices with lengths (``columnar/column.py``); the work is
 done by the kernels of ``ops/strings.py``: K13a ``substring`` (UTF-8
 character-correct, Spark's ``substringSQL``), K13b ``string_match``
 (prefix, suffix, contains, equals), K13c ``concat`` (Concat and
-ConcatWs) and K13d ``case_map`` (Upper and Lower).  A literal operand
+ConcatWs), K13d ``case_map`` (Upper and Lower) and K13i ``hex_string``
+(Hex).  A literal operand
 reaches a kernel as one row (a pos/len scalar, a one-row needle or
 piece), a column as a column.
 
@@ -21,18 +22,18 @@ or one with ``_`` or the escape character, raises NotImplementedError on
 every device: the reference evaluates those in its host oracle, which
 the port does not have yet (ROADMAP.md Queue 1 item 4).  The other
 string expressions of the reference (trims, Length,
-StringLocate, SubstringIndex, Hex, ...) are ROADMAP.md Queue 2 K13e-i.
+StringLocate, SubstringIndex, ...) are ROADMAP.md Queue 2 K13e-h.
 """
 from __future__ import annotations
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.core import Expression, Literal, Val
 from spark_rapids_tpu_torch.ops.strings import (case_map, concat,
-                                                literal_needle, string_match,
-                                                substring)
+                                                hex_string, literal_needle,
+                                                string_match, substring)
 
 __all__ = ["Substring", "StartsWith", "EndsWith", "Contains", "Like",
-           "Concat", "ConcatWs", "Upper", "Lower"]
+           "Concat", "ConcatWs", "Upper", "Lower", "Hex"]
 
 
 def _scalar_or_column(child: Expression, v):
@@ -253,3 +254,33 @@ class ConcatWs(Expression):
     def __repr__(self):
         return (f"ConcatWs({self.separator!r}, "
                 f"{', '.join(map(repr, self.children))})")
+
+
+class Hex(Expression):
+    """hex(n): upper-case hex of a long, leading zeros dropped, a negative
+    value as its 16-digit two's complement (Spark Hex); an integral input
+    is cast to long first, so ``hex(hash(x))`` of a negative int32 hash
+    has 16 digits, ``FFFFFFFF`` first."""
+    sql_name = "Hex"
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.StringType()
+
+    def coerced(self):
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        t = self.children[0].dtype
+        if t.integral and not isinstance(t, T.LongType):
+            return Hex(Cast(self.children[0], T.LongType()))
+        if not isinstance(t, T.LongType):
+            raise TypeError(f"hex over {t} is not supported")
+        return self
+
+    def _eval(self, vals, ctx):
+        a = vals[0]
+        # a column holds zeros at its null rows; the kernel zeroes them too
+        data, lengths, validity = hex_string(a.data, a.validity)
+        return Val(data, validity, lengths, T.StringType())

@@ -1,2 +1,3 @@
 """File scans of the port."""
-from spark_rapids_tpu_torch.io.scan import ParquetScanExec  # noqa: F401
+from spark_rapids_tpu_torch.io.scan import (CsvScanExec,  # noqa: F401
+                                            FileScanExec, ParquetScanExec)

@@ -1,11 +1,14 @@
-"""Parquet scan (port of ``spark_rapids_tpu/io/scan.py:532`` ParquetScanExec).
+"""File scans (port of ``spark_rapids_tpu/io/scan.py:149`` FileScanExec,
+:532 ParquetScanExec and :611 CsvScanExec).
 
-pyarrow decodes on the host with column pruning, in batches of at most
+pyarrow decodes on the host -- parquet with column pruning, CSV through
+``pyarrow.csv`` with an explicit schema -- in batches of at most
 ``_effective_batch_rows`` rows (the reference's defaults: 2^22 rows or
-1 GiB by a static row-width estimate); a prefetch thread stages batch k+1
-into pinned memory and copies it to the device while the consumer works
-on batch k.  Predicate pushdown, ORC/CSV and the multi-file reader modes
-wait for a later slice.
+1 GiB by a static row-width estimate); a prefetch thread decodes batch
+k+1 into pinned memory while the consumer works on batch k, and the
+consumer copies each batch to the device as it takes it.  Files are spread over at most 8 partitions by size.
+Predicate pushdown, ORC and the multi-file reader modes wait for a later
+slice.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
 from spark_rapids_tpu_torch.conf import BATCH_ROWS, MAX_READER_BATCH_SIZE_BYTES
 from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode
 
-__all__ = ["ParquetScanExec"]
+__all__ = ["FileScanExec", "ParquetScanExec", "CsvScanExec"]
 
 
 def _effective_batch_rows(schema: T.Schema, settings: dict) -> int:
@@ -60,20 +63,29 @@ def _expand_paths(paths) -> list[str]:
     return out
 
 
-class ParquetScanExec(PlanNode):
-    """Parquet scan: footer schema, column pruning, host decode, H2D."""
+class FileScanExec(PlanNode):
+    """Base scan: files spread over partitions, host decode per file
+    (``_read_file``) on a prefetch thread, H2D as the consumer takes
+    each batch."""
 
-    format_name = "parquet"
+    format_name = "file"
 
     def __init__(self, paths, columns: Sequence[str] | None = None):
         super().__init__([])
         self._files = _expand_paths(paths)
         if not self._files:
             raise FileNotFoundError(f"no input files in {paths}")
-        import pyarrow.parquet as pq
-        full = T.Schema.from_arrow(pq.read_schema(self._files[0]))
+        full = self._read_schema()
         self._schema = T.Schema([full.field(c) for c in columns]) \
             if columns else full
+
+    def _read_schema(self) -> T.Schema:
+        raise NotImplementedError
+
+    def _read_file(self, path: str, batch_rows: int):
+        """pyarrow RecordBatches of one file, at most ``batch_rows``
+        rows each, holding the scan's columns."""
+        raise NotImplementedError
 
     @property
     def output_schema(self) -> T.Schema:
@@ -95,12 +107,6 @@ class ParquetScanExec(PlanNode):
             loads[i] += sz
         return buckets[pid]
 
-    def _read_file(self, path: str, batch_rows: int):
-        import pyarrow.dataset as ds
-        scanner = ds.dataset(path, format="parquet").scanner(
-            columns=self._schema.names, batch_size=batch_rows)
-        yield from scanner.to_batches()
-
     def partition_iter(self, ctx: ExecCtx, pid: int) -> Iterator:
         files = self._partition_files(ctx, pid)
         batch_rows = _effective_batch_rows(self._schema, ctx.conf.settings)
@@ -112,7 +118,10 @@ class ParquetScanExec(PlanNode):
         yield from self._device_batches(record_batches(), ctx.device)
 
     def _device_batches(self, rbs, device) -> Iterator:
-        """Decode-and-upload on a worker thread, two batches ahead."""
+        """Decode into pinned host batches on a worker thread, two batches
+        ahead; each is copied to the device when the consumer takes it, so
+        the card holds only the consumer's batches (and a query's peak
+        device memory does not depend on the worker's timing)."""
         q: queue.Queue = queue.Queue(maxsize=2)
         done = object()
         stop = threading.Event()
@@ -133,7 +142,7 @@ class ParquetScanExec(PlanNode):
                         return
                     if rb.num_rows == 0:
                         continue
-                    if not put(ColumnBatch.from_arrow(rb, device)):
+                    if not put(ColumnBatch.stage_arrow(rb, device)):
                         return
                 put(done)
             except BaseException as e:  # noqa: BLE001 - re-raised below
@@ -149,7 +158,7 @@ class ParquetScanExec(PlanNode):
                     break
                 if isinstance(item, BaseException):
                     raise item
-                yield item
+                yield item.to(device)
         finally:
             stop.set()
             while True:
@@ -162,3 +171,65 @@ class ParquetScanExec(PlanNode):
     def node_desc(self) -> str:
         return (f"{type(self).__name__}[{self.format_name}, "
                 f"{len(self._files)} files, cols={self._schema.names}]")
+
+
+class ParquetScanExec(FileScanExec):
+    """Parquet scan: footer schema, column pruning, host decode, H2D."""
+
+    format_name = "parquet"
+
+    def _read_schema(self) -> T.Schema:
+        import pyarrow.parquet as pq
+        return T.Schema.from_arrow(pq.read_schema(self._files[0]))
+
+    def _read_file(self, path: str, batch_rows: int):
+        import pyarrow.dataset as ds
+        scanner = ds.dataset(path, format="parquet").scanner(
+            columns=self._schema.names, batch_size=batch_rows)
+        yield from scanner.to_batches()
+
+
+class CsvScanExec(FileScanExec):
+    """CSV scan: pyarrow.csv parses each file on the host with the given
+    schema (reference :611).  Without a header the schema's names are the
+    columns'; an empty field is null in a numeric column and ``""`` in a
+    string column (pyarrow's defaults, as in the reference)."""
+
+    format_name = "csv"
+
+    def __init__(self, paths, schema: T.Schema | None, header: bool = True,
+                 delimiter: str = ",",
+                 columns: Sequence[str] | None = None):
+        if schema is None:
+            raise NotImplementedError(
+                "CSV schema inference is not ported (ROADMAP.md Queue 1 "
+                "item 9): pass schema=")
+        # load pyarrow's CSV module on the caller's thread: first imported
+        # on the short-lived prefetch thread, a later read_csv can crash
+        import pyarrow.csv  # noqa: F401
+        self._explicit_schema = schema
+        self._header = header
+        self._delim = delimiter
+        super().__init__(paths, columns)
+
+    def _read_schema(self) -> T.Schema:
+        return self._explicit_schema
+
+    def _read_file(self, path: str, batch_rows: int):
+        import pyarrow.csv as pc
+        at = self._explicit_schema.to_arrow()
+        ropts = pc.ReadOptions() if self._header else \
+            pc.ReadOptions(column_names=[f.name for f in at])
+        # only the scan's columns are converted (every field is still
+        # tokenized)
+        tbl = pc.read_csv(
+            path, read_options=ropts,
+            parse_options=pc.ParseOptions(delimiter=self._delim),
+            convert_options=pc.ConvertOptions(
+                column_types={f.name: f.type for f in at},
+                include_columns=self._schema.names))
+        # the parser's chunks are its ~1 MB blocks: re-cut the table into
+        # whole batches of batch_rows rows
+        for off in range(0, tbl.num_rows, batch_rows):
+            yield from tbl.slice(off, batch_rows).combine_chunks() \
+                .to_batches()

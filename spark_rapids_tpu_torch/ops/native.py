@@ -44,6 +44,7 @@ SOURCES = {
     "string_match": "string_match.cu",
     "string_concat": "string_concat.cu",
     "string_case": "string_case.cu",
+    "string_hex": "string_hex.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,6 +76,7 @@ _SIGNATURES = {
         "srt_seg_starts": [_P, _L, _P, _P, _P],
         "srt_seg_agg": [_I, _P, _P, _I, _I, _P, _L, _P, _P, _I, _P, _P, _P,
                         _I, _I, _P],
+        "srt_seg_percentile": [_P, _L, _P, _P, _I, _P, _I, _P, _P, _P],
     },
     "join_probe": {
         "srt_join_build_keys": [_P, _P, _P, _L, _I, _P, _P, _P],
@@ -120,6 +122,9 @@ _SIGNATURES = {
     },
     "string_case": {
         "srt_case_map": [_P, _P, _L, _I, _P],
+    },
+    "string_hex": {
+        "srt_hex": [_P, _P, _P, _P, _L, _P],
     },
 }
 

@@ -10,8 +10,15 @@ even on empty input.
 ``csrc/segmented.cu``; on the CPU its plain version mirrors the reference's
 segment_sum formulation with ``index_add_``, and takes min/max/first/last
 rows by sorting and indexing.
-String min/max and percentile exist only in the plain version so far; on a
-CUDA tensor they raise NotImplementedError (ROADMAP.md Queue 2, K4).
+
+A percentile sorts the rows by (keys, value ascending, value nulls last)
+with K1, so each segment's valid values lie at its front in order (NaN
+last, -0.0 tied with 0.0); K4 counts them, and :func:`segment_percentile`
+(K4p, ``srt_seg_percentile`` in ``csrc/segmented.cu``) picks
+``v[lo] + (v[hi] - v[lo]) * frac`` at ``pos = (count - 1) * q`` for every
+q over the column in one launch.
+String min/max exists only in the plain version so far; on a CUDA tensor
+it raises NotImplementedError (ROADMAP.md Queue 2, K4).
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from spark_rapids_tpu_torch.ops.sort import (SortOrder, chain_sort,
                                              normalize_floats, sort_batch)
 
 __all__ = ["AggSpec", "sorted_group_by", "segment_aggregate",
-           "segment_aggregate_plain"]
+           "segment_aggregate_plain", "segment_percentile",
+           "segment_percentile_plain"]
 
 _AGG_OPS = ("sum", "count", "count_star", "min", "max", "avg", "first", "last",
             "first_non_null", "last_non_null", "percentile")
@@ -180,26 +188,14 @@ def _compute_agg_plain(spec: AggSpec, col: DeviceColumn | None, seg_id,
     if op in ("min", "max"):
         return _min_max_plain(op, col, contributes, seg_id, g, n, has)
     if op == "percentile":
-        q = spec.param
-        if q is None:
+        if spec.param is None:
             raise ValueError("percentile AggSpec needs param=q")
         all_rows = torch.ones(n, dtype=torch.bool, device=dev)
         starts = _first_last_index(all_rows, seg_id, g, last=False)
-        pos = (cnt_valid - 1).to(torch.float64) * q
-        lo = torch.floor(pos).to(i64)
-        hi = torch.ceil(pos).to(i64)
-        frac = pos - lo.to(torch.float64)
-        base = starts.clamp(0, max(n - 1, 0))
-        x = col.data.to(torch.float64)
-        if n == 0:
-            data = torch.zeros(g, dtype=torch.float64, device=dev)
-        else:
-            vlo = x[(base + lo).clamp(0, n - 1)]
-            vhi = x[(base + hi).clamp(0, n - 1)]
-            data = vlo + (vhi - vlo) * frac
-        return DeviceColumn(torch.where(has, data,
-                                        _zero(torch.float64, dev)), has,
-                            T.DoubleType())
+        data, valid = segment_percentile_plain(col.data.to(torch.float64),
+                                               starts, cnt_valid,
+                                               [spec.param])
+        return DeviceColumn(data[0], valid[0], T.DoubleType())
     if op in ("first", "last", "first_non_null", "last_non_null"):
         eligible = contributes if op.endswith("non_null") else \
             torch.ones(n, dtype=torch.bool, device=dev)
@@ -250,6 +246,75 @@ def _min_max_plain(op, col, contributes, seg_id, g, n, has):
 
 
 # ---------------------------------------------------------------------------
+# K4p: the percentile pick
+# ---------------------------------------------------------------------------
+
+def segment_percentile(values: torch.Tensor, starts: torch.Tensor,
+                       counts: torch.Tensor, qs):
+    """Per segment g and fraction q, the linear interpolation at
+    ``pos = (counts[g] - 1) * q`` of the segment's sorted valid values
+    ``values[starts[g] : starts[g] + counts[g]]`` (float64): ``v[lo] +
+    (v[hi] - v[lo]) * (pos - lo)``, ``lo``/``hi`` the floor and ceiling
+    of ``pos``.  Returns (float64 [len(qs), G], bool [len(qs), G]); a
+    segment without values is null (0.0)."""
+    qs = [float(q) for q in qs]
+    if any(not 0.0 <= q <= 1.0 for q in qs):
+        raise ValueError(f"percentile fractions must be in [0, 1]: {qs}")
+    if values.dtype != torch.float64 or starts.shape != counts.shape:
+        raise ValueError("segment_percentile: float64 values and starts "
+                         "and counts of one shape expected")
+    if values.device.type == "cpu":
+        return segment_percentile_plain(values, starts, counts, qs)
+    return _segment_percentile_cuda(values, starts, counts, qs)
+
+
+segment_percentile.launches = 0
+
+
+def segment_percentile_plain(values: torch.Tensor, starts: torch.Tensor,
+                             counts: torch.Tensor, qs):
+    """Plain PyTorch version of :func:`segment_percentile` (any device):
+    the reference's formula (``ops/segmented.py:262-281``), one separately
+    rounded operation at a time."""
+    dev = values.device
+    n = values.shape[0]
+    q = torch.tensor([float(x) for x in qs], dtype=torch.float64,
+                     device=dev)[:, None]
+    counts = counts.to(torch.int64)
+    has = (counts > 0)[None, :].expand(q.shape[0], -1)
+    if n == 0:
+        return (torch.zeros(has.shape, dtype=torch.float64, device=dev),
+                has.clone())
+    pos = (counts - 1).to(torch.float64)[None, :] * q
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    frac = pos - lo.to(torch.float64)
+    base = starts.to(torch.int64).clamp(0, n - 1)[None, :]
+    vlo = values[(base + lo).clamp(0, n - 1)]
+    vhi = values[(base + hi).clamp(0, n - 1)]
+    data = vlo + (vhi - vlo) * frac
+    return torch.where(has, data, _zero(torch.float64, dev)), has.clone()
+
+
+def _segment_percentile_cuda(values, starts, counts, qs):
+    g = starts.shape[0]
+    dev = values.device
+    out = torch.empty((len(qs), g), dtype=torch.float64, device=dev)
+    out_valid = torch.empty((len(qs), g), dtype=torch.bool, device=dev)
+    if g == 0 or not qs:
+        return out, out_valid
+    q = torch.tensor(qs, dtype=torch.float64).to(dev)
+    native.check(native.lib("segmented").srt_seg_percentile(
+        ptr(values.contiguous()), values.shape[0],
+        ptr(starts.to(torch.int32).contiguous()),
+        ptr(counts.to(torch.int64).contiguous()), g, ptr(q), len(qs),
+        ptr(out), ptr(out_valid), native.stream_ptr(dev)),
+        "srt_seg_percentile")
+    segment_percentile.launches += 1
+    return out, out_valid
+
+
+# ---------------------------------------------------------------------------
 # CUDA (csrc/segmented.cu)
 # ---------------------------------------------------------------------------
 
@@ -281,14 +346,12 @@ def _op_code(spec: AggSpec, col: DeviceColumn | None) -> int:
 
 def _check_cuda_covered(sb: ColumnBatch, aggs: list[AggSpec]) -> None:
     for spec in aggs:
-        if spec.op == "percentile" or (
-                spec.op in ("min", "max")
-                and sb.columns[spec.child_index].is_string):
+        if spec.op in ("min", "max") and \
+                sb.columns[spec.child_index].is_string:
             raise NotImplementedError(
-                f"{spec.op} over {'strings' if spec.op != 'percentile' else 'doubles'}"
-                " has no CUDA segmented-aggregate kernel yet (ROADMAP.md "
-                "Queue 2, K4: string min/max and percentile); only the "
-                "plain CPU version covers it")
+                f"{spec.op} over strings has no CUDA segmented-aggregate "
+                "kernel yet (ROADMAP.md Queue 2, K4: string min/max); only "
+                "the plain CPU version covers it")
         if spec.op not in _AGG_OPS:
             raise NotImplementedError(f"aggregate op {spec.op}")
 
@@ -379,16 +442,45 @@ def _segment_aggregate_cuda(sb: ColumnBatch, key_indices: list[int],
     key_cols = gather_columns([sb.columns[k] for k in key_indices], starts) \
         if key_indices else []
     slots = torch.empty(2 * (g + nt), dtype=torch.int64, device=dev)
-    outs = []
-    for spec in aggs:
-        col = sb.columns[spec.child_index] if spec.op != "count_star" \
-            else None
-        code = _op_code(spec, col)
+
+    def run(code, col, out_data, out_valid):
         if col is None:
             data, valid, kind, item = flags, flags, _KIND_INT, 1
         else:
             data, valid = col.data.contiguous(), col.validity.contiguous()
             kind, item = _kind(col)
+        out_kind = _KIND_FLOAT if out_data.dtype.is_floating_point \
+            else _KIND_INT
+        native.check(lib.srt_seg_agg(
+            code, ptr(data), ptr(valid), kind, item, ptr(flags), n,
+            ptr(offsets), ptr(starts), g, ptr(slots), ptr(out_data),
+            ptr(out_valid), out_kind, out_data.element_size(), stream),
+            "srt_seg_agg")
+
+    # percentiles: one valid count and one K4p launch per value column,
+    # serving every q over it
+    pct: dict[tuple, DeviceColumn] = {}
+    by_col: dict[int, list[float]] = {}
+    for spec in aggs:
+        if spec.op == "percentile":
+            by_col.setdefault(spec.child_index, []).append(spec.param)
+    for ci, qs in by_col.items():
+        col = sb.columns[ci]
+        valid_counts = torch.empty(g, dtype=torch.int64, device=dev)
+        run(_OP_CODES["count"], col, valid_counts,
+            torch.empty(g, dtype=torch.bool, device=dev))
+        data, valid = segment_percentile(col.data.to(torch.float64),
+                                         starts, valid_counts, qs)
+        for j, q in enumerate(qs):
+            pct[(ci, q)] = DeviceColumn(data[j], valid[j], T.DoubleType())
+    outs = []
+    for spec in aggs:
+        if spec.op == "percentile":
+            outs.append(pct[(spec.child_index, spec.param)])
+            continue
+        col = sb.columns[spec.child_index] if spec.op != "count_star" \
+            else None
+        code = _op_code(spec, col)
         picks = spec.op in ("first", "last", "first_non_null",
                             "last_non_null")
         rtype = spec.result_type(col.dtype if col is not None
@@ -396,12 +488,7 @@ def _segment_aggregate_cuda(sb: ColumnBatch, key_indices: list[int],
         out_dtype = torch.int32 if picks else torch_dtype(rtype)
         out_data = torch.empty(g, dtype=out_dtype, device=dev)
         out_valid = torch.empty(g, dtype=torch.bool, device=dev)
-        out_kind = _KIND_FLOAT if out_dtype.is_floating_point else _KIND_INT
-        native.check(lib.srt_seg_agg(
-            code, ptr(data), ptr(valid), kind, item, ptr(flags), n,
-            ptr(offsets), ptr(starts), g, ptr(slots), ptr(out_data),
-            ptr(out_valid), out_kind, out_data.element_size(), stream),
-            "srt_seg_agg")
+        run(code, col, out_data, out_valid)
         if picks:
             outs.append(gather_columns([col], out_data)[0])
         else:

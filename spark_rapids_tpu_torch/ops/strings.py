@@ -1,5 +1,5 @@
 """String kernels: Spark ``substring`` (K13a), literal matching (K13b),
-concatenation (K13c) and ASCII case mapping (K13d).
+concatenation (K13c), ASCII case mapping (K13d) and hex of a long (K13i).
 
 Port of the device branches of ``spark_rapids_tpu/expr/strings.py``:
 ``_char_starts`` (:29) with ``Substring._device`` (:174), the byte
@@ -7,7 +7,8 @@ comparisons of ``StartsWith`` (:294), ``EndsWith`` (:310), ``Contains``
 (:329) and the ``equals`` shape of ``Like`` (``predicates.py:58``
 ``_string_eq``), ``_concat2_device`` (:252) as ``Concat`` (:235) and
 ``ConcatWs`` (:484) fold it, and ``Upper._device`` (:63) and
-``Lower._device`` (:76).  Strings are the column contract's byte
+``Lower._device`` (:76), and ``Hex`` (:756-803).  Strings are the column
+contract's byte
 matrices: uint8 ``[n, W]`` (W a power of two >= 4) with int32 lengths
 and bool validity.
 
@@ -38,6 +39,10 @@ and bool validity.
   padded matrix mapping ``a-z`` to ``A-Z`` (or back), four bytes a word
   at a time; bytes >= 0x80 and the zero tail pass unchanged, and the
   lengths and validity are the input's (not copied).
+* K13i, ``csrc/string_hex.cu``: one thread per int64 row writes its
+  upper-case hex digits (two's complement, leading zeros dropped, "0"
+  for 0) as one 16-byte W 16 row with zeros after the digits; null rows
+  are zero with length 0.
 
 The reference computes ``start + len`` in int32, so ``substring('hello',
 2, 2147483647)`` wraps to ``''`` there (ROADMAP.md Queue 3); both
@@ -61,7 +66,7 @@ from spark_rapids_tpu_torch.ops.kernels import ptr
 __all__ = ["substring", "substring_plain", "string_match",
            "string_match_plain", "literal_needle", "MATCH_MODES", "concat",
            "concat_plain", "concat_width", "case_map", "case_map_plain",
-           "MAX_PIECES"]
+           "hex_string", "hex_string_plain", "MAX_PIECES"]
 
 #: mode codes of csrc/string_match.cu
 MATCH_MODES = {"prefix": 0, "suffix": 1, "contains": 2, "equals": 3}
@@ -503,3 +508,56 @@ def _case_map_cuda(data, lengths, validity, upper):
         native.stream_ptr(data.device)), "srt_case_map")
     case_map.launches += 1
     return out, lengths, validity
+
+
+# ---------------------------------------------------------------------------
+# K13i: hex of a long
+# ---------------------------------------------------------------------------
+
+def hex_string(data: torch.Tensor, validity: torch.Tensor):
+    """Spark ``hex`` of every int64 row: the two's complement bits as
+    upper-case hex digits, most significant first, leading zeros dropped
+    (``0`` gives ``"0"``, ``-1`` sixteen ``F``).  Returns (uint8 [n, 16]
+    with zeros after the digits, int32 lengths, validity); null rows are
+    zero with length 0, and the validity is the input's own tensor."""
+    if data.dtype != torch.int64 or data.dim() != 1 or \
+            validity.shape != data.shape:
+        raise ValueError(f"hex_string: int64 [n] data and bool [n] validity "
+                         f"expected, got {data.dtype}{tuple(data.shape)}")
+    if data.device.type == "cpu":
+        return hex_string_plain(data, validity)
+    return _hex_cuda(data, validity)
+
+
+hex_string.launches = 0
+
+
+def hex_string_plain(data: torch.Tensor, validity: torch.Tensor):
+    """Plain PyTorch version of :func:`hex_string` (any device)."""
+    dev = data.device
+    shifts = torch.arange(60, -1, -4, dtype=torch.int64, device=dev)
+    nib = (data[:, None] >> shifts[None, :]) & 0xF
+    chars = torch.where(nib < 10, nib + 48, nib + 55)
+    nz = (nib != 0).to(torch.int8)
+    first = torch.where(nz.any(1), nz.argmax(1),
+                        torch.full((), 15, dtype=torch.int64, device=dev))
+    lengths = torch.where(validity, 16 - first, 0).to(torch.int32)
+    j = torch.arange(16, dtype=torch.int64, device=dev)[None, :]
+    src = (first[:, None] + j).clamp(max=15)
+    out = torch.gather(chars, 1, src)
+    out = torch.where(j < lengths[:, None].to(torch.int64), out, 0)
+    return out.to(torch.uint8), lengths, validity
+
+
+def _hex_cuda(data, validity):
+    n = data.shape[0]
+    dev = data.device
+    out = torch.empty((n, 16), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out, out_len, validity
+    native.check(native.lib("string_hex").srt_hex(
+        ptr(data.contiguous()), ptr(validity.contiguous()), ptr(out),
+        ptr(out_len), n, native.stream_ptr(dev)), "srt_hex")
+    hex_string.launches += 1
+    return out, out_len, validity

@@ -1,6 +1,6 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``, the
 nodes the port lowers: Scan, Project, Filter, Aggregate, Join, Sort,
-Limit, Repartition, Window)."""
+Limit, Repartition, Window, Union)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,7 +10,7 @@ from spark_rapids_tpu_torch.exec.core import PlanNode
 from spark_rapids_tpu_torch.expr.core import Expression
 
 __all__ = ["LogicalPlan", "Scan", "Project", "Filter", "Aggregate", "Join",
-           "Sort", "Limit", "Repartition", "Window"]
+           "Sort", "Limit", "Repartition", "Window", "Union"]
 
 
 class LogicalPlan:
@@ -136,3 +136,17 @@ class Window(LogicalPlan):
     @property
     def children(self):
         return (self.child,)
+
+
+@dataclass
+class Union(LogicalPlan):
+    """UNION ALL of the inputs, by position."""
+    inputs: list
+
+    @property
+    def children(self):
+        return tuple(self.inputs)
+
+    @property
+    def schema(self):
+        return self.inputs[0].schema

@@ -3,7 +3,8 @@
 ``lower`` (:62) turns the logical plan into physical execs (joins as in
 :75-110 without the AQE shuffled-join exchange, which is off by default,
 or the mesh; a limit over a sort as :117-137 without the mesh TopN; an
-explicit repartition as :178-195; a window as :141-155).  ``_lower_project``
+explicit repartition as :178-195; a window as :141-155; a union as
+:138-140).  ``_lower_project``
 (:479) plans the window expressions of a projection: one ``WindowExec``
 per distinct spec, each over a hash exchange on its partition keys where
 the child is not already distributed on them (:435), then the final
@@ -28,7 +29,7 @@ from spark_rapids_tpu_torch.exec import (CoalesceBatchesExec,
                                          CrossJoinExec, FilterExec,
                                          GlobalLimitExec, HashAggregateExec,
                                          JoinExec, ProjectExec, SortExec,
-                                         WindowExec)
+                                         UnionExec, WindowExec)
 from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode, TargetSize
 from spark_rapids_tpu_torch.exec.exchange import (AdaptiveShuffleReaderExec,
                                                   ShuffleExchangeExec)
@@ -92,6 +93,9 @@ def lower(node: L.LogicalPlan, conf: TorchConf) -> PlannedNode:
         # never coalesces it (Spark's REPARTITION_BY_NUM contract)
         ex._no_map_coalesce = True
         return PlannedNode(ex, [c])
+    if isinstance(node, L.Union):
+        cs = [lower(i, conf) for i in node.inputs]
+        return PlannedNode(UnionExec([c.exec_node for c in cs]), cs)
     if isinstance(node, L.Window):
         c = lower(node.child, conf)
         # partition on the first expression's spec; WindowExec itself

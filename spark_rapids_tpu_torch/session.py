@@ -3,10 +3,10 @@
 ``TorchSession(conf)`` runs on the CUDA card and raises when there is none;
 ``TorchSession(conf, device="cpu")`` runs the kernels' plain PyTorch
 versions on the CPU (the tests do this).  The DataFrame methods are the
-ones the port's TPC-H and TPC-DS builders use -- ``read_parquet``,
-``select``, ``where``, ``with_column``, ``join``, ``group_by().agg()``,
-``agg``, ``order_by``, ``limit``, ``collect``, ``explain`` -- and
-``repartition``; ``select`` takes window
+ones the port's TPC-H, TPC-DS and mortgage query functions use --
+``read_parquet``, ``read_csv``, ``select``, ``where``, ``with_column``,
+``join``, ``union``, ``group_by().agg()``, ``agg``, ``order_by``,
+``limit``, ``collect``, ``explain`` -- and ``repartition``; ``select`` takes window
 expressions (``expr/window.py``), which the planner lowers to
 ``WindowExec``s.  Admission,
 cancellation, the result cache and the serving planes wait for later
@@ -42,6 +42,14 @@ class TorchSession:
     def read_parquet(self, path, columns=None) -> "DataFrame":
         from spark_rapids_tpu_torch.io import ParquetScanExec
         return DataFrame(self, L.Scan(ParquetScanExec(path, columns=columns)))
+
+    def read_csv(self, path, schema: T.Schema | None = None,
+                 **kw) -> "DataFrame":
+        """CSV files with ``schema`` (``header``, ``delimiter`` and
+        ``columns`` as :class:`~spark_rapids_tpu_torch.io.CsvScanExec`
+        takes them)."""
+        from spark_rapids_tpu_torch.io import CsvScanExec
+        return DataFrame(self, L.Scan(CsvScanExec(path, schema=schema, **kw)))
 
 
 class DataFrame:
@@ -97,6 +105,11 @@ class DataFrame:
                                              "cross", [], [], condition))
         return DataFrame(self._s, L.Join(self._plan, other._plan, how,
                                          left_on, right_on, condition))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """The rows of both frames (UNION ALL), matched by position; the
+        column types must agree."""
+        return DataFrame(self._s, L.Union([self._plan, other._plan]))
 
     def order_by(self, *orders) -> "DataFrame":
         return DataFrame(self._s, L.Sort(list(orders), self._plan))

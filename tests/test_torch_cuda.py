@@ -688,3 +688,108 @@ def test_q24_and_q84_on_cuda_match_cpu(dev, tmp_path):
                     assert math.isclose(a, b, rel_tol=1e-9), (name, g, w)
                 else:
                     assert a == b, (name, g, w)
+
+
+# ---------------------------------------------------------------------------
+# the mortgage kernels: K13i (hex) and K4p (percentile pick)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 257, 100_003])
+def test_hex_string_matches_plain(dev, n):
+    from spark_rapids_tpu_torch.ops import strings as STR
+    rng = np.random.default_rng(n)
+    shift = rng.integers(0, 64, n)
+    v = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64) >> shift
+    v[:min(n, 4)] = [0, -1, 2 ** 63 - 1, -2 ** 63][:min(n, 4)]
+    valid = rng.random(n) >= 0.1
+    data = torch.from_numpy(np.where(valid, v, 0)).to(dev)
+    ok = torch.from_numpy(valid).to(dev)
+    before = STR.hex_string.launches
+    got = STR.hex_string(data, ok)
+    assert STR.hex_string.launches == before + 1
+    _same_tuple(got, STR.hex_string_plain(data, ok))
+    # an int32 hash cast to long: negative ones sign-extend
+    h = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)).to(dev)
+    _same_tuple(STR.hex_string(h, ok), STR.hex_string_plain(h, ok))
+
+
+@pytest.mark.parametrize("shape", ["giant", "singles", "mixed"])
+def test_segment_percentile_matches_plain(dev, shape):
+    """Exact: NaN, +-inf, -0.0, ties, empty segments, q 0 and 1."""
+    from spark_rapids_tpu_torch.ops import segmented as SG
+    rng = np.random.default_rng(len(shape))
+    if shape == "giant":
+        counts = np.array([200_001])
+    elif shape == "singles":
+        counts = np.ones(200_001, np.int64)
+    else:
+        counts = rng.integers(0, 9, 40_000)
+    n = int(counts.sum())
+    seg = np.repeat(np.arange(len(counts)), counts)
+    starts = np.cumsum(counts) - counts
+    vals = rng.choice([-2.5, -0.0, 0.0, 1.0, np.nan, np.inf, -np.inf, 3.0],
+                      n) + rng.random(n) * (rng.random(n) < 0.5)
+    vals = vals[np.lexsort((vals, seg))]  # each segment ascending, NaN last
+    # fewer valid values than rows in some segments (nulls sort last)
+    valid = np.maximum(counts - (rng.random(len(counts)) < 0.3), 0)
+    args = (torch.from_numpy(vals).to(dev),
+            torch.from_numpy(starts.astype(np.int32)).to(dev),
+            torch.from_numpy(valid.astype(np.int64)).to(dev),
+            [0.0, 0.25, 0.5, 0.75, 0.9, 0.99, 1.0])
+    before = SG.segment_percentile.launches
+    got = SG.segment_percentile(*args)
+    assert SG.segment_percentile.launches == before + 1
+    want = SG.segment_percentile_plain(*args)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=0.0, atol=0.0,
+                               equal_nan=True)
+    assert torch.equal(torch.signbit(got[0]), torch.signbit(want[0]))
+
+
+def test_mortgage_jobs_on_cuda_match_cpu(dev, tmp_path):
+    """The three jobs at sf 2 (2,000 loans): K13i and K9's hash mode run
+    on percentiles and agg_join, K4p on percentiles, K6 on agg_join; the
+    rows are the CPU's."""
+    import math
+    from spark_rapids_tpu_torch.bench import mortgage as M
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import partition as P
+    from spark_rapids_tpu_torch.ops import segmented as SG
+    from spark_rapids_tpu_torch.ops import strings as STR
+    d = str(tmp_path / "sf2")
+    M.generate_mortgage(d, sf=2, seed=7)
+    need = {"percentiles": (STR.hex_string, SG.segment_percentile,
+                            P.murmur3_columns),
+            "agg_join": (STR.hex_string, P.murmur3_columns, J._key_ids),
+            "simple_agg": (SG.segment_aggregate,)}
+    for job, counters in need.items():
+        before = [c.launches for c in counters]
+        got = M.MORTGAGE_QUERIES[job](TorchSession(), d).collect()
+        assert all(c.launches > b for c, b in zip(counters, before)), job
+        want = M.MORTGAGE_QUERIES[job](TorchSession(device="cpu"),
+                                       d).collect()
+        assert len(got) == len(want) > 0, job
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert math.isclose(a, b, rel_tol=1e-9), (job, g, w)
+                else:
+                    assert a == b, (job, g, w)
+
+
+@pytest.mark.parametrize("keys", [[1], [0, 1], []])
+def test_sorted_group_by_percentile_matches_cpu(dev, keys):
+    """K1's value sort, K4's valid counts and K4p against the whole CPU
+    path: every q over one column rides one K4p launch."""
+    rng = np.random.default_rng(len(keys) + 40)
+    rb = _record_batch(rng, 50_000)
+    specs = [G.AggSpec("percentile", 3, q) for q in (0.0, 0.5, 0.9, 1.0)] \
+        + [G.AggSpec("min", 3), G.AggSpec("count", 3)]
+    before = G.segment_percentile.launches
+    got = G.sorted_group_by(ColumnBatch.from_arrow(rb, dev), keys, specs)
+    assert G.segment_percentile.launches == before + 1
+    want = G.sorted_group_by(ColumnBatch.from_arrow(rb, "cpu"), keys, specs)
+    assert got.num_rows == want.num_rows
+    for a, b in zip(got.columns, want.columns):
+        _same(type(a)(a.data.cpu(), a.validity.cpu(), a.dtype,
+                      None if a.lengths is None else a.lengths.cpu()), b)

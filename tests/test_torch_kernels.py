@@ -156,6 +156,50 @@ def test_arrow_round_trip_every_type():
         assert p.data.numpy().tobytes() == q.data.numpy().tobytes()
 
 
+def _fixed_width_case(case: str) -> pa.Array:
+    """Strings of one length, as CSV dates are: with nulls, with empty
+    strings, sliced (a non-zero offset), and with a null slot that still
+    owns bytes in the data buffer (so the rows are not back to back)."""
+    rng = np.random.default_rng(len(case))
+    words = [f"{m:02d}/01/{y}" for m, y in zip(rng.integers(1, 13, 300),
+                                               rng.integers(1990, 2040, 300))]
+    if case == "plain":
+        return pa.array(words)
+    if case == "nulls":
+        return pa.array(words, mask=rng.random(300) < 0.2)
+    if case == "empty":
+        return pa.array([w if i % 7 else "" for i, w in enumerate(words)])
+    if case == "sliced":
+        return pa.array(words, mask=rng.random(300) < 0.2).slice(37, 200)
+    if case == "sliced_all_empty":
+        # the selected rows are "" or null, the data buffer is not empty
+        return pa.array(words[:50] + [""] * 40 + [None] * 10 + words[:50]) \
+            .slice(50, 50)
+    full = pa.array(words)  # "null_owns_bytes": clear validity bits only
+    valid = np.ones(300, bool)
+    valid[::5] = False
+    return pa.Array.from_buffers(
+        pa.string(), 300, [pa.py_buffer(np.packbits(valid,
+                                                    bitorder="little")),
+                           *full.buffers()[1:]], null_count=60)
+
+
+@pytest.mark.parametrize("case", ["plain", "nulls", "empty", "sliced",
+                                  "sliced_all_empty", "null_owns_bytes"])
+def test_fixed_width_strings_match_jax(case):
+    """The scan's fixed-width fast path (one reshape of strings stored
+    back to back) and the general gather it leaves to lay out the
+    reference's byte matrix (zero tail, zero null rows) and lengths."""
+    rb = pa.RecordBatch.from_arrays([_fixed_width_case(case)], names=["s"])
+    _jb, from_jax = _pair(rb)
+    got = PBatch.from_arrow(rb, CPU).columns[0]
+    want = from_jax.columns[0]
+    assert torch.equal(got.validity, want.validity)
+    assert torch.equal(got.lengths, want.lengths)
+    assert torch.equal(got.data, want.data)
+    assert got.data.shape[1] == (4 if case == "sliced_all_empty" else 16)
+
+
 def test_types_cover_the_reference_surface():
     from spark_rapids_tpu import types as JT
     assert [t.name for t in PT.all_types()] == \

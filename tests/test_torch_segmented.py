@@ -16,6 +16,7 @@ import torch
 from spark_rapids_tpu.columnar.batch import ColumnBatch as JBatch
 from spark_rapids_tpu.ops import segmented as jsg
 from spark_rapids_tpu_torch.columnar.batch import ColumnBatch as PBatch
+from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops import segmented as psg
 
 CPU = torch.device("cpu")
@@ -138,12 +139,88 @@ def test_empty_grand_aggregate_matches_jax():
 
 
 def test_cuda_path_refuses_uncovered_ops():
-    """String min/max and percentile have no kernel yet: on a CUDA batch
-    they raise and name their ROADMAP item instead of running plain."""
+    """String min/max has no kernel yet: on a CUDA batch it raises and
+    names its ROADMAP item instead of running plain; percentile runs K4p."""
     rng = np.random.default_rng(8)
     pb = PBatch.from_arrow(_record_batch(rng, 10), CPU)
-    for spec in (psg.AggSpec("min", 6), psg.AggSpec("percentile", 3, 0.5)):
+    for spec in (psg.AggSpec("min", 6), psg.AggSpec("max", 6)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             psg._check_cuda_covered(pb, [spec])
     psg._check_cuda_covered(pb, [psg.AggSpec("min", 3),
-                                 psg.AggSpec("first", 6)])
+                                 psg.AggSpec("first", 6),
+                                 psg.AggSpec("percentile", 3, 0.5)])
+
+
+def _percentile_batch(rng, n: int) -> pa.RecordBatch:
+    """Groups of every size: one giant group, one-row groups, all-null
+    groups; values with NaN, +-inf, -0.0, ties and nulls."""
+    g = np.concatenate([np.zeros(n // 3, np.int32),
+                        rng.integers(1, 40, n - n // 3 - 60).astype(np.int32),
+                        np.arange(100, 160, dtype=np.int32)])  # one-row
+    v = rng.choice([-2.5, -0.0, 0.0, 1.0, 1.0, 7.25, np.nan, np.inf,
+                    -np.inf, 3.0], n) + np.where(rng.random(n) < 0.5,
+                                                 rng.random(n), 0.0)
+    null = rng.random(n) < 0.15
+    null |= (g == 7) | (g == 130)                             # all null
+    perm = rng.permutation(n)
+    return pa.RecordBatch.from_arrays(
+        [pa.array(g[perm]), pa.array(v[perm], mask=null[perm])],
+        names=["g", "v"])
+
+
+_QS = [0.0, 0.25, 0.5, 0.9, 0.99, 1.0]
+
+
+@pytest.mark.parametrize("keys", [[0], []], ids=["grouped", "grand"])
+def test_percentile_fuzz_matches_jax(keys):
+    """Every q in [0, 1] over fuzzed groups, against the reference's
+    sorted_group_by: validity exactly, values exactly (NaN equal to NaN;
+    inf - inf interpolates to NaN in both), the valid counts beside."""
+    rng = np.random.default_rng(31)
+    specs = [("percentile", 1, q) for q in _QS] + [("count", 1, None)]
+    g, _jout, jcols, pout = _run_both(_percentile_batch(rng, 3000), keys,
+                                      specs)
+    assert pout.num_rows == g and g == (len(np.unique(
+        _percentile_batch(np.random.default_rng(31), 3000)
+        .column(0).to_numpy())) if keys else 1)
+    k = len(keys)
+    for i, spec in enumerate(specs):
+        jd, jv, _jl = (None if a is None else np.asarray(a)[:g]
+                       for a in jcols[k + i])
+        pc = pout.columns[k + i]
+        np.testing.assert_array_equal(pc.validity.numpy(), jv,
+                                      err_msg=str(spec))
+        np.testing.assert_array_equal(pc.data.numpy(), jd, err_msg=str(spec))
+    if keys:
+        valid = pout.columns[1].validity.numpy()
+        assert not valid.all() and valid.any()  # all-null groups are null
+        assert np.isnan(pout.columns[4].data.numpy()).any()
+
+
+def test_segment_percentile_wrapper(monkeypatch):
+    """K4p's wrapper: the plain version on the CPU (no launch counted),
+    the kernel or an error elsewhere, q checked; interpolation by hand."""
+    def no_kernel(name):
+        raise RuntimeError(f"no {name} kernel")
+
+    monkeypatch.setattr(native, "lib", no_kernel)
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="no segmented kernel"):
+        psg.segment_percentile(
+            torch.zeros(4, dtype=torch.float64, device=meta),
+            torch.zeros(1, dtype=torch.int32, device=meta),
+            torch.ones(1, dtype=torch.int64, device=meta), [0.5])
+    vals = torch.tensor([1.0, 2.0, 4.0, 10.0, 5.0, np.inf, np.inf],
+                        dtype=torch.float64)
+    starts = torch.tensor([0, 4, 4, 5], dtype=torch.int32)
+    counts = torch.tensor([4, 1, 0, 2])
+    before = psg.segment_percentile.launches
+    data, valid = psg.segment_percentile(vals, starts, counts, [0.0, 0.5, 1.0])
+    assert psg.segment_percentile.launches == before
+    assert valid.tolist() == [[True, True, False, True]] * 3
+    assert data[:, 0].tolist() == [1.0, 3.0, 10.0]
+    assert data[:, 1].tolist() == [5.0, 5.0, 5.0]
+    assert data[:, 2].tolist() == [0.0, 0.0, 0.0]
+    assert torch.isnan(data[:, 3]).all()  # inf + (inf - inf) * frac
+    with pytest.raises(ValueError, match=r"\[0, 1\]"):
+        psg.segment_percentile(vals, starts, counts, [1.5])

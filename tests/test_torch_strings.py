@@ -673,3 +673,78 @@ def test_concat_checks_its_pieces():
     # concat (no separator) of more than 8 pieces folds
     got = OS.concat([a] * 9)
     assert got[0].shape == (3, 128) and got[2].all()
+
+
+# ---------------------------------------------------------------------------
+# Hex (K13i)
+# ---------------------------------------------------------------------------
+
+def _hex_inputs(rng, n: int, bits: int):
+    """Seeded ints of ``bits`` bits: every digit count of both signs, 0,
+    +-1 and the extremes, with nulls (zero data, as a column holds)."""
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    nbits = rng.integers(0, bits, n)
+    vals = rng.integers(0, 2 ** 62, n) >> (62 - np.minimum(nbits, 62))
+    vals = np.where(rng.random(n) < 0.5, -vals - 1, vals)
+    vals[:8] = [0, 1, -1, lo, hi, 15, 16, -16]
+    vals = np.clip(vals, lo, hi).astype(np.int64 if bits == 64 else np.int32)
+    valid = rng.random(n) >= 0.1
+    valid[:8] = True
+    return np.where(valid, vals, 0).astype(vals.dtype), valid
+
+
+@pytest.mark.parametrize("bits", [64, 32])
+def test_hex_matches_jax(bits):
+    """Spark's hex of a long, and of an int cast to long (a negative int
+    sign-extends to 16 digits), against the reference's device branch:
+    lengths and validity exactly, the digits within each length exactly,
+    and the port's bytes after them zero (the reference repeats the last
+    digit there)."""
+    rng = np.random.default_rng(700 + bits)
+    vals, valid = _hex_inputs(rng, N, bits)
+    jt = JT.LongType() if bits == 64 else JT.IntegerType()
+    pt = PT.LongType() if bits == 64 else PT.IntegerType()
+    want = JS.Hex(JC.BoundReference(0, jt)).coerced().eval(
+        [_jval(vals, valid, jt)], _jctx(N))
+    got = PS.Hex(PC.BoundReference(0, pt)).coerced().eval(
+        [_pval(vals, valid, pt)], _pctx(N))
+    gd, gv, gl = _p(got)
+    wd, wv, wl = _j(want)
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_array_equal(gl, wl)
+    assert gd.shape == wd.shape == (N, 16)
+    inside = np.arange(16)[None, :] < gl[:, None]
+    np.testing.assert_array_equal(np.where(inside, gd, 0),
+                                  np.where(inside, wd, 0))
+    assert not gd[~inside].any()
+    for i in range(N):
+        text = bytes(gd[i, :gl[i]]).decode() if gv[i] else None
+        assert text == (format(int(vals[i]) & (2 ** 64 - 1), "X")
+                        if valid[i] else None)
+    negative = valid & (vals < 0)
+    assert negative.sum() > N // 4 and (gl[negative] == 16).all()
+    assert set(gl[valid & (vals >= 0)]) >= set(range(1, bits // 4))
+
+
+def test_hex_wrapper_dispatch(monkeypatch):
+    """The plain version on the CPU (no launch counted), the kernel or an
+    error elsewhere, and the operand check."""
+    def no_kernel(name):
+        raise RuntimeError(f"no {name} kernel")
+
+    monkeypatch.setattr(native, "lib", no_kernel)
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="no string_hex kernel"):
+        OS.hex_string(torch.zeros(4, dtype=torch.int64, device=meta),
+                      torch.ones(4, dtype=torch.bool, device=meta))
+    v = torch.tensor([0, 255, -2], dtype=torch.int64)
+    ok = torch.tensor([True, True, False])
+    before = OS.hex_string.launches
+    got = OS.hex_string(v, ok)
+    for a, b in zip(got, OS.hex_string_plain(v, ok)):
+        assert torch.equal(a, b)
+    assert got[1].tolist() == [1, 2, 0] and got[2] is ok
+    assert bytes(got[0][1, :2].tolist()) == b"FF"
+    assert OS.hex_string.launches == before
+    with pytest.raises(ValueError, match="int64"):
+        OS.hex_string(v.to(torch.int32), ok)
