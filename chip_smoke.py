@@ -14,7 +14,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
    phase 6; K12a window segment extents, K12b window frame aggregates in
    phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9; K13i, K4p in
-   phase 10): seeded inputs
+   phase 10; K8a, K8b in phase 11): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -84,7 +84,19 @@ Phases (any failure exits non-zero; no phase's error is caught):
    murmur3 and hex, np.lexsort, the reference's Round): K13i, K4p and
    K9's hash mode must launch on percentiles, K13i, K9's hash mode and
    K6 on agg_join;
-11. print the kernel table as one JSON line (launches per path), the
+11. the scan's wire codec: K8a (fixed-width decode) and K8b (dictionary
+   strings) held exactly against their plain versions on 2^24 stress rows
+   a case (every bit bucket and output type, bases near the int64
+   limits, both divisors and scales, nulls at validity word edges,
+   all-null columns, dictionaries of widths 4 to 256), then on the first
+   scan batch of q1's lineitem, of q6's store_sales (default layout) and
+   of simple_agg's performance file as their scans encode them, against
+   the plain versions and the raw upload; each kernel's time beside its
+   bound, its plain version's and (K8b) index_select's, and the copy to
+   the card of the encoded against the raw buffer.  Every path above
+   scans with the codec on (its default for batches of more than 1024
+   rows): K8a must launch on every path, K8b on q1 and simple_agg;
+12. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -693,6 +705,7 @@ def _counters() -> dict:
     from spark_rapids_tpu_torch.ops import sort as S
     from spark_rapids_tpu_torch.ops import strings as STR
     from spark_rapids_tpu_torch.ops import window as W
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
     return {"sort_permutation": {"sort_permutation": S.sort_permutation},
             "compact": {"compact": K.compact},
             "gather_columns": {"gather_columns": K.gather_columns},
@@ -717,11 +730,18 @@ def _counters() -> dict:
             "case_map": {"case_map": STR.case_map},
             "hex_string": {"hex_string": STR.hex_string},
             "segment_percentile": {
-                "segment_percentile": G.segment_percentile}}
+                "segment_percentile": G.segment_percentile},
+            "decode_fixed": {"decode_fixed": WC.decode_fixed},
+            "decode_dict": {"decode_dict": WC.decode_dict}}
 
 
+#: K8a and K8b: every scan batch of more than 1024 rows goes through the
+#: wire codec; K8b only where a string column dictionary-encodes
+_SCAN_ENTRIES = ("decode_fixed", "decode_dict")
+#: the dictionary decode, required only on q1 and simple_agg
+_MAY_DICT = ("decode_dict",)
 _Q1_ENTRIES = ("sort_permutation", "compact", "gather_columns",
-               "segment_aggregate")
+               "segment_aggregate") + _SCAN_ENTRIES
 _Q6_ENTRIES = _Q1_ENTRIES + ("join_probe_fast", "join_key_ids",
                              "join_expand")
 _SHUFFLE_ENTRIES = ("partition_ids_for_keys", "group_by_part")
@@ -780,15 +800,10 @@ def run_q1(torch, sf: float, warm: int) -> dict:
     cold = time.perf_counter() - t0
     launches = _read_counters(_Q1_ENTRIES, "q1")
     _check_rows(rows, want)
-    warm_s = []
-    for _ in range(warm):
-        t0 = time.perf_counter()
-        rows = df.collect()
-        torch.cuda.synchronize()
-        warm_s.append(time.perf_counter() - t0)
-        _check_rows(rows, want)
-    n = int(tpch_gen.table_row_counts(sf)["lineitem"])
     peak = torch.cuda.max_memory_allocated()
+    warm_s, peaks = _warm_runs(torch, "q1", df.collect, _check_rows, want,
+                               warm)
+    n = int(tpch_gen.table_row_counts(sf)["lineitem"])
     for r in rows:
         print(f"[q1] {r}")
     print(f"[q1] device budget {session.device_budget()} bytes "
@@ -796,8 +811,28 @@ def run_q1(torch, sf: float, warm: int) -> dict:
     print(f"[q1] SF{sf:g} lineitem_rows={n} cold_s={cold:.3f} "
           f"warm_s={[round(x, 3) for x in warm_s]} "
           f"rows_per_s_warm={n / min(warm_s) if warm_s else 0:.0f} "
-          f"peak_bytes={peak} launches={launches}", flush=True)
+          f"cold_peak_bytes={peak} warm_peak_bytes={peaks} "
+          f"launches={launches}", flush=True)
     return launches
+
+
+def _warm_runs(torch, label: str, collect, check, want, warm: int):
+    """``warm`` timed runs, each checked; (seconds, peak device bytes)
+    per run.  Fails if the peak grows from the first warm run to the
+    last."""
+    warm_s, peaks = [], []
+    for _ in range(warm):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows = collect()
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        check(rows, want)
+    if peaks and peaks[-1] > peaks[0]:
+        raise AssertionError(f"{label}: peak device memory grew over the "
+                             f"warm runs: {peaks}")
+    return warm_s, peaks
 
 
 # ---------------------------------------------------------------------------
@@ -931,22 +966,19 @@ def run_q6(torch, warm: int) -> dict:
     rows = q6(session, data_dir).collect()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    launches = _read_counters(entries, "q6", _OFF_Q6_PATH)
+    launches = _read_counters(entries, "q6", _OFF_Q6_PATH + _MAY_DICT)
     _check_q6(rows, want)
-    warm_s = []
-    for _ in range(warm):
-        t0 = time.perf_counter()
-        rows = q6(session, data_dir).collect()
-        torch.cuda.synchronize()
-        warm_s.append(time.perf_counter() - t0)
-        _check_q6(rows, want)
-    n = int(tpcds_gen.table_row_counts(sf)["store_sales"])
     peak = torch.cuda.max_memory_allocated()
+    warm_s, peaks = _warm_runs(torch, "q6",
+                               lambda: q6(session, data_dir).collect(),
+                               _check_q6, want, warm)
+    n = int(tpcds_gen.table_row_counts(sf)["store_sales"])
     print(f"[q6] {len(rows)} rows: {rows}")
     print(f"[q6] SF{sf:g} store_sales_rows={n} cold_s={cold:.3f} "
           f"warm_s={[round(x, 3) for x in warm_s]} "
           f"rows_per_s_warm={n / min(warm_s) if warm_s else 0:.0f} "
-          f"peak_bytes={peak} launches={launches}", flush=True)
+          f"cold_peak_bytes={peak} warm_peak_bytes={peaks} "
+          f"launches={launches}", flush=True)
     return launches
 
 
@@ -1261,7 +1293,8 @@ def run_exchange_paths(torch, warm: int) -> dict:
                              "adaptive reader over a hash exchange")
     paths["q6_default_aqe_on"] = _drive(
         torch, "q6 default layout, AQE on", lambda: q6(aqe_on, data_dir),
-        lambda r: _check_q6(r, want_q6), entries, warm, _OFF_Q6_PATH,
+        lambda r: _check_q6(r, want_q6), entries, warm,
+        _OFF_Q6_PATH + _MAY_DICT,
         zero=("partition_ids_for_keys", "group_by_part"))
     sizes = _map_side_bytes(torch, q6(aqe_on, data_dir))
     advisory = ADVISORY_PARTITION_BYTES.get(aqe_on.conf.settings)
@@ -1272,13 +1305,14 @@ def run_exchange_paths(torch, warm: int) -> dict:
           "coalescing)", flush=True)
     paths["q6_default_aqe_off"] = _drive(
         torch, "q6 default layout, AQE off", lambda: q6(aqe_off, data_dir),
-        lambda r: _check_q6(r, want_q6), entries, warm, _OFF_Q6_PATH)
+        lambda r: _check_q6(r, want_q6), entries, warm,
+        _OFF_Q6_PATH + _MAY_DICT)
     top_entries = ("sort_permutation", "gather_columns",
-                   "segment_aggregate") + _SHUFFLE_ENTRIES
+                   "segment_aggregate") + _SHUFFLE_ENTRIES + _SCAN_ENTRIES
     paths["top_customers"] = _drive(
         torch, "top_customers (repartition)",
         lambda: top_customers(aqe_on, data_dir), check_top, top_entries,
-        warm, ("murmur3_columns",))
+        warm, ("murmur3_columns",) + _MAY_DICT)
     maps = _scan_batches(data_dir, "store_sales", ["ss_customer_sk"])
     got = (paths["top_customers"]["partition_ids_for_keys"][
         "partition_ids_for_keys"],
@@ -1787,12 +1821,12 @@ def run_window_paths(torch, warm: int) -> dict:
         torch, "q51", lambda: q51(session, data_dir),
         lambda r: _check_window_rows("q51", r, want51),
         _Q6_ENTRIES + _SHUFFLE_ENTRIES + _WINDOW_ENTRIES, warm,
-        ("murmur3_columns",))
+        ("murmur3_columns",) + _MAY_DICT)
     paths["q63"] = _drive(
         torch, "q63", lambda: q63(session, data_dir),
         lambda r: _check_window_rows("q63", r, want63),
         _Q6_ENTRIES + _SHUFFLE_ENTRIES + _WINDOW_ENTRIES, warm,
-        ("matched_build_rows", "murmur3_columns", "key_ids"),
+        ("matched_build_rows", "murmur3_columns", "key_ids") + _MAY_DICT,
         zero=("partition_ids_for_keys", "group_by_part"))
     advisory = ADVISORY_PARTITION_BYTES.get(session.conf.settings)
     for label, q in (("q51", q51), ("q63", q63)):
@@ -2242,7 +2276,8 @@ def run_string_phase(torch, dev, sf: float, warm: int):
         lambda r: _check_keyed_doubles("q15", r, want15, 1),
         _Q6_ENTRIES + _SHUFFLE_ENTRIES + _STRING_ENTRIES, warm,
         ("matched_build_rows", "murmur3_columns", "key_ids",
-         "string_match"), zero=("partition_ids_for_keys", "group_by_part"))
+         "string_match") + _MAY_DICT,
+        zero=("partition_ids_for_keys", "group_by_part"))
     advisory = ADVISORY_PARTITION_BYTES.get(session.conf.settings)
     for desc, sizes in _map_side_bytes(torch, q15(session, tpcds_dir)):
         print(f"[q15 exchange] {desc}: map side {sum(sizes.values())} "
@@ -2252,12 +2287,13 @@ def run_string_phase(torch, dev, sf: float, warm: int):
         torch, "q14", lambda: q14(session, tpch_dir),
         lambda r: _check_keyed_doubles("q14", r, want14, 0),
         _Q6_ENTRIES + _STRING_ENTRIES, warm,
-        ("segment_flags", "key_ids", "matched_build_rows", "substring"))
+        ("segment_flags", "key_ids", "matched_build_rows", "substring")
+        + _MAY_DICT)
     paths["q22"] = _drive(
         torch, "q22", lambda: q22(session, tpch_dir),
         lambda r: _check_keyed_doubles("q22", r, want22, 2),
         _Q6_ENTRIES + _STRING_ENTRIES, warm,
-        ("key_ids", "matched_build_rows", "string_match"))
+        ("key_ids", "matched_build_rows", "string_match") + _MAY_DICT)
     if "JoinExec[anti" not in q22(session, tpch_dir).explain():
         raise AssertionError("q22 planned no anti join")
     return entries, paths
@@ -2680,7 +2716,7 @@ def run_concat_case_phase(torch, dev, warm: int):
     paths["q24"] = _drive(
         torch, "q24", lambda: q24(session, tpcds_dir),
         lambda r: _check_keyed_doubles("q24", r, want24, 3), every, warm,
-        ("matched_build_rows",), zero=not_run + ("concat",))
+        ("matched_build_rows",) + _MAY_DICT, zero=not_run + ("concat",))
 
     def check84(rows):
         if rows:
@@ -2691,7 +2727,7 @@ def run_concat_case_phase(torch, dev, warm: int):
     paths["q84"] = _drive(
         torch, "q84", lambda: q84(session, tpcds_dir), check84, every, warm,
         ("gather_columns", "segment_aggregate", "segment_flags",
-         "join_indices_from_probe", "matched_build_rows"),
+         "join_indices_from_probe", "matched_build_rows") + _MAY_DICT,
         zero=not_run + ("key_ids", "concat", "case_map"))
 
     def check84a(rows):
@@ -2702,8 +2738,8 @@ def run_concat_case_phase(torch, dev, warm: int):
     paths["q84_all_cities"] = _drive(
         torch, "q84_all_cities", lambda: q84a(session, tpcds_dir), check84a,
         every, warm,
-        ("segment_aggregate", "segment_flags", "matched_build_rows"),
-        zero=not_run + ("key_ids", "case_map"))
+        ("segment_aggregate", "segment_flags", "matched_build_rows")
+        + _MAY_DICT, zero=not_run + ("key_ids", "case_map"))
     return entries, paths
 
 
@@ -3102,7 +3138,7 @@ def run_mortgage_phase(torch, dev, warm: int):
     every = _Q6_ENTRIES + _SHUFFLE_ENTRIES + _STRING_ENTRIES + \
         _CASE_ENTRIES + _MORTGAGE_ENTRIES
     base = ("sort_permutation", "gather_columns", "segment_aggregate",
-            "segment_flags")
+            "segment_flags", "decode_fixed")
     strings = ("substring", "string_match", "concat", "case_map")
     paths = {}
     # one holistic aggregate: no exchange, no join, one K4p launch for the
@@ -3114,14 +3150,15 @@ def run_mortgage_phase(torch, dev, warm: int):
             session, data_dir),
         lambda r: near.append(_check_percentiles(r, want["percentiles"],
                                                  want["avg"])),
-        every, warm, (), _all_but(every, need))
+        every, warm, _MAY_DICT, _all_but(every, need + _MAY_DICT))
     print(f"[percentiles] averages within 1e-12 of a rounding tie: "
           f"{near[0]}", flush=True)
     # the hash on both tables, a rank-path left join on it; the exchanges'
     # map sides are coalesced (their K9/K10 and K2 may stay at 0)
     need = base + ("murmur3_columns", "hex_string", "key_ids",
                    "join_search", "join_indices_from_probe")
-    maybe = ("partition_ids_for_keys", "group_by_part", "compact")
+    maybe = ("partition_ids_for_keys", "group_by_part", "compact") + \
+        _MAY_DICT
 
     def check_join(rows):
         _check_keyed_doubles("agg_join", [(r[0], r[2]) + r[1:2] + r[3:]
@@ -3137,7 +3174,7 @@ def run_mortgage_phase(torch, dev, warm: int):
     # loan) partials; no hash expression, no strings
     need = base + ("join_search", "build_prepare_fast",
                    "join_indices_from_probe", "partition_ids_for_keys",
-                   "group_by_part")
+                   "group_by_part", "decode_dict")
     maybe = ("compact",)
 
     def check_simple(rows):
@@ -3154,6 +3191,287 @@ def run_mortgage_phase(torch, dev, warm: int):
             session, data_dir), check_simple, every, warm, maybe,
         _all_but(every, need + maybe))
     return entries, paths
+
+
+# ---------------------------------------------------------------------------
+# K8: the scan's wire codec (K8a fixed-width decode, K8b dictionary strings)
+# ---------------------------------------------------------------------------
+
+#: rows of each K8 stress case
+CODEC_STRESS_ROWS = 1 << 24
+_BUCKETS = (1, 2, 4, 8, 12, 16, 20, 24, 28, 32)
+#: validity of a stress case: all valid, random with every word's first
+#: and last row and every 7th word null, or all null
+_K8_PATTERNS = ("none", "edges", "all")
+
+
+def _k8a_stress_cases() -> list:
+    """(output dtype, bits, FOR base, factor) over every bit bucket and
+    output type, with bases near the int64 limits, the integral divisors
+    and both float scales."""
+    cases = []
+    for bits in _BUCKETS:
+        cases += [("int64", bits, -2 ** 63, 1),
+                  ("int64", bits, 2 ** 63 - 2 ** bits, 1),
+                  ("int64", bits, -(2 ** 40), 1_000_000),
+                  ("float64", bits, -(2 ** 40), 0.01),
+                  ("float64", bits, 2 ** 52 - 2 ** bits, 1.0)]
+        if bits >= 16:
+            cases.append(("int64", bits, 2 ** 45, 1_000))
+        if bits <= 28:
+            cases.append(("int32", bits, -2 ** 31, 1))
+        if bits <= 12:
+            cases.append(("int16", bits, -2 ** 15, 1))
+        if bits <= 4:
+            cases.append(("int8", bits, -128, 1))
+    cases.append(("bool", 1, 0, 1))
+    return cases
+
+
+def _k8_words(torch, gen, n: int, bits: int, dev):
+    from spark_rapids_tpu_torch.columnar.wirecodec import packed_words
+    return torch.randint(-2 ** 31, 2 ** 31, (packed_words(n, bits),),
+                         generator=gen, dtype=torch.int32, device=dev)
+
+
+def _k8_validity(torch, gen, n: int, pattern: str, dev):
+    if pattern == "none":
+        return None
+    v = _k8_words(torch, gen, n, 1, dev)
+    if pattern == "all":
+        return torch.zeros_like(v)
+    v &= 0x7FFFFFFE
+    v[::7] = 0
+    return v
+
+
+def _k8_same(torch, got, want, what: str) -> None:
+    """Every leaf equal, doubles bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} leaves vs {len(want)}")
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{what}: {a.dtype}{tuple(a.shape)} vs "
+                                 f"plain {b.dtype}{tuple(b.shape)}")
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: differs from the plain version")
+
+
+def check_codec_stress(torch, dev) -> None:
+    """K8a and K8b exactly against their plain versions on random word
+    streams of 2^24 rows a case (every stream of words is a valid one)."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n = CODEC_STRESS_ROWS
+    dtypes = {"int8": torch.int8, "int16": torch.int16,
+              "int32": torch.int32, "int64": torch.int64,
+              "bool": torch.bool, "float64": torch.float64}
+    cases = _k8a_stress_cases()
+    for i, (name, bits, base, factor) in enumerate(cases):
+        pattern = _K8_PATTERNS[i % 3]
+        words = _k8_words(torch, gen, n, bits, dev)
+        v = _k8_validity(torch, gen, n, pattern, dev)
+        b = torch.tensor([base], dtype=torch.int64, device=dev)
+        args = (words, v, n, bits, b, factor, dtypes[name])
+        _k8_same(torch, WC.decode_fixed(*args), WC.decode_fixed_plain(*args),
+                 f"K8a stress {name} {bits} bits base {base} factor "
+                 f"{factor} validity {pattern}")
+    for pattern in ("edges", "all"):
+        v = _k8_validity(torch, gen, n, pattern, dev)
+        _k8_same(torch, WC.decode_fixed(None, v, n),
+                 WC.decode_fixed_plain(None, v, n),
+                 f"K8a stress validity alone {pattern}")
+    del words, v
+    widths = (4, 8, 16, 32, 64, 128, 256)
+    for w in widths:
+        for j, bits in enumerate((2, 8, 12)):
+            base = 3
+            k = base + (1 << bits)
+            lens = torch.randint(0, w + 1, (k,), generator=gen,
+                                 dtype=torch.int32, device=dev)
+            mat = torch.randint(0, 256, (k, w), generator=gen,
+                                dtype=torch.int32, device=dev)
+            mat = torch.where(torch.arange(w, device=dev)[None, :]
+                              < lens[:, None], mat, 0).to(torch.uint8)
+            words = _k8_words(torch, gen, n, bits, dev)
+            pattern = _K8_PATTERNS[j]
+            v = _k8_validity(torch, gen, n, pattern, dev)
+            b = torch.tensor([base], dtype=torch.int64, device=dev)
+            args = (words, v, n, bits, b, mat, lens)
+            got = WC.decode_dict(*args)
+            _k8_same(torch, got, WC.decode_dict_plain(*args),
+                     f"K8b stress W {w} {bits} bits validity {pattern}")
+            del got
+        torch.cuda.empty_cache()
+    print(f"[K8 stress] K8a: {len(cases)} cases of {n} rows (every bucket "
+          f"{_BUCKETS}, int8/16/32/64, bool, float64 at scales 0.01 and "
+          f"1.0, bases near the int64 limits, divisors 10^6 and 10^3; "
+          f"validity {_K8_PATTERNS}) and the validity alone; K8b: W "
+          f"{widths} x 2/8/12-bit indices; all equal to the plain "
+          "versions, doubles bit for bit", flush=True)
+
+
+def _k8_calls(packed, buf, i: int):
+    """(counter, kernel call, plain call, bytes moved) of column i's
+    decode; None when the column is raw and all valid (no kernel)."""
+    spec = packed.col_specs[i]
+    n = packed.num_rows
+    vdesc = spec[2]
+    vb = 0 if vdesc[0] == "av" else packed.layout[vdesc[1]][1]
+    if spec[0] == "dict":
+        k, w = packed.layout[spec[3]][3]
+        nbytes = packed.layout[spec[1][1]][1] + vb + k * (w + 4) + \
+            n * (w + 4 + 1)
+        name = "decode_dict"
+    else:
+        desc = spec[1] if spec[0] == "fixed" else spec[3]
+        if desc[0] == "raw" and vdesc[0] == "av":
+            return None
+        if desc[0] == "raw":
+            nbytes = vb + n
+        else:
+            nbytes = packed.layout[desc[1]][1] + vb + \
+                n * (np.dtype(desc[3]).itemsize + 1)
+        name = "decode_fixed"
+    return (name, lambda: packed.decode_column(buf, i),
+            lambda: packed.decode_column(buf, i, plain=True), nbytes)
+
+
+def _describe(packed) -> list:
+    out = []
+    for f, spec in zip(packed.schema, packed.col_specs):
+        d = spec[1] if spec[0] != "var" else spec[3]
+        enc = d[0] if d[0] == "raw" else f"{d[0]} {d[2]}" + (
+            f" x{d[5]}" if d[5] != 1 else "")
+        out.append(f"{f.name}: {spec[0]} {enc}"
+                   + ("" if spec[2][0] == "av" else " +vbits"))
+    return out
+
+
+def _check_codec_batch(torch, dev, label: str, rb) -> dict:
+    """One scan batch as the scan encodes it: K8 against its plain version
+    on the card and against the raw upload, exactly; each kernel's time
+    summed over the batch's columns, the copy of the encoded and of the
+    raw buffer, and the host's encode."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    t0 = time.perf_counter()
+    packed = ColumnBatch.stage_arrow(rb, dev)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = ColumnBatch.stage_arrow(rb, dev, codec=False)
+    raw_s = time.perf_counter() - t0
+    buf = packed.buf.to(dev, non_blocking=True)
+    got = _leaves(packed.decode(buf))
+    _k8_same(torch, got, _leaves(packed.decode(buf, plain=True)),
+             f"K8 at {label}")
+    _k8_same(torch, got, _leaves(raw.to(dev).columns),
+             f"K8 at {label} against the raw upload")
+    del got
+    out = {"decode_fixed": [0.0, 0.0, 0, 0], "decode_dict": [0.0, 0.0, 0, 0],
+           "library_dict_ms": 0.0}
+    for i in range(len(packed.col_specs)):
+        calls = _k8_calls(packed, buf, i)
+        if calls is None:
+            continue
+        name, fn, plain, nbytes = calls
+        acc = out[name]
+        acc[0] += _time_ms(torch, fn, reps=20)
+        acc[1] += _time_ms(torch, plain)
+        acc[2] += nbytes
+        acc[3] += 1
+        if name == "decode_dict":
+            spec = packed.col_specs[i]
+            idesc, vdesc = spec[1], spec[2]
+            vw = None if vdesc[0] == "av" else packed.leaf(buf, vdesc[1])
+            params = packed.leaf(buf, packed.params)
+            idx = packed.leaf(buf, idesc[1]).long() if idesc[0] == "raw" \
+                else WC.decode_fixed(packed.leaf(buf, idesc[1]), vw,
+                                     packed.num_rows, idesc[2],
+                                     params[idesc[4]:idesc[4] + 1], 1,
+                                     torch.int64)[0]
+            mat, lens = packed.leaf(buf, spec[3]), packed.leaf(buf, spec[4])
+            out["library_dict_ms"] += _time_ms(
+                torch, lambda: (mat.index_select(0, idx),
+                                lens.index_select(0, idx)), reps=20)
+    copy_ms = _time_ms(torch, lambda: packed.buf.to(dev, non_blocking=True),
+                       reps=10)
+    raw_copy_ms = _time_ms(torch, lambda: raw.buf.to(dev,
+                                                     non_blocking=True),
+                           reps=10)
+    print(f"[K8 {label}] {packed.num_rows} rows: {'; '.join(_describe(packed))}"
+          f". Sent {packed.nbytes} bytes encoded against {raw.nbytes} raw "
+          f"(decoded leaves {packed.raw_bytes}); copy to the card "
+          f"{copy_ms:.4f} ms encoded, {raw_copy_ms:.4f} ms raw; host "
+          f"encode {enc_s:.3f} s, raw staging {raw_s:.3f} s; K8a "
+          f"{out['decode_fixed'][3]} columns {out['decode_fixed'][0]:.4f} ms "
+          f"(plain {out['decode_fixed'][1]:.4f}, bound "
+          f"{_bound_ms(out['decode_fixed'][2]):.4f}); K8b "
+          f"{out['decode_dict'][3]} columns {out['decode_dict'][0]:.4f} ms "
+          f"(plain {out['decode_dict'][1]:.4f}, bound "
+          f"{_bound_ms(out['decode_dict'][2]):.4f}, index_select "
+          f"{out['library_dict_ms']:.4f}); equal to the plain versions and "
+          "to the raw upload", flush=True)
+    return out
+
+
+def run_codec_phase(torch, dev, sf: float) -> dict:
+    """K8 on its stress rows, then on the first scan batch of q1's
+    lineitem, of q6's store_sales in the default layout and of
+    simple_agg's performance file, as their scans read and encode them;
+    returns {kernel: entry} (K8a timed at the q1 batch, K8b at the
+    mortgage batch)."""
+    from spark_rapids_tpu_torch.bench import mortgage as M
+    from spark_rapids_tpu_torch.bench.profile_query import fact_scan
+    from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    from spark_rapids_tpu_torch.bench.tpch_queries import q1
+    from spark_rapids_tpu_torch.io.scan import _effective_batch_rows
+    check_codec_stress(torch, dev)
+    torch.cuda.empty_cache()
+    session = _cuda_session()
+    settings = session.conf.settings
+    bench = os.path.join(ROOT, ".bench_data")
+    shapes = {
+        "q1 lineitem": (q1, os.path.join(bench, f"tpch_sf{sf:g}_seed7"),
+                        "lineitem"),
+        "q6 store_sales": (TPCDS_QUERIES["q6"][0], os.path.join(
+            bench, f"tpcds_sf{Q6_SF:g}_seed42_default"), "store_sales"),
+        "simple_agg performance": (
+            M.MORTGAGE_QUERIES["simple_agg"], os.path.join(
+                bench, f"mortgage_sf{MORTGAGE_SF}_seed7"),
+            "Performance_2003Q1"),
+    }
+    res = {}
+    for label, (query, data_dir, table) in shapes.items():
+        scan = fact_scan(query(session, data_dir)._prepared(), table)
+        rows = _effective_batch_rows(scan.output_schema, settings)
+        rb = next(iter(scan._read_file(sorted(scan._files)[0], rows)))
+        res[label] = _check_codec_batch(torch, dev, label, rb)
+        del rb
+        torch.cuda.empty_cache()
+    a = res["q1 lineitem"]["decode_fixed"]
+    b = res["simple_agg performance"]["decode_dict"]
+    if not a[3] or not b[3]:
+        raise AssertionError("the q1 batch decoded no K8a column or the "
+                             "mortgage batch no K8b column")
+    return {
+        "decode_fixed": dict(
+            name="decode_fixed", route="cuda",
+            source="spark_rapids_tpu_torch/csrc/wirecodec.cu",
+            replaces="spark_rapids_tpu/columnar/wirecodec.py:104",
+            max_abs_err=0.0, ms=a[0], plain_ms=a[1],
+            bound_ms=_bound_ms(a[2]), bound_by="bytes", library_ms=None),
+        "decode_dict": dict(
+            name="decode_dict", route="cuda",
+            source="spark_rapids_tpu_torch/csrc/wirecodec.cu",
+            replaces="spark_rapids_tpu/columnar/batch.py:263",
+            max_abs_err=0.0, ms=b[0], plain_ms=b[1],
+            bound_ms=_bound_ms(b[2]), bound_by="bytes",
+            library_ms=res["simple_agg performance"]["library_dict_ms"])}
 
 
 def main(argv=None) -> int:
@@ -3227,6 +3545,8 @@ def main(argv=None) -> int:
                                                           args.warm)
     entries.update(mortgage_entries)
     paths.update(mortgage_paths)
+    torch.cuda.empty_cache()
+    entries.update(run_codec_phase(torch, dev, args.sf))
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

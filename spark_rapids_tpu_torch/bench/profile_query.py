@@ -10,14 +10,24 @@ thousand loans, 1000 by default, seed 7), reused when present, then:
 * times a cold and a warm run (host clock, ending in a device
   synchronise), each building the query -- so q6's and q24's scalar
   subqueries, collected while the query is built, are inside the time;
-* times the largest parquet scan alone (host decode + pinned upload),
-  draining the planned tree's scan of the fact table (lineitem for q1
-  and q14, orders for q22, catalog_sales for q15, store_returns for q84
-  and q84_all_cities, store_sales for the other TPC-DS queries, the
-  first quarter's performance file for the mortgage jobs);
+* records the warm run's peak device memory;
+* times the largest scan alone (host decode and encode, one copy and the
+  K8 decode per batch), draining the planned tree's scan of the fact
+  table (lineitem for q1 and q14, orders for q22, catalog_sales for q15,
+  store_returns for q84 and q84_all_cities, store_sales for the other
+  TPC-DS queries, the first quarter's performance file for the mortgage
+  jobs), and splits it: pyarrow's decode and the encode seconds on the
+  prefetch thread, the bytes sent against the raw leaves', and, from a
+  second drain under ``torch.profiler``, the device time of the copies
+  to the card and of K8a and K8b;
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
-  the run and the kernels that take most of it.
+  the run, the kernels that take most of it, and K8's and the copies'
+  share.
+
+The wire codec follows ``SRT_WIRE_CODEC`` (on unless ``0``), so an A/B of
+the codec runs this script with and without ``SRT_WIRE_CODEC=0``, in
+turns, in one call.
 
 ``--layout onefile`` (q6's default here) writes one parquet file per
 table, so q6 plans no exchange; ``--layout default`` writes the
@@ -38,6 +48,8 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
     python -m spark_rapids_tpu_torch.bench.profile_query --query q22
     python -m spark_rapids_tpu_torch.bench.profile_query --query q24
     python -m spark_rapids_tpu_torch.bench.profile_query --query percentiles
+    SRT_WIRE_CODEC=0 python -m spark_rapids_tpu_torch.bench.profile_query \
+        --query q1
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ from spark_rapids_tpu_torch.bench import mortgage, tpcds_gen, tpch_gen
 from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
                                                         top_customers)
 from spark_rapids_tpu_torch.bench.tpch_queries import TPCH_QUERIES
+from spark_rapids_tpu_torch.columnar.batch import _CODEC_DEFAULT
 from spark_rapids_tpu_torch.exec.core import ExecCtx
 from spark_rapids_tpu_torch.io import FileScanExec
 
@@ -71,7 +84,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _fact_scan(node, table: str):
+def fact_scan(node, table: str):
     """The plan's scan of ``table`` (the first one, depth first)."""
     stack = [node]
     while stack:
@@ -91,6 +104,32 @@ def _timed(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def _device_ops(fn):
+    """[(device us, name, calls)] of every device-side event (kernels,
+    copies, memsets) of one call of ``fn`` under torch.profiler, and the
+    call's wall seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # a CPU op's own device-time column repeats its kernels' time
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows, wall
+
+
+def _ms_of(rows, *needles) -> float:
+    return sum(us for us, k, _c in rows if any(x in k for x in needles)) \
+        / 1e3
 
 
 def main(argv=None) -> int:
@@ -149,40 +188,38 @@ def main(argv=None) -> int:
         return query(session, data_dir).collect()
 
     cold = _timed(run)
+    torch.cuda.reset_peak_memory_stats()
     warm = _timed(run)
+    peak = torch.cuda.max_memory_allocated()
     ctx = ExecCtx(device=session.device, conf=session.conf)
-    scan = _fact_scan(query(session, data_dir)._prepared(), fact[0])
+    scan = fact_scan(query(session, data_dir)._prepared(), fact[0])
     # the batches are held on the card until the scan ends
     scanned = []
+    scan.stats.reset()
     scan_s = _timed(lambda: scanned.extend(scan.execute(ctx)))
     scan_rows = sum(b.num_rows for b in scanned)
+    split = scan.stats.as_dict()
     del scanned
+    scan_ops, _w = _device_ops(lambda: [None for _b in scan.execute(ctx)])
+    split.update(copy_to_card_ms=_ms_of(scan_ops, "HtoD"),
+                 k8a_ms=_ms_of(scan_ops, "decode_fixed_kernel"),
+                 k8b_ms=_ms_of(scan_ops, "decode_dict_kernel"))
 
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    prof_wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies, memsets): a CPU op's
-        # own device-time column repeats its kernels' time
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total, e.key, e.count))
-    rows.sort(reverse=True)
+    rows, prof_wall = _device_ops(run)
     device_us = sum(us for us, _k, _c in rows)
     out = {
         "card": torch.cuda.get_device_name(0),
         "query": args.query, "sf": args.sf, "layout": args.layout,
-        "conf": args.conf,
+        "conf": args.conf, "wire_codec": _CODEC_DEFAULT,
         f"{fact[0]}_rows": fact[1], "scan_rows": scan_rows,
-        "cold_s": cold, "warm_s": warm, "scan_only_s": scan_s,
+        "cold_s": cold, "warm_s": warm, "warm_peak_bytes": peak,
+        "scan_only_s": scan_s, "scan_split": split,
         "profiled_wall_s": prof_wall,
         "device_busy_s": device_us / 1e6 if rows else None,
         "device_busy_share": (device_us / 1e6 / prof_wall) if rows else None,
+        "copy_to_card_ms": _ms_of(rows, "HtoD"),
+        "k8a_ms": _ms_of(rows, "decode_fixed_kernel"),
+        "k8b_ms": _ms_of(rows, "decode_dict_kernel"),
         "top_device_ops": [{"name": k[:80], "calls": c, "ms": us / 1e3}
                            for us, k, c in rows[:args.top]],
     }

@@ -8,46 +8,238 @@ runs eagerly, so the port drops the padding and pays instead one
 device-to-host sync where a row count depends on the data (a filter's
 output count, a group-by's group count) to size the output tensors.
 
-Host -> device: :meth:`ColumnBatch.from_arrow` decodes each Arrow column to
-its raw numpy leaves (data, validity, lengths), stages them in pinned host
-memory and copies them to the card asynchronously.  The reference's wire
-codec (``_PackBuilder``, batch.py:63; kernel family K8) packs and bit-packs
-leaves to save transfers over a TPU tunnel; the port uploads raw leaves
-until a later slice ports the codec.
+Host -> device: :meth:`ColumnBatch.stage_arrow` turns an Arrow record
+batch into one host buffer (:class:`_PackBuilder`, the reference's
+``_PackBuilder``, batch.py:63-209): every leaf of the batch -- wire-codec
+encoded words (``columnar/wirecodec.py``), raw leaves, dictionary rows and
+lengths, the int64 FOR bases -- at 16-byte aligned offsets, pinned for
+CUDA.  :meth:`PackedBatch.to` sends it in one asynchronous copy and
+decodes it: raw leaves become views into the device buffer, encoded ones
+go through the K8 kernels.  The codec is on by default for batches of
+more than 1024 rows, as in the reference (its capacity of at least 2048,
+batch.py:36-44); ``SRT_WIRE_CODEC=0`` turns it off (the reference's own
+switch) and ``codec=`` overrides both per call.  The row count stays a
+host int and is not shipped.
 """
 from __future__ import annotations
 
 import datetime as _dt
+import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import wirecodec as wc
 from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     round_string_width,
                                                     torch_dtype)
 
-__all__ = ["ColumnBatch", "strings_to_matrix", "stage", "upload"]
+__all__ = ["ColumnBatch", "PackedBatch", "strings_to_matrix", "upload"]
+
+#: wire-codec default (overridable per call; SRT_WIRE_CODEC=0 turns it off
+#: for every batch, as in the reference, batch.py:34)
+_CODEC_DEFAULT = os.environ.get("SRT_WIRE_CODEC", "1") != "0"
+#: the codec runs for batches of more than this many rows: the reference's
+#: ``round_capacity(n) >= 2048`` (batch.py:36-44)
+_CODEC_MIN_ROWS = 1024
+#: byte alignment of every leaf in a packed buffer (16-byte vector loads)
+_ALIGN = 16
+
+_NP_TO_TORCH = {"|b1": torch.bool, "|i1": torch.int8, "|u1": torch.uint8,
+                "<i2": torch.int16, "<i4": torch.int32, "<u4": torch.int32,
+                "<i8": torch.int64, "<f4": torch.float32,
+                "<f8": torch.float64}
 
 
-def stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host numpy leaf as a host tensor ready for ``device``: a pinned
-    copy for CUDA (so the copy to the card can be asynchronous), an owned
-    copy otherwise."""
-    arr = np.ascontiguousarray(arr)
-    if device.type != "cuda":
-        return torch.from_numpy(arr.copy())
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    return torch.from_numpy(arr).pin_memory()
+def _codec_auto(n: int, codec: bool | None) -> bool:
+    if codec is not None:
+        return codec
+    return _CODEC_DEFAULT and n > _CODEC_MIN_ROWS
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host numpy leaf on ``device``: through pinned memory and an
     asynchronous copy on the current stream for CUDA, as an owned CPU
     tensor otherwise."""
-    return stage(arr, device).to(device, non_blocking=True)
+    arr = np.ascontiguousarray(arr)
+    if device.type != "cuda":
+        return torch.from_numpy(arr.copy())
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).pin_memory().to(device, non_blocking=True)
+
+
+class _PackBuilder:
+    """The leaves of one batch of ``n`` rows, raw or wire-codec encoded,
+    laid out in one host buffer (reference batch.py:63-209).
+
+    Column specs follow the reference's: ``("fixed", data_desc,
+    validity_desc)``, ``("var", matrix_desc, validity_desc,
+    lengths_desc)`` and ``("dict", index_desc, validity_desc,
+    matrix_leaf, lengths_leaf)``; a validity desc is ``("av",)`` (all
+    valid: nothing ships) or ``("vbits", leaf)`` (1 bit a row), with the
+    codec on or off, as in the reference."""
+
+    def __init__(self, n: int, codec: bool):
+        self.n = n
+        self.codec = codec
+        self.leaves: list[np.ndarray] = []
+        self.i64_params: list[int] = []
+        self.col_specs: list[tuple] = []
+
+    def _add_leaf(self, arr: np.ndarray) -> int:
+        self.leaves.append(np.ascontiguousarray(arr))
+        return len(self.leaves) - 1
+
+    def _add_i64(self, v: int) -> int:
+        self.i64_params.append(int(v))
+        return len(self.i64_params) - 1
+
+    def _val_desc(self, validity: np.ndarray | None) -> tuple:
+        if validity is None or bool(validity.all()):
+            return ("av",)
+        return ("vbits", self._add_leaf(wc.pack_bits_host(
+            validity.astype(np.uint8), 1)))
+
+    def add_fixed(self, data: np.ndarray, validity: np.ndarray | None):
+        """A fixed-width column (null slots already zero)."""
+        if self.codec:
+            desc = wc.encode_fixed(data, validity, self._add_leaf,
+                                   self._add_i64)
+        else:
+            desc = ("raw", self._add_leaf(data))
+        self.col_specs.append(("fixed", desc, self._val_desc(validity)))
+
+    def add_var(self, matrix: np.ndarray, lengths: np.ndarray,
+                validity: np.ndarray | None):
+        """A string column as its [n, W] byte matrix and lengths (null
+        rows already zero)."""
+        mdesc = ("raw", self._add_leaf(matrix))
+        if self.codec:
+            ldesc = wc.encode_lengths(lengths, matrix.shape[1],
+                                      self._add_leaf, self._add_i64)
+        else:
+            ldesc = ("raw", self._add_leaf(lengths))
+        self.col_specs.append(("var", mdesc, self._val_desc(validity),
+                               ldesc))
+
+    def add_dict_string(self, indices: np.ndarray, dict_matrix: np.ndarray,
+                        dict_lengths: np.ndarray,
+                        validity: np.ndarray | None):
+        """A dictionary-encoded string column: bit-packed indices plus the
+        dictionary's byte matrix and lengths."""
+        if validity is not None and not validity.all():
+            indices = np.where(validity, indices, 0)
+        idesc = wc.encode_fixed(indices, validity, self._add_leaf,
+                                self._add_i64)
+        self.col_specs.append(("dict", idesc, self._val_desc(validity),
+                               self._add_leaf(dict_matrix),
+                               self._add_leaf(dict_lengths)))
+
+    def build(self, schema: T.Schema, device: torch.device,
+              raw_bytes: int) -> "PackedBatch":
+        """Lay every leaf and the FOR bases out in one host buffer, pinned
+        when ``device`` is a CUDA device."""
+        params = self._add_leaf(np.asarray(self.i64_params, np.int64))
+        layout, off = [], 0
+        for a in self.leaves:
+            layout.append((off, a.nbytes, a.dtype.str, a.shape))
+            off += -(-a.nbytes // _ALIGN) * _ALIGN
+        buf = torch.empty(max(off, _ALIGN), dtype=torch.uint8,
+                          pin_memory=device.type == "cuda")
+        host = buf.numpy()
+        for (o, nb, _d, _s), a in zip(layout, self.leaves):
+            host[o:o + nb] = a.reshape(-1).view(np.uint8)
+        return PackedBatch(buf, layout, tuple(self.col_specs), params,
+                           self.n, schema, raw_bytes)
+
+
+class PackedBatch:
+    """A batch staged on the host as one buffer (see :class:`_PackBuilder`);
+    :meth:`to` copies it to a device and decodes it there.
+
+    ``nbytes`` is the size of the buffer sent; ``raw_bytes`` the bytes of
+    the decoded leaves (what the batch would send raw, unpadded)."""
+
+    __slots__ = ("buf", "layout", "col_specs", "params", "num_rows",
+                 "schema", "raw_bytes")
+
+    def __init__(self, buf, layout, col_specs, params, num_rows, schema,
+                 raw_bytes):
+        self.buf = buf
+        self.layout = layout
+        self.col_specs = col_specs
+        self.params = params
+        self.num_rows = num_rows
+        self.schema = schema
+        self.raw_bytes = raw_bytes
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.numel()
+
+    def to(self, device) -> "ColumnBatch":
+        """One copy of the buffer to ``device`` (none for the CPU), then
+        the decode: views for raw leaves, K8 for encoded ones."""
+        device = torch.device(device)
+        buf = self.buf.to(device, non_blocking=True)
+        return ColumnBatch(self.decode(buf), self.num_rows, self.schema,
+                           device)
+
+    def leaf(self, buf: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf ``i`` as a view into ``buf`` (uint32 words as int32)."""
+        off, nb, dt, shape = self.layout[i]
+        return buf[off:off + nb].view(_NP_TO_TORCH[dt]).view(shape)
+
+    def decode(self, buf: torch.Tensor, plain: bool = False) -> list:
+        """The batch's columns from its buffer on a device; ``plain`` runs
+        the K8 kernels' plain versions on any device (to compare them)."""
+        return [self.decode_column(buf, i, plain)
+                for i in range(len(self.col_specs))]
+
+    def decode_column(self, buf: torch.Tensor, i: int,
+                      plain: bool = False) -> DeviceColumn:
+        """Column ``i`` from the buffer: K8a for a bit-packed data,
+        lengths or validity stream, K8b for a dictionary string column,
+        views of raw leaves; an all-valid raw column decodes nothing."""
+        n = self.num_rows
+        params = self.leaf(buf, self.params)
+        dfix = wc.decode_fixed_plain if plain else wc.decode_fixed
+        ddict = wc.decode_dict_plain if plain else wc.decode_dict
+        spec, dtype = self.col_specs[i], self.schema.fields[i].data_type
+        kind, vdesc = spec[0], spec[2]
+        vwords = None if vdesc[0] == "av" else self.leaf(buf, vdesc[1])
+
+        def fixed(desc):
+            """(data, validity) of a data or lengths desc."""
+            if desc[0] == "raw":
+                data = self.leaf(buf, desc[1])
+                if vwords is None:
+                    return data, torch.ones(n, dtype=torch.bool,
+                                            device=buf.device)
+                return data, dfix(None, vwords, n)[1]
+            _kind, li, bits, dt, p, factor = desc
+            return dfix(self.leaf(buf, li), vwords, n, bits,
+                        params[p:p + 1], factor, _NP_TO_TORCH[dt])
+
+        if kind == "fixed":
+            return DeviceColumn(*fixed(spec[1]), dtype)
+        if kind == "var":
+            lengths, valid = fixed(spec[3])
+            return DeviceColumn(self.leaf(buf, spec[1][1]), valid, dtype,
+                                lengths)
+        idesc = spec[1]
+        if idesc[0] == "raw":  # int32 indices: a 32-bit stream, base 0
+            words, bits, b = self.leaf(buf, idesc[1]), 32, None
+        else:
+            words, bits, b = (self.leaf(buf, idesc[1]), idesc[2],
+                              params[idesc[4]:idesc[4] + 1])
+        data, lengths, valid = ddict(words, vwords, n, bits, b,
+                                     self.leaf(buf, spec[3]),
+                                     self.leaf(buf, spec[4]))
+        return DeviceColumn(data, valid, dtype, lengths)
 
 
 class ColumnBatch:
@@ -74,23 +266,25 @@ class ColumnBatch:
     # construction
     # ------------------------------------------------------------------
     @staticmethod
-    def from_arrow(rb, device) -> "ColumnBatch":
+    def from_arrow(rb, device, codec: bool | None = None) -> "ColumnBatch":
         """Build a device batch from a pyarrow RecordBatch (H2D copy)."""
         device = torch.device(device)
-        return ColumnBatch.stage_arrow(rb, device).to(device)
+        return ColumnBatch.stage_arrow(rb, device, codec).to(device)
 
     @staticmethod
-    def stage_arrow(rb, device) -> "ColumnBatch":
+    def stage_arrow(rb, device, codec: bool | None = None) -> "PackedBatch":
         """The host half of :meth:`from_arrow`: a pyarrow RecordBatch
-        decoded into a batch of host tensors ready for ``device`` (pinned
-        for CUDA); ``.to(device)`` finishes it.  The scan decodes on its
-        prefetch thread and copies on the consumer's, so the card holds
-        only the batches the consumer does."""
+        encoded into one host buffer ready for ``device`` (pinned for
+        CUDA); ``.to(device)`` copies and decodes it.  The scan encodes on
+        its prefetch thread and copies on the consumer's, so the card
+        holds only the batches the consumer does.  ``codec`` None: on for
+        more than 1024 rows unless ``SRT_WIRE_CODEC=0``."""
         import pyarrow as pa
         device = torch.device(device)
         n = rb.num_rows
         schema = T.Schema.from_arrow(rb.schema)
-        cols = []
+        pack = _PackBuilder(n, _codec_auto(n, codec))
+        raw_bytes = 0
         for i, field in enumerate(schema):
             arr = rb.column(i)
             if isinstance(arr, pa.ChunkedArray):
@@ -100,19 +294,26 @@ class ColumnBatch:
             validity = T.arrow_validity_numpy(arr)
             dt = field.data_type
             if isinstance(dt, T.StringType):
-                bm, lens = strings_to_matrix(arr)
-                cols.append(DeviceColumn(stage(bm, device),
-                                         stage(validity, device), dt,
-                                         stage(lens, device)))
+                dic = wc.maybe_dict_arrow(arr, n) if pack.codec else None
+                if dic is not None:
+                    idx, dictionary = dic
+                    dm, dlens = strings_to_matrix(dictionary)
+                    pack.add_dict_string(idx, dm, dlens, validity)
+                    w = dm.shape[1]
+                else:
+                    bm, lens = strings_to_matrix(arr)
+                    pack.add_var(bm, lens, validity)
+                    w = bm.shape[1]
+                raw_bytes += n * (w + 5)
             elif isinstance(dt, (T.ArrayType, T.MapType)):
                 raise NotImplementedError(
                     f"{dt} columns are not ported yet (ROADMAP.md Queue 1 "
                     "item 8)")
             else:
                 data = T.arrow_fixed_to_numpy(arr, dt)
-                cols.append(DeviceColumn(stage(data, device),
-                                         stage(validity, device), dt))
-        return ColumnBatch(cols, n, schema, torch.device("cpu"))
+                pack.add_fixed(data, validity)
+                raw_bytes += data.nbytes + n
+        return pack.build(schema, device, raw_bytes)
 
     def to(self, device) -> "ColumnBatch":
         """The batch on ``device`` (itself when it is there already):

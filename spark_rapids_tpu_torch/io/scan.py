@@ -5,8 +5,12 @@ pyarrow decodes on the host -- parquet with column pruning, CSV through
 ``pyarrow.csv`` with an explicit schema -- in batches of at most
 ``_effective_batch_rows`` rows (the reference's defaults: 2^22 rows or
 1 GiB by a static row-width estimate); a prefetch thread decodes batch
-k+1 into pinned memory while the consumer works on batch k, and the
-consumer copies each batch to the device as it takes it.  Files are spread over at most 8 partitions by size.
+k+1 and encodes it into one pinned buffer (``ColumnBatch.stage_arrow``:
+the wire codec, as the reference's scans run it) while the consumer works
+on batch k, and the consumer copies each buffer to the device in one copy
+and decodes it there (K8) as it takes it.  Each scan node keeps the split
+of its host time in :class:`ScanStats`.  Files are spread over at most 8
+partitions by size.
 Predicate pushdown, ORC and the multi-file reader modes wait for a later
 slice.
 """
@@ -16,6 +20,7 @@ import glob as _glob
 import os
 import queue
 import threading
+import time
 from typing import Iterator, Sequence
 
 from spark_rapids_tpu_torch import types as T
@@ -23,7 +28,41 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
 from spark_rapids_tpu_torch.conf import BATCH_ROWS, MAX_READER_BATCH_SIZE_BYTES
 from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode
 
-__all__ = ["FileScanExec", "ParquetScanExec", "CsvScanExec"]
+__all__ = ["FileScanExec", "ParquetScanExec", "CsvScanExec", "ScanStats"]
+
+
+class ScanStats:
+    """Where a scan's host time and bytes go, summed over its batches:
+    pyarrow's decode of the files (``decode_s``) and the encode into
+    packed buffers (``encode_s``, raw leaves and wire codec), both on the
+    prefetch threads; the bytes sent to the device (``sent_bytes``)
+    against the decoded leaves' (``raw_bytes``).  ``bench/profile_query.py``
+    reads it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        self.batches = 0
+        self.decode_s = 0.0
+        self.encode_s = 0.0
+        self.raw_bytes = 0
+        self.sent_bytes = 0
+
+    def add(self, decode_s: float, encode_s: float, packed) -> None:
+        with self._lock:
+            self.batches += 1
+            self.decode_s += decode_s
+            self.encode_s += encode_s
+            self.raw_bytes += packed.raw_bytes
+            self.sent_bytes += packed.nbytes
+
+    def as_dict(self) -> dict:
+        with self._lock:
+            return {"batches": self.batches, "decode_s": self.decode_s,
+                    "encode_s": self.encode_s, "raw_bytes": self.raw_bytes,
+                    "sent_bytes": self.sent_bytes}
 
 
 def _effective_batch_rows(schema: T.Schema, settings: dict) -> int:
@@ -78,6 +117,7 @@ class FileScanExec(PlanNode):
         full = self._read_schema()
         self._schema = T.Schema([full.field(c) for c in columns]) \
             if columns else full
+        self.stats = ScanStats()
 
     def _read_schema(self) -> T.Schema:
         raise NotImplementedError
@@ -118,10 +158,11 @@ class FileScanExec(PlanNode):
         yield from self._device_batches(record_batches(), ctx.device)
 
     def _device_batches(self, rbs, device) -> Iterator:
-        """Decode into pinned host batches on a worker thread, two batches
-        ahead; each is copied to the device when the consumer takes it, so
-        the card holds only the consumer's batches (and a query's peak
-        device memory does not depend on the worker's timing)."""
+        """Decode and encode into pinned host buffers on a worker thread,
+        two batches ahead; each is copied to the device and decoded when
+        the consumer takes it, so the card holds only the consumer's
+        batches (and a query's peak device memory does not depend on the
+        worker's timing)."""
         q: queue.Queue = queue.Queue(maxsize=2)
         done = object()
         stop = threading.Event()
@@ -137,14 +178,20 @@ class FileScanExec(PlanNode):
 
         def worker():
             try:
-                for rb in rbs:
-                    if stop.is_set():
+                it = iter(rbs)
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    rb = next(it, None)
+                    if rb is None:
+                        put(done)
                         return
                     if rb.num_rows == 0:
                         continue
-                    if not put(ColumnBatch.stage_arrow(rb, device)):
+                    t1 = time.perf_counter()
+                    packed = ColumnBatch.stage_arrow(rb, device)
+                    self.stats.add(t1 - t0, time.perf_counter() - t1, packed)
+                    if not put(packed):
                         return
-                put(done)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 put(e)
 

@@ -45,6 +45,7 @@ SOURCES = {
     "string_concat": "string_concat.cu",
     "string_case": "string_case.cu",
     "string_hex": "string_hex.cu",
+    "wirecodec": "wirecodec.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,6 +54,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_D = ctypes.c_double
 
 #: C entry points and their argument types (every one returns a
 #: cudaError_t as int and takes the stream last)
@@ -125,6 +127,10 @@ _SIGNATURES = {
     },
     "string_hex": {
         "srt_hex": [_P, _P, _P, _P, _L, _P],
+    },
+    "wirecodec": {
+        "srt_decode_fixed": [_P, _I, _P, _L, _D, _I, _I, _P, _P, _P, _L, _P],
+        "srt_decode_dict": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P],
     },
 }
 

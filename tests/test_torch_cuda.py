@@ -793,3 +793,97 @@ def test_sorted_group_by_percentile_matches_cpu(dev, keys):
     for a, b in zip(got.columns, want.columns):
         _same(type(a)(a.data.cpu(), a.validity.cpu(), a.dtype,
                       None if a.lengths is None else a.lengths.cpu()), b)
+
+
+_K8_OUT = [(torch.int8, 4), (torch.int16, 12), (torch.int32, 28),
+           (torch.int64, 32), (torch.int64, 20), (torch.int32, 1),
+           (torch.bool, 1), (torch.float64, 16), (torch.float64, 32),
+           (None, 1)]
+
+
+@pytest.mark.parametrize("out,bits", _K8_OUT)
+@pytest.mark.parametrize("nulls", ["none", "some", "all"])
+def test_decode_fixed_matches_plain(dev, out, bits, nulls):
+    """K8a against its plain version on random words: every output kind
+    (None: the validity alone), straddling widths, FOR bases near the
+    int64 limits, divisors and scales; exact, doubles bit for bit."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    g = torch.Generator(device=dev).manual_seed(bits + len(nulls))
+    n = 100_003
+    words = torch.randint(-2**31, 2**31, (WC.packed_words(n, bits),),
+                          generator=g, dtype=torch.int32, device=dev)
+    vwords = None
+    if nulls != "none":
+        vwords = torch.randint(-2**31, 2**31, (WC.packed_words(n, 1),),
+                               generator=g, dtype=torch.int32, device=dev)
+        if nulls == "all":
+            vwords.zero_()
+    if out is None:
+        before = WC.decode_fixed.launches
+        _d, got = WC.decode_fixed(None, vwords if vwords is not None
+                                  else words, n)
+        assert WC.decode_fixed.launches == before + 1
+        _d, want = WC.decode_fixed_plain(None, vwords if vwords is not None
+                                         else words, n)
+        assert torch.equal(got, want)
+        return
+    for base, factor in ((0, 1), (-2**63, 1), (2**63 - 2**32, 1),
+                         (-7, 1_000_000), (123, 1_000), (-2**40, 0.01),
+                         (2**52, 1.0)):
+        if isinstance(factor, float) != (out == torch.float64):
+            continue
+        b = torch.tensor([base], dtype=torch.int64, device=dev)
+        got = WC.decode_fixed(words, vwords, n, bits, b, factor, out)
+        want = WC.decode_fixed_plain(words, vwords, n, bits, b, factor, out)
+        assert torch.equal(got[1], want[1])
+        if out == torch.float64:
+            assert torch.equal(got[0].view(torch.int64),
+                               want[0].view(torch.int64))
+        else:
+            assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 32, 64, 256])
+@pytest.mark.parametrize("bits", [1, 4, 12])
+def test_decode_dict_matches_plain(dev, w, bits):
+    """K8b against its plain version: dictionaries of base + 2^bits rows
+    (every index valid), nulls, widths 4 to 256."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    g = torch.Generator(device=dev).manual_seed(w + bits)
+    n, base = 70_001, 5
+    k = base + (1 << bits)
+    words = torch.randint(-2**31, 2**31, (WC.packed_words(n, bits),),
+                          generator=g, dtype=torch.int32, device=dev)
+    vwords = torch.randint(-2**31, 2**31, (WC.packed_words(n, 1),),
+                           generator=g, dtype=torch.int32, device=dev)
+    lens = torch.randint(0, w + 1, (k,), generator=g, dtype=torch.int32,
+                         device=dev)
+    mat = torch.randint(0, 256, (k, w), generator=g, dtype=torch.int32,
+                        device=dev).to(torch.uint8)
+    mat = torch.where(torch.arange(w, device=dev)[None, :] < lens[:, None],
+                      mat, 0).to(torch.uint8)
+    b = torch.tensor([base], dtype=torch.int64, device=dev)
+    before = WC.decode_dict.launches
+    for v in (vwords, None):
+        got = WC.decode_dict(words, v, n, bits, b, mat, lens)
+        want = WC.decode_dict_plain(words, v, n, bits, b, mat, lens)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert WC.decode_dict.launches == before + 2
+
+
+def test_from_arrow_codec_on_cuda_matches_cpu(dev):
+    """One copy and K8 on the card give the CPU's leaves, codec on and
+    off, for every column kind of the test batch."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    rng = np.random.default_rng(80)
+    rb = _record_batch(rng, 50_000)
+    before = WC.decode_fixed.launches, WC.decode_dict.launches
+    for codec in (True, False):
+        got = ColumnBatch.from_arrow(rb, dev, codec=codec)
+        want = ColumnBatch.from_arrow(rb, "cpu", codec=codec)
+        for a, b in zip(got.columns, want.columns):
+            _same(type(a)(a.data.cpu(), a.validity.cpu(), a.dtype,
+                          None if a.lengths is None else a.lengths.cpu()), b)
+    assert WC.decode_fixed.launches > before[0]
+    assert WC.decode_dict.launches > before[1]
