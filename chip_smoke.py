@@ -14,7 +14,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
    phase 6; K12a window segment extents, K12b window frame aggregates in
    phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9; K13i, K4p in
-   phase 10; K8a, K8b in phase 11): seeded inputs
+   phase 10; K8a, K8b in phase 11; K11, K12c in phase 12): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -96,7 +96,29 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the card of the encoded against the raw buffer.  Every path above
    scans with the codec on (its default for batches of more than 1024
    rows): K8a must launch on every path, K8b on q1 and simple_agg;
-12. print the kernel table as one JSON line (launches per path), the
+12. range and round-robin exchanges and bounded-frame min/max: K11
+   (range-partition ids) held exactly against its plain version on 2^24
+   stress rows (int32, int64, doubles with NaN/+-0.0/+-inf, bools and
+   strings at W 4 to 64, alone and in 2-3-key mixes, both directions and
+   null orders, P of 2, 8, 200 and 1024; W 16 rows against W 64 bounds;
+   tied bounds; an empty batch) and at path 2's map batch, timed beside
+   torch.searchsorted over one packed limb; K12c (min/max over frames
+   with a bounded lower edge) exactly against its plain version on the
+   2^24-row window stress batch (min and max over int32, int64, f32, f64
+   and bool, seven frames) and at moving_extrema's shape, timed beside
+   max_pool1d; then, over the default layout at SF10, cold + warm against
+   numpy/pyarrow: top_customers_rr (a keyless repartition(8) of all
+   28.8M store_sales rows before a grouped count/max/sum: K10 once per
+   map batch, round-robin partitions within one row of each other),
+   range_sort_store_sales (a range exchange of all store_sales rows into
+   8 partitions by date and net paid, each sorted; K11 once per map
+   batch) and range_sort_customer_names (the 501,187 customers by three
+   string keys into 200 partitions), both with
+   spark.sql.adaptive.advisoryPartitionSizeInBytes pinned to 0 so that
+   the map side is not coalesced, and moving_extrema (three moving
+   min/max windows over ~4.2M (item, day) rows: K12c at least 3 times,
+   K12b never);
+13. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -701,6 +723,7 @@ def _counters() -> dict:
     from spark_rapids_tpu_torch.ops import join as J
     from spark_rapids_tpu_torch.ops import kernels as K
     from spark_rapids_tpu_torch.ops import partition as P
+    from spark_rapids_tpu_torch.ops import range_partition as RP
     from spark_rapids_tpu_torch.ops import segmented as G
     from spark_rapids_tpu_torch.ops import sort as S
     from spark_rapids_tpu_torch.ops import strings as STR
@@ -732,7 +755,10 @@ def _counters() -> dict:
             "segment_percentile": {
                 "segment_percentile": G.segment_percentile},
             "decode_fixed": {"decode_fixed": WC.decode_fixed},
-            "decode_dict": {"decode_dict": WC.decode_dict}}
+            "decode_dict": {"decode_dict": WC.decode_dict},
+            "range_partition_ids": {
+                "range_partition_ids": RP.range_partition_ids},
+            "frame_min_max": {"frame_min_max": W.frame_min_max}}
 
 
 #: K8a and K8b: every scan batch of more than 1024 rows goes through the
@@ -1177,39 +1203,31 @@ def _scan_batches(data_dir: str, table: str, columns) -> int:
 def _map_side_bytes(torch, df) -> list:
     """[(exchange, {partition: bytes})] of one run of ``df``, top-down,
     read from the transports before the context releases them."""
-    from spark_rapids_tpu_torch.exec.core import ExecCtx
-    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
-    root = df._prepared()
-    ctx = ExecCtx(device=df._s.device, conf=df._s.conf)
-    try:
-        for _b in root.execute(ctx):
-            pass
-        out, stack = [], [root]
-        while stack:
-            node = stack.pop()
-            stack.extend(reversed(node.children))
-            if isinstance(node, ShuffleExchangeExec):
-                t = ctx._cache[("shuffle", node.shuffle_id)]
-                out.append((node.node_desc(),
-                            t.partition_sizes(node.shuffle_id)))
-        return out
-    finally:
-        ctx.close()
-        torch.cuda.synchronize()
+    return [(desc, sizes) for desc, sizes, _rows in
+            _exchange_sides(torch, df._s, df._prepared())]
 
 
 def _drive(torch, label: str, make_df, check, entries, warm: int,
-           off_path=(), zero=()) -> dict:
+           off_path=(), zero=(), run=None, describe=None) -> dict:
     """One path: explain, then a cold run with every counter of
     ``entries`` set to 0 just before it and read just after it (each
     counter above 0, but ``off_path``; each of ``zero`` exactly 0), then
-    the warm runs, each checked and its peak device memory recorded."""
-    print(make_df().explain(), flush=True)
+    the warm runs, each checked and its peak device memory recorded.
+    ``run`` replaces ``make_df().collect()`` (a physical plan's run; no
+    explain), ``describe`` the summary of its result."""
+    if run is None:
+        print(make_df().explain(), flush=True)
+
+        def run():
+            return make_df().collect()
+    if describe is None:
+        def describe(r):
+            return f"{len(r)} rows, first {r[:3]}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters(entries)
     t0 = time.perf_counter()
-    rows = make_df().collect()
+    rows = run()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = _read_counters(entries, label, tuple(off_path) + tuple(zero))
@@ -1224,7 +1242,7 @@ def _drive(torch, label: str, make_df, check, entries, warm: int,
     for _ in range(warm):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        rows = make_df().collect()
+        rows = run()
         torch.cuda.synchronize()
         warm_s.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
@@ -1236,7 +1254,7 @@ def _drive(torch, label: str, make_df, check, entries, warm: int,
     if held and held[-1] > held[0]:
         raise AssertionError(f"{label}: device memory held after a query "
                              f"grew over the warm runs: {held}")
-    print(f"[{label}] {len(rows)} rows, first {rows[:3]}; cold_s={cold:.3f} "
+    print(f"[{label}] {describe(rows)}; cold_s={cold:.3f} "
           f"warm_s={[round(x, 3) for x in warm_s]} cold_peak_bytes="
           f"{cold_peak} warm_peak_bytes={peaks} held_after_bytes={held} "
           f"launches={launches}", flush=True)
@@ -1338,8 +1356,8 @@ def run_exchange_paths(torch, warm: int) -> dict:
 Q51_WINDOW_ROWS = 5_100_000
 #: rows of the K12 stress batch
 WINDOW_CHECK_ROWS = 1 << 24
-#: frames K12b serves: (mode, lower, upper); min/max only those whose
-#: lower edge is the partition start
+#: frames of the K12 stress: (mode, lower, upper); K12b serves min/max
+#: only where the lower edge is the partition start, K12c the others
 _K12_FRAMES = [("rows", None, 0), ("rows", None, None), ("rows", -3, 2),
                ("rows", 2, 5), ("rows", None, 3), ("rows", -2, None),
                ("rows", None, -1), ("range", None, 0), ("range", 0, 0),
@@ -1489,8 +1507,9 @@ def _check_window_agg(torch, W, op, col, seg, frame, what: str) -> float:
 def check_window_agg(torch, dev, rng) -> dict:
     """K12b against its plain version for every op and every frame it
     serves, ROWS and RANGE, on the 2^24-row stress batch; timed at q51's
-    final-window shape (the running max of the web channel); min/max
-    with a bounded lower edge must raise on the card."""
+    final-window shape (the running max of the web channel).  Min/max
+    with a bounded lower edge go to K12c through the same entry (held
+    here too; phase 12 checks and times K12c)."""
     from spark_rapids_tpu_torch.ops import window as W
     stress = _stress_window_batch(torch, rng, dev, WINDOW_CHECK_ROWS)
     seg = W.sorted_segments(stress, (0,), (1,))
@@ -1502,15 +1521,6 @@ def check_window_agg(torch, dev, rng) -> dict:
                          ("min", (1, 2, 3)), ("max", (1, 2, 3))):
             for ci in cols:
                 what = f"{op} col {ci} {mode}({lo}, {hi})"
-                if op in ("min", "max") and lo is not None:
-                    try:
-                        W.running_or_bounded_agg(op, stress.columns[ci], seg,
-                                                 fr)
-                    except NotImplementedError as e:
-                        if "K12" not in str(e):
-                            raise
-                        continue
-                    raise AssertionError(f"K12b {what}: did not raise")
                 err = max(err, _check_window_agg(
                     torch, W, op, stress.columns[ci], seg, fr, what))
                 checked += 1
@@ -1543,7 +1553,8 @@ def check_window_agg(torch, dev, rng) -> dict:
     nbytes = n * (8 + 1 + 4) + n * (8 + 1)
     print(f"[K12b window agg] checked {checked} (op, column, frame) cases "
           f"on 2^24 stress rows over {len(_K12_FRAMES)} ROWS/RANGE frames "
-          f"(bounded-lower min/max raise) and q51's running max/sum: equal "
+          f"(bounded-lower min/max through K12c) and q51's running max/sum: "
+          f"equal "
           f"(float sums and avgs within rtol {F64_RTOL} plus 8 ulps of the "
           f"sum of magnitudes, the rest exactly), max_abs_err={err:.3e}; timed rows={n} running "
           f"max ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no "
@@ -3474,6 +3485,649 @@ def run_codec_phase(torch, dev, sf: float) -> dict:
             library_ms=res["simple_agg performance"]["library_dict_ms"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: K11 range-partition ids and K12c bounded-frame min/max; the
+# round-robin, range and moving-window paths
+# ---------------------------------------------------------------------------
+
+#: rows of the K11 and K12c stress batches
+PARTITION_STRESS_ROWS = 1 << 24
+#: rows of moving_extrema's windows at SF10: the (item, day) groups of
+#: store_sales in 2000, measured by the path
+MOVING_ROWS = 4_200_000
+#: K12c's frames: trailing, centred, following-only (empty at a
+#: partition's tail), one row back, wider than any partition (the
+#: stress batch's largest partition is 40% of its rows), and the RANGE
+#: CURRENT ROW frames over peers
+_K12C_FRAMES = [("rows", -6, 0), ("rows", -3, 3), ("rows", 2, 5),
+                ("rows", -1, -1), ("rows", -(1 << 23), 1 << 23),
+                ("range", 0, 0), ("range", 0, None)]
+#: string rows of the K11 stress: shared prefixes, NULs, multi-byte and
+#: high bytes, the empty string
+_K11_WORDS = [b"", b"a", b"a\x00", b"ab", b"abc", b"abcd", b"abcde",
+              "é".encode(), "éa".encode(), b"\xff", b"zzzz", b"b",
+              b"the quick brown fox", b"the quick brown fox jumps over",
+              b"the quick brown fox jumps over the lazy dog, again",
+              "😀 emoji".encode()]
+
+
+def _k11_string(torch, rng, n: int, w: int, dev, null_p: float = 0.1,
+                words=None):
+    """A string column of ``n`` rows at matrix width ``w``: rows drawn
+    from ``_K11_WORDS`` (cut to ``w`` bytes), null rows zeroed."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    words = words or _K11_WORDS
+    vocab = np.zeros((len(words), w), np.uint8)
+    lens = np.zeros(len(words), np.int32)
+    for i, bs in enumerate(words):
+        bs = bs[:w]
+        vocab[i, :len(bs)] = np.frombuffer(bs, np.uint8)
+        lens[i] = len(bs)
+    idx = rng.integers(0, len(words), n)
+    valid = rng.random(n) >= null_p
+    data = vocab[idx] * valid[:, None]
+    return DeviceColumn(torch.from_numpy(data).to(dev),
+                        torch.from_numpy(valid).to(dev), T.StringType(),
+                        torch.from_numpy(lens[idx] * valid).to(dev))
+
+
+def _k11_fixed(torch, rng, n: int, kind: str, dev, null_p: float = 0.1):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    valid = rng.random(n) >= null_p
+    if kind == "int32":
+        v, dt = rng.integers(-1000, 1000, n).astype(np.int32), T.IntegerType()
+    elif kind == "low":  # three values: bounds tie
+        v, dt = rng.integers(0, 3, n).astype(np.int32), T.IntegerType()
+    elif kind == "int64":
+        v, dt = rng.integers(-2 ** 62, 2 ** 62, n), T.LongType()
+    elif kind == "bool":
+        v, dt = rng.random(n) < 0.5, T.BooleanType()
+    else:
+        v = rng.choice(np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5,
+                                 -2.25, 1e300, -1e-300]), n) \
+            * rng.integers(1, 4, n)
+        dt = T.DoubleType()
+    v = np.where(valid, v, np.zeros((), v.dtype))
+    return DeviceColumn(torch.from_numpy(v).to(dev),
+                        torch.from_numpy(valid).to(dev), dt)
+
+
+def _k11_bounds(torch, keys, orders, parts: int):
+    """RangePartitioning's bounds of ``keys``: rows at (i * n) // P of
+    K1's order, gathered with K3."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import range_partition as RP
+    from spark_rapids_tpu_torch.ops.sort import sort_permutation
+    n = keys[0].capacity
+    perm = sort_permutation(ColumnBatch(keys, n, None, keys[0].device),
+                            orders)
+    pos = torch.clamp(torch.arange(1, parts, device=perm.device) * n
+                      // parts, 0, n - 1)
+    return RP.RangeBounds(K.gather_columns(keys, perm[pos]), orders)
+
+
+def _k11_same(torch, keys, bounds, what: str) -> None:
+    from spark_rapids_tpu_torch.ops import range_partition as RP
+    got = RP.range_partition_ids(keys, bounds)
+    want = RP.range_partition_ids_plain(keys, bounds)
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"K11 {what}: {bad} ids differ from the plain "
+                             "version")
+
+
+def check_range_partition(torch, dev, rng, data_dir: str) -> dict:
+    """K11 exactly against its plain version: 2^24 stress rows of every
+    key type (int32, int64, doubles with NaN/+-0.0/+-inf, bools, strings
+    at W 4 to 64) alone and in 2-3-key mixes, both directions and null
+    orders, P of 2, 8, 200 and 1024; bounds from a wider string column
+    than the rows, tied bounds, an empty batch; and path 2's map batch
+    (one store_sales file's date and net paid, P = 8), where it is timed
+    beside its plain version and torch.searchsorted over one packed limb
+    of the date alone."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import range_partition as RP
+    from spark_rapids_tpu_torch.ops.sort import SortOrder, pack_keys
+    n = PARTITION_STRESS_ROWS
+    cols = {k: _k11_fixed(torch, rng, n, k, dev)
+            for k in ("int32", "int64", "double", "bool", "low")}
+    for w in (4, 16, 64):
+        cols[f"s{w}"] = _k11_string(torch, rng, n, w, dev)
+    cases = [[c] for c in cols] + [
+        ["double", "int32"], ["s16", "double"], ["bool", "s64", "int64"],
+        ["low", "s4", "double"], ["int64", "low"]]
+    parts_cycle = (2, 8, 200, 1024)
+    checked = 0
+    for ci, names in enumerate(cases):
+        for di in range(4 if len(names) == 1 else 2):
+            asc = [bool((di + j) % 2 == 0) for j in range(len(names))]
+            nf = [bool((di // 2 + j) % 2 == 0) for j in range(len(names))]
+            orders = [SortOrder(j, a, f) for j, (a, f) in
+                      enumerate(zip(asc, nf))]
+            keys = [cols[c] for c in names]
+            parts = parts_cycle[(ci + di) % 4]
+            bounds = _k11_bounds(torch, keys, orders, parts)
+            _k11_same(torch, keys, bounds, f"{names} asc={asc} "
+                      f"nulls_first={nf} P={parts}")
+            checked += 1
+    # bounds from a wider batch: W 64 strings against rows at W 16
+    for names in (["s64"], ["s64", "int32"]):
+        orders = [SortOrder(j, True, True) for j in range(len(names))]
+        wide = [cols[c] for c in names]
+        bounds = _k11_bounds(torch, wide, orders, 200)
+        rows = [cols["s16"]] + [cols[c] for c in names[1:]]
+        _k11_same(torch, rows, bounds, f"W 16 rows against W 64 bounds "
+                  f"{names}")
+        checked += 1
+    # tied bounds (three values, P = 1024) and an empty batch
+    keys = [cols["low"]]
+    orders = [SortOrder(0, True, True)]
+    bounds = _k11_bounds(torch, keys, orders, 1024)
+    if int(torch.unique(bounds.cols[0].data).numel()) > 4:
+        raise AssertionError("K11 tied-bound case has untied bounds")
+    _k11_same(torch, keys, bounds, "tied bounds")
+    empty = [K.slice_rows(ColumnBatch(keys, n, None, dev), 0, 0).columns[0]]
+    if RP.range_partition_ids(empty, bounds).numel() != 0:
+        raise AssertionError("K11 on an empty batch returned ids")
+    checked += 2
+    del cols, keys, bounds, empty
+    torch.cuda.empty_cache()
+    # path 2's map batch: the first store_sales file of the default layout
+    f = sorted(x for x in os.listdir(os.path.join(data_dir, "store_sales"))
+               if x.endswith(".parquet"))[0]
+    t = pq.read_table(os.path.join(data_dir, "store_sales", f),
+                      columns=["ss_sold_date_sk", "ss_net_paid"])
+    b = ColumnBatch.from_arrow(t.combine_chunks().to_batches()[0], dev)
+    orders = [SortOrder(0, True, True), SortOrder(1, False)]
+    keys = list(b.columns)
+    bounds = _k11_bounds(torch, keys, orders, 8)
+    _k11_same(torch, keys, bounds, "path 2's map batch")
+    rows = b.num_rows
+    ms = _time_ms(torch, lambda: RP.range_partition_ids(keys, bounds),
+                  reps=20)
+    plain_ms = _time_ms(torch, lambda: RP.range_partition_ids_plain(
+        keys, bounds))
+    one = [keys[0]]
+    one_bounds = _k11_bounds(torch, one, orders[:1], 8)
+    one_ms = _time_ms(torch, lambda: RP.range_partition_ids(one, one_bounds),
+                      reps=20)
+    limb = pack_keys(one, orders[:1])[0]
+    blimb = one_bounds.packed((None,))[:, 0].contiguous()
+    lib_ms = _time_ms(torch, lambda: torch.searchsorted(blimb, limb,
+                                                        side="left"),
+                      reps=20)
+    if not torch.equal(torch.searchsorted(blimb, limb, side="left").int(),
+                       RP.range_partition_ids(one, one_bounds)):
+        raise AssertionError("K11 one-key ids differ from searchsorted over "
+                             "the packed limb")
+    # the keys (data and validity) read once, the ids written once
+    nbytes = _nbytes(_leaves(keys)) + 4 * rows
+    print(f"[K11 range partition] checked {checked} cases exactly against "
+          f"the plain version (2^24 stress rows; every key type alone and "
+          f"in 2-3-key mixes, both directions and null orders, P 2/8/200/"
+          f"1024; W 16 rows against W 64 bounds; tied bounds; an empty "
+          f"batch) and path 2's map batch; timed rows={rows} (date asc "
+          f"nulls first, net paid desc, P=8) ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} bound_ms={_bound_ms(nbytes):.4f}; one key (the "
+          f"date) ms={one_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(torch.searchsorted over its one packed limb, the packing "
+          f"apart: same ids)", flush=True)
+    return dict(name="range_partition_ids", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/range_partition.cu",
+                replaces="spark_rapids_tpu/exec/partitioning.py:258",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+def _k12c_same(torch, W, op, col, lo, hi, what: str) -> None:
+    gd, gv = W.frame_min_max(op, col, lo, hi)
+    wd, wv = W.frame_min_max_plain(op, col, lo, hi)
+    if gd.dtype != wd.dtype or not torch.equal(gv, wv):
+        raise AssertionError(f"K12c {what}: validity or type differs")
+    if gd.dtype.is_floating_point:  # NaN bit for bit
+        as_int = torch.int32 if gd.dtype == torch.float32 else torch.int64
+        gd, wd = gd.view(as_int), wd.view(as_int)
+    if not torch.equal(gd, wd):
+        raise AssertionError(f"K12c {what}: differs from the plain version")
+
+
+def _moving_batch(torch, rng, dev, n: int):
+    """moving_extrema's window input, sorted by (item, day): int32 items
+    (56,920), one row per (item, day) of 366 days, day sales as sums of
+    1-3 cent prices."""
+    import pyarrow as pa
+    days = 366
+    keys = np.sort(rng.choice(56_920 * days, n, replace=False))
+    sales = np.round(np.exp(rng.normal(2.5, 1.0, n)).clip(0.01, 300.0)
+                     * rng.integers(1, 4, n), 2)
+    return _arrow_batch(torch, dev, {
+        "item": pa.array((keys // days + 1).astype(np.int32)),
+        "day": pa.array((keys % days + 10957).astype(np.int32)),
+        "sales": pa.array(sales)})
+
+
+def check_frame_min_max(torch, dev, rng) -> dict:
+    """K12c exactly against its plain version: min and max over int32,
+    int64, f32, f64 and bool on the 2^24-row window stress batch (one 40%
+    partition, 30% one-row partitions, all-null and all-NaN partitions,
+    NaN, +-inf, -0.0) over every bounded-lower frame of _K12C_FRAMES, and
+    at moving_extrema's shape, where it is timed beside its plain version
+    and max_pool1d."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import window as W
+    stress = _stress_window_batch(torch, rng, dev, PARTITION_STRESS_ROWS)
+    seg = W.sorted_segments(stress, (0,), (1,))
+    k, v, i = stress.columns[0], stress.columns[2], stress.columns[3]
+    all_nan = k.validity & (k.data % 13 == 5)
+    vn = torch.where(all_nan, torch.full_like(v.data, float("nan")), v.data)
+    cols = {
+        "f64": DeviceColumn(vn, v.validity | all_nan, T.DoubleType()),
+        "f32": DeviceColumn(vn.float(), v.validity | all_nan,
+                            T.FloatType()),
+        "int64": i,
+        "int32": DeviceColumn((i.data % 100_000).int(), i.validity,
+                              T.IntegerType()),
+        "bool": DeviceColumn((i.data % 3 == 0) & i.validity, i.validity,
+                             T.BooleanType())}
+    checked = 0
+    for frame in _K12C_FRAMES:
+        lo, hi = W._frame_edges(seg, W.WindowFrame(*frame))
+        for op in ("min", "max"):
+            for name, c in cols.items():
+                _k12c_same(torch, W, op, c, lo, hi, f"{op} {name} {frame}")
+                checked += 1
+    del stress, seg, cols, vn, lo, hi
+    torch.cuda.empty_cache()
+    n = MOVING_ROWS
+    b = _moving_batch(torch, rng, dev, n)
+    seg = W.sorted_segments(b, (0,), (1,))
+    sales = b.columns[2]
+    edges = {}
+    for op, frame in (("max", ("rows", -6, 0)), ("min", ("rows", -3, 3)),
+                      ("max", ("range", 0, None))):
+        edges[frame] = W._frame_edges(seg, W.WindowFrame(*frame))
+        _k12c_same(torch, W, op, sales, *edges[frame],
+                   f"moving_extrema {op} {frame}")
+        checked += 1
+    lo, hi = edges[("rows", -6, 0)]
+    ms = _time_ms(torch, lambda: W.frame_min_max("max", sales, lo, hi),
+                  reps=20)
+    plain_ms = _time_ms(torch, lambda: W.frame_min_max_plain(
+        "max", sales, lo, hi))
+    fwd_ms = _time_ms(torch, lambda: W.frame_min_max(
+        "max", sales, *edges[("range", 0, None)]), reps=20)
+    x = sales.data.view(1, 1, n)
+    lib_ms = _time_ms(torch, lambda: torch.nn.functional.max_pool1d(
+        x, 7, stride=1, padding=3), reps=20)
+    # value, validity and the two edges read, result and validity written
+    nbytes = n * (8 + 1 + 4 + 4) + n * (8 + 1)
+    print(f"[K12c frame min/max] checked {checked} (op, type, frame) cases "
+          f"exactly against the plain version (2^24 stress rows over "
+          f"{len(_K12C_FRAMES)} bounded-lower frames, min and max over "
+          f"int32, int64, f32, f64 and bool; moving_extrema's three "
+          f"windows); timed rows={n} trailing 7-day max ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={_bound_ms(nbytes):.4f}; "
+          f"forward max (RANGE CURRENT ROW .. UNBOUNDED FOLLOWING) "
+          f"ms={fwd_ms:.4f}; library_ms={lib_ms:.4f} (max_pool1d, kernel "
+          f"7, stride 1, over the same values without partition edges or "
+          f"nulls)", flush=True)
+    return dict(name="frame_min_max", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/window_range.cu",
+                replaces="spark_rapids_tpu/ops/window.py:126",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+def reference_top_customers_rr(data_dir: str) -> list[tuple]:
+    """top_customers_rr with numpy/pyarrow alone: (customer, purchases,
+    max net paid, total net paid) of the 100 customers with the most
+    purchases, count descending, key ascending with the null customer
+    first."""
+    import pyarrow.parquet as pq
+    t = pq.read_table(os.path.join(data_dir, "store_sales"),
+                      columns=["ss_customer_sk", "ss_net_paid"])
+    key, valid = _arrow_col(t, "ss_customer_sk")
+    paid, _ = _arrow_col(t, "ss_net_paid")
+    key = np.where(valid, key.astype(np.int64), -1)
+    uniq, inv, counts = np.unique(key, return_inverse=True,
+                                  return_counts=True)
+    mx = np.full(len(uniq), -np.inf)
+    np.maximum.at(mx, inv, paid)
+    tot = np.zeros(len(uniq), np.longdouble)
+    np.add.at(tot, inv, paid.astype(np.longdouble))
+    rows = [(None if u < 0 else int(u), int(c), float(m), float(s))
+            for u, c, m, s in zip(uniq, counts, mx, tot)]
+    rows.sort(key=lambda r: (-r[1], r[0] is not None, r[0] or 0))
+    return rows[:100]
+
+
+def _check_top_rr(rows, want) -> None:
+    if len(rows) != len(want):
+        raise AssertionError(f"top_customers_rr: {len(rows)} rows, "
+                             f"expected {len(want)}")
+    for g, w in zip(rows, want):
+        if g[:3] != w[:3] or not abs(g[3] - w[3]) <= F64_RTOL * abs(w[3]):
+            raise AssertionError(f"top_customers_rr row {g} != {w} (sums "
+                                 f"rtol {F64_RTOL})")
+
+
+def _runs(sorted_keys) -> np.ndarray:
+    """True where a row of the sorted key columns starts a run of equal
+    keys."""
+    n = len(sorted_keys[0])
+    new = np.zeros(n, bool)
+    if n:
+        new[0] = True
+        for k in sorted_keys:
+            new[1:] |= k[1:] != k[:-1]
+    return new
+
+
+def _range_counts(new, parts: int) -> list[int]:
+    """Rows per partition of a range partitioning of sorted rows (``new``:
+    :func:`_runs`) whose bounds sit at (i * n) // P: a row goes above a
+    bound only when its key is strictly greater, so a partition ends at
+    the last row of its bound's run of equal keys."""
+    n = len(new)
+    if n == 0 or parts == 1:
+        return [n] + [0] * (parts - 1)
+    pos = np.clip(np.arange(1, parts) * n // parts, 0, n - 1)
+    run_end = np.r_[np.flatnonzero(new)[1:] - 1, n - 1]
+    ends = run_end[np.cumsum(new)[pos] - 1] + 1
+    return np.diff(np.r_[0, ends, n]).tolist()
+
+
+def reference_range_store_sales(data_dir: str) -> dict:
+    """range_sort_store_sales with numpy alone: rows per partition, and
+    the date (-1 for null) and net paid columns in sorted order (date
+    ascending, nulls first; net paid descending, never null)."""
+    import pyarrow.parquet as pq
+    t = pq.read_table(os.path.join(data_dir, "store_sales"),
+                      columns=["ss_sold_date_sk", "ss_net_paid"])
+    date, valid = _arrow_col(t, "ss_sold_date_sk")
+    paid, _ = _arrow_col(t, "ss_net_paid")
+    codes = np.where(valid, date.astype(np.int64), -1)
+    _u, prank = np.unique(paid, return_inverse=True)  # no -0.0, no NaN
+    key = ((codes + 1) << 26) + (int(prank.max()) - prank)
+    order = np.argsort(key, kind="stable")
+    return {"counts": _range_counts(_runs([key[order]]), 8),
+            "date": codes[order], "paid": paid[order]}
+
+
+def reference_range_customers(data_dir: str) -> dict:
+    """range_sort_customer_names with numpy/pyarrow alone: rows per
+    partition and the three key columns in sorted order (last name
+    ascending, nulls first; first name descending, nulls last; the unique
+    customer id ascending).  Strings order by their UTF-8 bytes."""
+    import pyarrow.parquet as pq
+    t = pq.read_table(os.path.join(data_dir, "customer"),
+                      columns=["c_last_name", "c_first_name",
+                               "c_customer_id"])
+    codes, vals = [], []
+    for name in ("c_last_name", "c_first_name", "c_customer_id"):
+        py = t.column(name).to_pylist()
+        rank = {u.decode(): r for r, u in enumerate(
+            sorted({v.encode() for v in py if v is not None}))}
+        codes.append(np.array([-1 if v is None else rank[v] for v in py]))
+        vals.append(py)
+    # a null code of -1 sorts first ascending, and last once negated
+    order = np.lexsort((codes[2], -codes[1], codes[0]))
+    new = _runs([c[order] for c in codes])
+    return {"counts": _range_counts(new, 200),
+            "rows": [(vals[0][i], vals[1][i], vals[2][i]) for i in order]}
+
+
+def reference_moving_extrema(data_dir: str) -> list[tuple]:
+    """moving_extrema with numpy alone, in exact cents: per (item, day)
+    sums of 2000, then per item the sliding windows over its days (rows
+    frames as shifted copies within the item, the forward high as a
+    reversed running max per item)."""
+    sk, day, _qoy = _dates_of_year_2000(data_dir)
+    items, days, sums = _day_sales(data_dir, "store_sales", "ss", sk, day)
+    sales = np.rint(sums * 100).astype(np.int64)
+    n = len(sales)
+    idx = np.arange(n)
+
+    def shifted(k, fill):
+        j = np.clip(idx + k, 0, n - 1)
+        inside = (idx + k >= 0) & (idx + k < n) & (items[j] == items)
+        return np.where(inside, sales[j], fill)
+
+    high7 = np.max([shifted(-k, -1) for k in range(7)], axis=0)
+    low7 = np.min([shifted(k, 2 ** 62) for k in range(-3, 4)], axis=0)
+    starts = np.flatnonzero(np.r_[True, items[1:] != items[:-1]])
+    ends = np.r_[starts[1:], n]
+    high_on = np.empty(n, np.int64)
+    for a, b in zip(starts, ends):
+        high_on[a:b] = np.maximum.accumulate(sales[a:b][::-1])[::-1]
+    hi_days = np.add.reduceat((sales == high7).astype(np.int64), starts)
+    on_days = np.add.reduceat((sales == high_on).astype(np.int64), starts)
+    low_sum = np.add.reduceat(low7, starts)
+    return [(int(items[a]), int(h), int(o), float(s) / 100)
+            for a, h, o, s in zip(starts, hi_days, on_days, low_sum)]
+
+
+def _check_moving(rows, want) -> None:
+    if len(rows) != len(want):
+        raise AssertionError(f"moving_extrema: {len(rows)} rows, expected "
+                             f"{len(want)}")
+    for g, w in zip(rows, want):
+        if g[:3] != w[:3] or not abs(g[3] - w[3]) <= F64_RTOL * abs(w[3]):
+            raise AssertionError(f"moving_extrema row {g} != {w} (sums "
+                                 f"rtol {F64_RTOL})")
+
+
+def _host_partitions(parts) -> list:
+    """Each partition's batches as (data, validity, lengths) numpy leaves
+    per column: the range sorts' result on the host, as a collect would
+    bring it (and no device memory held past the run)."""
+    return [[b.host_leaves() for b in p] for p in parts]
+
+
+def _column(part, ci: int) -> list:
+    """One column's leaves over a partition's batches."""
+    return [leaves[ci] for leaves in part]
+
+
+def _check_range_store_sales(parts, want) -> None:
+    counts = [sum(len(d) for d, _v, _l in _column(p, 0)) for p in parts]
+    if counts != want["counts"]:
+        raise AssertionError(f"range_sort_store_sales: partition rows "
+                             f"{counts}, numpy {want['counts']}")
+    date = np.concatenate([np.where(v, d, -1) for p in parts
+                           for d, v, _l in _column(p, 0)])
+    paid = np.concatenate([d for p in parts for d, _v, _l in _column(p, 1)])
+    if not (np.array_equal(date, want["date"])
+            and np.array_equal(paid, want["paid"])):
+        raise AssertionError("range_sort_store_sales: the partitions read "
+                             "in order differ from numpy's sorted keys")
+
+
+def _check_range_customers(parts, want) -> None:
+    counts = [sum(len(v) for _d, v, _l in _column(p, 0)) for p in parts]
+    if counts != want["counts"]:
+        raise AssertionError(f"range_sort_customer_names: partition rows "
+                             f"{counts}, numpy {want['counts']}")
+
+    def strings(leaves):
+        return [bytes(d[i, :n[i]]).decode() if v[i] else None
+                for d, v, n in leaves for i in range(len(v))]
+
+    cols = [strings([x for p in parts for x in _column(p, ci)])
+            for ci in range(3)]
+    if list(zip(*cols)) != want["rows"]:
+        raise AssertionError("range_sort_customer_names: the partitions "
+                             "read in order differ from numpy's sort")
+
+
+def _exchange_sides(torch, session, plan) -> list:
+    """[(exchange, {partition: bytes}, {partition: rows})] of one run of
+    the physical ``plan``, read before the context releases them."""
+    from spark_rapids_tpu_torch.exec.core import ExecCtx
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
+    ctx = ExecCtx(device=session.device, conf=session.conf)
+    try:
+        for _b in plan.execute(ctx):
+            pass
+        out, stack = [], [plan]
+        while stack:
+            node = stack.pop()
+            stack.extend(reversed(node.children))
+            if isinstance(node, ShuffleExchangeExec):
+                t = ctx._cache[("shuffle", node.shuffle_id)]
+                out.append((node.node_desc(),
+                            t.partition_sizes(node.shuffle_id),
+                            t.partition_rows(node.shuffle_id)))
+        return out
+    finally:
+        ctx.close()
+        torch.cuda.synchronize()
+
+
+_PARTITION_ENTRIES = ("range_partition_ids", "frame_min_max")
+
+
+def run_partition_phase(torch, dev, warm: int):
+    """K11 and K12c against their plain versions, then top_customers_rr,
+    range_sort_store_sales, range_sort_customer_names and moving_extrema
+    over the generator's default layout at SF10; (entries, {path:
+    launches})."""
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    data_dir = os.path.join(ROOT, ".bench_data",
+                            f"tpcds_sf{Q6_SF:g}_seed42_default")
+    tables = ("date_dim", "customer", "store_sales")
+    t0 = time.perf_counter()
+    tpcds_gen.generate_tpcds(data_dir, sf=Q6_SF, seed=42, tables=tables,
+                             rows_per_file=DEFAULT_ROWS_PER_FILE)
+    print(f"[partition] TPC-DS SF{Q6_SF:g} {list(tables)} ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    entries = {"range_partition_ids": check_range_partition(
+        torch, dev, np.random.default_rng(11), data_dir)}
+    torch.cuda.empty_cache()
+    entries["frame_min_max"] = check_frame_min_max(
+        torch, dev, np.random.default_rng(12))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want_rr = reference_top_customers_rr(data_dir)
+    want_ss = reference_range_store_sales(data_dir)
+    want_cu = reference_range_customers(data_dir)
+    want_mv = reference_moving_extrema(data_dir)
+    print(f"[partition] numpy/pyarrow references in "
+          f"{time.perf_counter() - t0:.1f} s: store_sales by partition "
+          f"{want_ss['counts']}; customers by partition: "
+          f"{sum(1 for c in want_cu['counts'] if c == 0)} of 200 empty; "
+          f"moving_extrema {len(want_mv)} items", flush=True)
+    session = _cuda_session()
+    # the range sorts pin the advisory size to 0: the map side is never
+    # coalesced into partition 0 (exchange.py tiny-input coalescing)
+    pinned = _cuda_session(
+        {"spark.sql.adaptive.advisoryPartitionSizeInBytes": 0})
+    paths = {}
+    maps = _scan_batches(data_dir, "store_sales", ["ss_customer_sk",
+                                                   "ss_net_paid"])
+    scan_agg = ("sort_permutation", "gather_columns", "segment_aggregate")
+    explain = Q.top_customers_rr(session, data_dir).explain()
+    if "ShuffleExchangeExec[RoundRobinPartitioning(8)]" not in explain:
+        raise AssertionError("top_customers_rr planned no round-robin "
+                             "exchange")
+    paths["top_customers_rr"] = _drive(
+        torch, "top_customers_rr (round-robin repartition)",
+        lambda: Q.top_customers_rr(session, data_dir),
+        lambda r: _check_top_rr(r, want_rr),
+        scan_agg + _SHUFFLE_ENTRIES + _SCAN_ENTRIES, warm,
+        ("murmur3_columns", "partition_ids_for_keys") + _MAY_DICT)
+    k10 = paths["top_customers_rr"]["group_by_part"]["group_by_part"]
+    # the aggregate's hash exchange, where it is not coalesced, hashes
+    # (K9) and groups (K10) once per partial batch
+    k9 = paths["top_customers_rr"]["partition_ids_for_keys"][
+        "partition_ids_for_keys"]
+    sides = _exchange_sides(torch, session, Q.top_customers_rr(
+        session, data_dir)._prepared())
+    rr = [s for s in sides if "RoundRobin" in s[0]]
+    rr_rows = list(rr[0][2].values()) if rr else []
+    if k10 != maps + k9 or len(rr_rows) != 8 or \
+            max(rr_rows) - min(rr_rows) > 1:
+        raise AssertionError(f"top_customers_rr: K10 launched {k10} times "
+                             f"for {maps} map batches and {k9} hashed "
+                             f"partial batches; round-robin rows by "
+                             f"partition {rr_rows}")
+    print(f"[top_customers_rr] K10 launched {k10} times: once per map "
+          f"batch of the round-robin exchange ({maps}; never coalesced) "
+          f"and of the aggregate's hash exchange ({k9}, K9 as often); rows "
+          f"by partition {rr_rows}; exchanges (bytes, rows by partition): "
+          f"{sides}", flush=True)
+
+    def drive_plan(label, build, check, want, expect_k11):
+        plan = build(pinned, data_dir)
+        print(plan.tree_string(), flush=True)
+        got = _drive(
+            torch, label, None, lambda r: check(r, want),
+            ("sort_permutation", "gather_columns", "group_by_part")
+            + _PARTITION_ENTRIES[:1] + _SCAN_ENTRIES, warm, _MAY_DICT,
+            run=lambda: _host_partitions(Q.partition_batches(
+                pinned, build(pinned, data_dir))),
+            describe=lambda r: f"{sum(len(v) for p in r for _d, v, _l in
+                                      _column(p, 0))} rows in {len(r)} "
+            "partitions, fetched to the host")
+        k11 = got["range_partition_ids"]["range_partition_ids"]
+        if k11 != expect_k11:
+            raise AssertionError(f"{label}: K11 launched {k11} times, "
+                                 f"expected once per map batch "
+                                 f"({expect_k11})")
+        [(desc, sizes, rows)] = _exchange_sides(torch, pinned,
+                                                build(pinned, data_dir))
+        counts = [rows.get(p, 0) for p in range(len(want["counts"]))]
+        print(f"[{label}] K11 launched once per map batch ({k11}); {desc}'s "
+              f"map side (advisoryPartitionSizeInBytes pinned to 0, not "
+              f"coalesced): {sum(sizes.values())} bytes, rows by partition "
+              f"min {min(counts)} max {max(counts)}, "
+              f"{counts.count(0)} empty", flush=True)
+        return got
+
+    paths["range_sort_store_sales"] = drive_plan(
+        "range_sort_store_sales", Q.range_sort_store_sales,
+        _check_range_store_sales, want_ss,
+        _scan_batches(data_dir, "store_sales",
+                      ["ss_sold_date_sk", "ss_net_paid",
+                       "ss_ticket_number"]))
+    paths["range_sort_customer_names"] = drive_plan(
+        "range_sort_customer_names", Q.range_sort_customer_names,
+        _check_range_customers, want_cu,
+        _scan_batches(data_dir, "customer",
+                      ["c_last_name", "c_first_name", "c_customer_id"]))
+    explain = Q.moving_extrema(session, data_dir).explain()
+    if explain.count("WindowExec") != 3:
+        raise AssertionError("moving_extrema planned no three WindowExecs")
+    paths["moving_extrema"] = _drive(
+        torch, "moving_extrema", lambda: Q.moving_extrema(session, data_dir),
+        lambda r: _check_moving(r, want_mv),
+        _Q6_ENTRIES + _SHUFFLE_ENTRIES + ("sorted_segments",
+                                          "running_or_bounded_agg",
+                                          "frame_min_max"), warm,
+        ("matched_build_rows", "murmur3_columns", "key_ids",
+         "partition_ids_for_keys", "group_by_part") + _MAY_DICT,
+        zero=("running_or_bounded_agg",))
+    k12c = paths["moving_extrema"]["frame_min_max"]["frame_min_max"]
+    if k12c < 3:
+        raise AssertionError(f"moving_extrema launched K12c {k12c} times, "
+                             "expected at least 3")
+    for desc, sizes in _map_side_bytes(torch, Q.moving_extrema(session,
+                                                               data_dir)):
+        print(f"[moving_extrema exchange] {desc}: map side "
+              f"{sum(sizes.values())} bytes, by partition {sizes}",
+              flush=True)
+    return entries, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -3547,6 +4201,11 @@ def main(argv=None) -> int:
     paths.update(mortgage_paths)
     torch.cuda.empty_cache()
     entries.update(run_codec_phase(torch, dev, args.sf))
+    torch.cuda.empty_cache()
+    partition_entries, partition_paths = run_partition_phase(torch, dev,
+                                                             args.warm)
+    entries.update(partition_entries)
+    paths.update(partition_paths)
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

@@ -1,6 +1,9 @@
 """Where a query's time goes on the card: TPC-H q1, q14 or q22, TPC-DS
 q6, q15, q24, q51, q63, q84 or q84_all_cities, the ``top_customers``
-repartition, or the mortgage jobs simple_agg, percentiles and agg_join.
+repartition, the round-robin, range and moving-window paths
+(``top_customers_rr``, ``range_sort_store_sales``,
+``range_sort_customer_names``, ``moving_extrema``), or the mortgage jobs
+simple_agg, percentiles and agg_join.
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
 ``bench/tpch_gen.py`` (the TPC-H query's tables), ``bench/tpcds_gen.py``
@@ -32,11 +35,13 @@ turns, in one call.
 ``--layout onefile`` (q6's default here) writes one parquet file per
 table, so q6 plans no exchange; ``--layout default`` writes the
 generator's 2^20-row files, so the scan has 8 partitions and the grouped
-aggregate runs partial -> exchange -> final (the repartition query and
-the queries q15, q24, q51, q63, q84 and q84_all_cities always read this
-layout).  ``--conf
-key=value`` sets a session conf, e.g.
-``spark.sql.adaptive.enabled=false``.
+aggregate runs partial -> exchange -> final (the repartition query, the
+partition paths and the queries q15, q24, q51, q63, q84 and
+q84_all_cities always read this layout).  ``--conf key=value`` sets a
+session conf, e.g. ``spark.sql.adaptive.enabled=false``.  The range sorts
+are physical plans run partition by partition, with
+``spark.sql.adaptive.advisoryPartitionSizeInBytes`` at 0 unless set, so
+that their map side is not coalesced.
 
 Prints one JSON line.  Usage, from the repo root on a machine with a card:
 
@@ -45,6 +50,8 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
         --layout default --conf spark.sql.adaptive.enabled=false
     python -m spark_rapids_tpu_torch.bench.profile_query --query repartition
     python -m spark_rapids_tpu_torch.bench.profile_query --query q51
+    python -m spark_rapids_tpu_torch.bench.profile_query \
+        --query range_sort_store_sales
     python -m spark_rapids_tpu_torch.bench.profile_query --query q22
     python -m spark_rapids_tpu_torch.bench.profile_query --query q24
     python -m spark_rapids_tpu_torch.bench.profile_query --query percentiles
@@ -62,7 +69,9 @@ import torch
 
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.bench import mortgage, tpcds_gen, tpch_gen
-from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
+from spark_rapids_tpu_torch.bench.tpcds_queries import (PARTITION_PATHS,
+                                                        TPCDS_QUERIES,
+                                                        partition_batches,
                                                         top_customers)
 from spark_rapids_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from spark_rapids_tpu_torch.columnar.batch import _CODEC_DEFAULT
@@ -79,6 +88,8 @@ _TPCH = {"q1": ((("lineitem",),), "lineitem"),
          "q22": ((TPCH_OTHER,), "orders")}
 
 _MORTGAGE = ("simple_agg", "percentiles", "agg_join")
+#: the conf that keeps a range exchange's map side from being coalesced
+_ADVISORY = "spark.sql.adaptive.advisoryPartitionSizeInBytes"
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -137,7 +148,7 @@ def main(argv=None) -> int:
     ap.add_argument("--query",
                     choices=("q1", "q14", "q22", "q6", "q15", "q24", "q51",
                              "q63", "q84", "q84_all_cities", "repartition")
-                    + _MORTGAGE, default="q6")
+                    + tuple(PARTITION_PATHS) + _MORTGAGE, default="q6")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 10); for the mortgage "
                     "jobs thousands of loans (default 1000)")
@@ -167,7 +178,7 @@ def main(argv=None) -> int:
         query = TPCH_QUERIES[args.query]
         fact = (big, tpch_gen.table_row_counts(args.sf)[big])
     else:
-        query, tables = TPCDS_QUERIES[
+        query, tables = PARTITION_PATHS.get(args.query) or TPCDS_QUERIES[
             args.query if args.query in TPCDS_QUERIES else "q6"]
         if args.query == "repartition":
             query = top_customers
@@ -179,20 +190,31 @@ def main(argv=None) -> int:
             data_dir, sf=args.sf, seed=42, tables=tables,
             rows_per_file=1 << 40 if args.layout == "onefile" else 1 << 20)
         big = {"q15": "catalog_sales", "q84": "store_returns",
-               "q84_all_cities": "store_returns"}.get(args.query,
-                                                      "store_sales")
+               "q84_all_cities": "store_returns",
+               "range_sort_customer_names": "customer"}.get(args.query,
+                                                            "store_sales")
         fact = (big, tpcds_gen.table_row_counts(args.sf)[big])
-    session = TorchSession(dict(kv.split("=", 1) for kv in args.conf))
+    conf = dict(kv.split("=", 1) for kv in args.conf)
+    if args.query.startswith("range_sort"):
+        conf.setdefault(_ADVISORY, 0)
+    session = TorchSession(conf)
+
+    def plan():
+        q = query(session, data_dir)
+        return q._prepared() if hasattr(q, "_prepared") else q
 
     def run():
-        return query(session, data_dir).collect()
+        q = query(session, data_dir)
+        if hasattr(q, "collect"):
+            return q.collect()
+        return partition_batches(session, q)
 
     cold = _timed(run)
     torch.cuda.reset_peak_memory_stats()
     warm = _timed(run)
     peak = torch.cuda.max_memory_allocated()
     ctx = ExecCtx(device=session.device, conf=session.conf)
-    scan = fact_scan(query(session, data_dir)._prepared(), fact[0])
+    scan = fact_scan(plan(), fact[0])
     # the batches are held on the card until the scan ends
     scanned = []
     scan.stats.reset()

@@ -2,11 +2,17 @@
 ``spark_rapids_tpu/bench/tpcds_queries.py``: q3, q6, q15, q42, q52, q53, q63,
 of ``tpcds_queries4.py``: q84, and of ``tpcds_queries5.py``: q24 and q51,
 the ones whose operators the port has), :func:`q84_all_cities`, q84
-without its city filter, and :func:`top_customers`, an explicit
-repartition of the fact table.
+without its city filter, :func:`top_customers` and
+:func:`top_customers_rr`, explicit repartitions of the fact table (hash
+and round-robin), :func:`moving_extrema`, moving-window highs and lows on
+q51's store half, and two distributed sorts over a range exchange,
+:func:`range_sort_store_sales` and :func:`range_sort_customer_names`.
 
 Each builder takes a :class:`TorchSession` and the data directory and
-returns a DataFrame over the generated tables (``bench/tpcds_gen.py``).
+returns a DataFrame over the generated tables (``bench/tpcds_gen.py``);
+the range sorts return a physical plan (the reference has no DataFrame
+method for a range repartition), run partition by partition with
+:func:`partition_batches`.
 q6's scalar subquery (the month_seq) and q24's (5% of the average net
 paid) are evaluated eagerly and folded in as literals -- the plan shape
 Spark produces after subquery execution.
@@ -16,9 +22,9 @@ from __future__ import annotations
 import os
 
 from spark_rapids_tpu_torch.expr.aggregates import (Average, CountStar, Max,
-                                                    Sum)
+                                                    Min, Sum)
 from spark_rapids_tpu_torch.expr.arithmetic import Abs
-from spark_rapids_tpu_torch.expr.conditional import Coalesce
+from spark_rapids_tpu_torch.expr.conditional import Coalesce, If
 from spark_rapids_tpu_torch.expr.core import col, lit
 from spark_rapids_tpu_torch.expr.predicates import In, Or
 from spark_rapids_tpu_torch.expr.strings import Concat, Substring, Upper
@@ -27,7 +33,11 @@ from spark_rapids_tpu_torch.expr.window import (CURRENT_ROW, UNBOUNDED,
                                                 WindowFrame, WindowSpec)
 
 __all__ = ["TPCDS_QUERIES", "q3", "q6", "q15", "q24", "q42", "q51", "q52",
-           "q53", "q63", "q84", "q84_all_cities", "top_customers"]
+           "q53", "q63", "q84", "q84_all_cities", "top_customers",
+           "top_customers_rr", "moving_extrema", "range_sort_store_sales",
+           "range_sort_customer_names", "partition_batches",
+           "RANGE_STORE_SALES_ORDERS", "RANGE_CUSTOMER_ORDERS",
+           "PARTITION_PATHS"]
 
 
 def _t(session, data_dir: str, table: str, columns=None):
@@ -364,6 +374,119 @@ def top_customers(session, data_dir: str):
         .limit(100)
 
 
+def top_customers_rr(session, data_dir: str):
+    """top_customers over store_sales round-robin-repartitioned into 8
+    partitions (no keys): a data engineer's rebalancing repartition
+    before an aggregation or a write.  The 100 customers with the most
+    purchases, with their largest and total net paid."""
+    return _t(session, data_dir, "store_sales",
+              ["ss_customer_sk", "ss_net_paid"]) \
+        .repartition(8) \
+        .group_by("ss_customer_sk").agg(
+            CountStar().alias("n"), Max(col("ss_net_paid")).alias("max_paid"),
+            Sum(col("ss_net_paid")).alias("paid")) \
+        .order_by(("n", False), ("ss_customer_sk", True)) \
+        .limit(100)
+
+
+def moving_extrema(session, data_dir: str):
+    """Moving-window highs and lows over q51's store half: per (item,
+    day) sales in 2000 (built as q51's ``v1``), then over each item's days
+    the trailing 7-day high (ROWS 6 PRECEDING .. CURRENT ROW), the
+    centred 7-day low (ROWS 3 PRECEDING .. 3 FOLLOWING) and the high from
+    the day on (RANGE CURRENT ROW .. UNBOUNDED FOLLOWING); per item, the
+    days at their trailing high, the days at their forward high and the
+    sum of the centred lows, ordered by item.  An analyst's moving
+    high/low.  A day is at a high when its sales are within half a cent
+    of it (a day's sales never exceed a high over a frame that holds the
+    day): the order in which a day's cent prices are summed moves its
+    double by an ulp, which must not split two equal days."""
+    dd = _t(session, data_dir, "date_dim",
+            ["d_date_sk", "d_date", "d_month_seq"]) \
+        .where((col("d_month_seq") >= lit(1200))
+               & (col("d_month_seq") <= lit(1211)))
+    days = _t(session, data_dir, "store_sales",
+              ["ss_item_sk", "ss_sold_date_sk", "ss_sales_price"]) \
+        .where(col("ss_item_sk").is_not_null()) \
+        .join(dd, on=[("ss_sold_date_sk", "d_date_sk")]) \
+        .group_by("ss_item_sk", "d_date") \
+        .agg(Sum(col("ss_sales_price")).alias("day_sales"))
+
+    def over(fn, frame):
+        return WindowExpression(fn(col("day_sales")), WindowSpec(
+            partition_by=(col("ss_item_sk"),),
+            order_by=((col("d_date"), True),), frame=frame))
+
+    w = days.select(
+        col("ss_item_sk"), col("day_sales"),
+        over(Max, WindowFrame("rows", -6, CURRENT_ROW)).alias("high7"),
+        over(Min, WindowFrame("rows", -3, 3)).alias("low7"),
+        over(Max, WindowFrame("range", CURRENT_ROW, UNBOUNDED))
+        .alias("high_on"))
+    return w.group_by("ss_item_sk").agg(
+        Sum(If(col("day_sales") >= col("high7") - lit(0.005), lit(1),
+               lit(0))).alias("high_days"),
+        Sum(If(col("day_sales") >= col("high_on") - lit(0.005), lit(1),
+               lit(0))).alias("peak_days"),
+        Sum(col("low7")).alias("low_sum")) \
+        .order_by(("ss_item_sk", True))
+
+
+#: range_sort_store_sales's sort: the sale date ascending (nulls first,
+#: Spark's default), then the net paid descending
+RANGE_STORE_SALES_ORDERS = [("ss_sold_date_sk", True, True),
+                            ("ss_net_paid", False)]
+#: range_sort_customer_names's sort: last name ascending, first name
+#: descending (nulls last), customer id ascending
+RANGE_CUSTOMER_ORDERS = [("c_last_name", True), ("c_first_name", False, False),
+                         ("c_customer_id", True)]
+
+
+def _range_sorted(df, orders, num_partitions: int):
+    from spark_rapids_tpu_torch.exec import (RangePartitioning,
+                                             ShuffleExchangeExec, SortExec)
+    ex = ShuffleExchangeExec(RangePartitioning(orders, num_partitions),
+                             df._prepared())
+    return SortExec(orders, ex, global_sort=False)
+
+
+def range_sort_store_sales(session, data_dir: str, num_partitions: int = 8):
+    """A distributed sort of all store_sales rows (date, net paid,
+    ticket): a range exchange into ``num_partitions`` by
+    :data:`RANGE_STORE_SALES_ORDERS`, then a sort of each partition; the
+    partitions read in order are the sorted table.  The physical plan."""
+    return _range_sorted(_t(session, data_dir, "store_sales",
+                            ["ss_sold_date_sk", "ss_net_paid",
+                             "ss_ticket_number"]),
+                         RANGE_STORE_SALES_ORDERS, num_partitions)
+
+
+def range_sort_customer_names(session, data_dir: str,
+                              num_partitions: int = 200):
+    """The customers sorted by name over a range exchange into
+    ``num_partitions`` (200, Spark's default shuffle partitions): string
+    keys, two of them with 12 values, so many bounds tie and some
+    partitions stay empty.  The physical plan."""
+    return _range_sorted(_t(session, data_dir, "customer",
+                            ["c_last_name", "c_first_name", "c_customer_id"]),
+                         RANGE_CUSTOMER_ORDERS, num_partitions)
+
+
+def partition_batches(session, plan) -> list[list]:
+    """Run a physical plan on the session's device: each partition's
+    batches, in partition order.  The exchange's map-side coalescing
+    follows the session's conf: pin
+    ``spark.sql.adaptive.advisoryPartitionSizeInBytes`` to 0 (or turn the
+    adaptive layer off) to keep a range exchange's partitions."""
+    from spark_rapids_tpu_torch.exec.core import ExecCtx
+    ctx = ExecCtx(device=session.device, conf=session.conf)
+    try:
+        return [list(plan.partition_iter(ctx, pid))
+                for pid in range(plan.num_partitions(ctx))]
+    finally:
+        ctx.close()
+
+
 #: query name -> (builder, tables it reads)
 TPCDS_QUERIES = {
     "q3": (q3, ("date_dim", "item", "store_sales")),
@@ -384,4 +507,14 @@ TPCDS_QUERIES = {
     "q84_all_cities": (q84_all_cities, (
         "customer", "customer_address", "customer_demographics",
         "household_demographics", "income_band", "store_returns")),
+}
+
+#: the round-robin, range and moving-window paths: name -> (builder,
+#: tables it reads); the range sorts build physical plans
+PARTITION_PATHS = {
+    "top_customers_rr": (top_customers_rr, ("store_sales",)),
+    "range_sort_store_sales": (range_sort_store_sales, ("store_sales",)),
+    "range_sort_customer_names": (range_sort_customer_names,
+                                  ("customer",)),
+    "moving_extrema": (moving_extrema, ("date_dim", "store_sales")),
 }

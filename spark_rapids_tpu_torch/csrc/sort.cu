@@ -17,7 +17,10 @@
 //         mapped to +0.0, negated when descending, in the usual
 //         sign-flip float encoding (32 or 64 bits);
 //       strings: the byte matrix as big-endian 32-bit words, then the
-//         length (bit_length(W) bits).
+//         length (bit_length(W) bits), at a packed width W that may exceed
+//         the matrix's (zero words past it), so that two batches of
+//         different widths pack comparably (K11 packs rows and range
+//         bounds at one width).
 //     Descending keys store the complement of each field (W - length for
 //     the string length).  The order of the packed integer is exactly the
 //     lexicographic order lax.sort applies to the reference's operands.
@@ -65,22 +68,24 @@ __device__ __forceinline__ int bit_length(int w) { return 32 - __clz(w); }
 __global__ void encode_kernel(const void* __restrict__ data,
                               const uint8_t* __restrict__ valid,
                               const int32_t* __restrict__ lens, int kind,
-                              int item, int asc, int nulls_first, int pos0,
+                              int item, int width, int asc, int nulls_first,
+                              int pos0,
                               unsigned long long* __restrict__ limbs,
                               int64_t n) {
   for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += (int64_t)gridDim.x * blockDim.x) {
     int pos = pos0;
     if (kind == kString) {
-      const int lb = bit_length(item);
+      const int lb = bit_length(width);
       const int32_t len = lens[row];
       put_bits(limbs, n, row, asc ? (unsigned long long)len
-                                  : (unsigned long long)(item - len), lb, pos);
+                                  : (unsigned long long)(width - len), lb, pos);
       pos += lb;
       const uint32_t* wp = reinterpret_cast<const uint32_t*>(
           static_cast<const uint8_t*>(data) + row * item);
-      for (int w = item / 4 - 1; w >= 0; --w) {
-        uint32_t x = __byte_perm(wp[w], 0, 0x0123);  // big-endian word
+      for (int w = width / 4 - 1; w >= 0; --w) {
+        // big-endian word; zero past the matrix's width
+        uint32_t x = w < item / 4 ? __byte_perm(wp[w], 0, 0x0123) : 0u;
         if (!asc) x = ~x;
         put_bits(limbs, n, row, x, 32, pos);
         pos += 32;
@@ -268,14 +273,18 @@ using namespace srt_sort;
 extern "C" {
 
 // OR the fields of one key column into the limbs (zeroed by the caller);
-// the column's least significant field starts at bit pos0.
+// the column's least significant field starts at bit pos0.  item: bytes a
+// row (the matrix width for strings, a multiple of 4); width: the packed
+// string width (>= item, a multiple of 4), ignored for other kinds.
 int srt_sort_encode(const void* data, const void* valid, const void* lens,
-                    int kind, int item, int asc, int nulls_first, int pos0,
-                    void* limbs, int64_t n, void* stream) {
+                    int kind, int item, int width, int asc, int nulls_first,
+                    int pos0, void* limbs, int64_t n, void* stream) {
+  if (kind == kString && (item % 4 || width % 4 || width < item))
+    return (int)cudaErrorInvalidValue;
   if (n > 0)
     encode_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        data, (const uint8_t*)valid, (const int32_t*)lens, kind, item, asc,
-        nulls_first, pos0, (unsigned long long*)limbs, n);
+        data, (const uint8_t*)valid, (const int32_t*)lens, kind, item, width,
+        asc, nulls_first, pos0, (unsigned long long*)limbs, n);
   return (int)cudaGetLastError();
 }
 

@@ -25,8 +25,7 @@
 //     start).  An empty frame (lo > hi) counts 0 rows and gives null.
 //     Min/max read state[hi]; they serve frames whose lower edge is the
 //     partition start (running and whole-partition frames).  A bounded
-//     lower edge needs a range-min/max structure that is not ported
-//     (ROADMAP.md Queue 2, K12); the wrapper raises before launching.
+//     lower edge goes to K12c (csrc/window_range.cu).
 //
 // Ops: 0 sum over integers, 1 sum over floats, 2 avg over integers, 3 avg
 // over floats, 4 count, 5/6 min/max over integers (and bools and dates),

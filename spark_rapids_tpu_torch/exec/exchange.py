@@ -4,7 +4,9 @@
 
 An exchange is a stage barrier.  On its first pull it drains every child
 partition (the map side), computes each map batch's partition ids (K9,
-through the partitioning), groups the rows by partition (K10 + K3) and
+K11 or round-robin, through the partitioning; a partitioning that
+``needs_prepare`` first sees every map batch, as the reference's
+``prepare`` does at :232), groups the rows by partition (K10 + K3) and
 hands each partition's rows to the shuffle transport as a view of the
 grouped batch; the batch's ``counts`` cross to the host once, to slice.
 Reduce partitions are then served from the transport, in map-batch order.
@@ -59,8 +61,8 @@ def _fp_extra(n: PlanNode) -> str | None:
                                                       SortExec)
     if isinstance(n, ShuffleExchangeExec):
         p = n.partitioning
-        return (f"{type(p).__name__}:{p.num_partitions}:"
-                f"{getattr(p, '_keys', ())!r}")
+        keys = getattr(p, "_keys", None) or getattr(p, "_orders_raw", ())
+        return f"{type(p).__name__}:{p.num_partitions}:{keys!r}"
     if isinstance(n, AdaptiveShuffleReaderExec):
         return f"{n.allow_coalesce}:{n.allow_skew_split}"
     if isinstance(n, (LocalLimitExec, GlobalLimitExec)):
@@ -145,6 +147,9 @@ class ShuffleExchangeExec(PlanNode):
             batches = list(batches)
             coalesced = sum(b.device_size_bytes() for b in batches) \
                 <= ctx.conf.get(ADVISORY_PARTITION_BYTES)
+        if self.partitioning.needs_prepare and not coalesced and n > 1:
+            batches = list(batches)
+            self.partitioning.prepare(batches)
         for bi, b in enumerate(batches):
             self._write_map_batch(transport, bi, b, coalesced or n == 1, n)
         return transport

@@ -5,7 +5,8 @@ GpuWindowExec.scala:92).  The exec concatenates its input's batches into
 one (RequireSingleBatch, as the reference's child goal), sorts it once by
 (partition keys ascending with nulls first, then the order keys) with K1
 and K3, derives the shared segment arrays (K12a) and computes every
-window expression from them (K12b for frame aggregates).  Output rows are
+window expression from them (K12b for frame aggregates, K12c for min/max
+over a frame with a bounded lower edge).  Output rows are
 in sorted order (Spark leaves window output order undefined).
 
 With ``keys_partitioned`` the planner has hash-partitioned the input on

@@ -46,6 +46,8 @@ SOURCES = {
     "string_case": "string_case.cu",
     "string_hex": "string_hex.cu",
     "wirecodec": "wirecodec.cu",
+    "range_partition": "range_partition.cu",
+    "window_range": "window_range.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -67,7 +69,7 @@ _SIGNATURES = {
         "srt_gather_column": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "sort": {
-        "srt_sort_encode": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P],
+        "srt_sort_encode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _P],
         "srt_sort_or_and": [_P, _L, _I, _P, _P],
         "srt_sort_limb": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
                           ctypes.POINTER(ctypes.c_int), _P],
@@ -131,6 +133,14 @@ _SIGNATURES = {
     "wirecodec": {
         "srt_decode_fixed": [_P, _I, _P, _L, _D, _I, _I, _P, _P, _P, _L, _P],
         "srt_decode_dict": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P],
+    },
+    "range_partition": {
+        "srt_range_partition": [_P, _L, _I, _P, _I, _P, _P],
+    },
+    "window_range": {
+        "srt_window_range_width": [_P, _P, _L, _P, _P],
+        "srt_window_range": [_I, _I, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P,
+                             _P, _P],
     },
 }
 

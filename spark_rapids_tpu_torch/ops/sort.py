@@ -36,7 +36,7 @@ from spark_rapids_tpu_torch.ops.kernels import (gather_columns, num_tiles,
 
 __all__ = ["SortOrder", "sort_batch", "sort_permutation",
            "sort_permutation_plain", "encode_key_operands",
-           "normalize_floats", "chain_sort"]
+           "normalize_floats", "chain_sort", "pack_keys", "packed_width"]
 
 
 @dataclass(frozen=True)
@@ -133,13 +133,15 @@ def sort_permutation_plain(batch: ColumnBatch,
 _KIND_INT, _KIND_FLOAT, _KIND_BOOL, _KIND_STRING = 0, 1, 2, 3
 
 
-def key_layout(col: DeviceColumn) -> tuple[int, int, int]:
+def key_layout(col: DeviceColumn, width: int | None = None
+               ) -> tuple[int, int, int]:
     """(kind, item, bits) of a key column in the packed key: item is the
-    byte size (the matrix width W for strings); bits counts the null
-    indicator and every field (csrc/sort.cu encode_kernel)."""
+    byte size (the packed width W for strings: ``width``, default the
+    matrix's); bits counts the null indicator and every field
+    (csrc/sort.cu encode_kernel)."""
     dt = col.dtype
     if isinstance(dt, T.StringType):
-        w = col.max_len
+        w = col.max_len if width is None else width
         if w % 4:
             raise ValueError(f"string width {w} is not a multiple of 4")
         return _KIND_STRING, w, 1 + 32 * (w // 4) + w.bit_length()
@@ -151,31 +153,63 @@ def key_layout(col: DeviceColumn) -> tuple[int, int, int]:
     return _KIND_INT, item, 1 + 8 * item
 
 
+def packed_width(col: DeviceColumn) -> int:
+    """The smallest packed width of a string key: its matrix width
+    rounded up to a multiple of 4."""
+    return -(-col.max_len // 4) * 4
+
+
+def pack_keys(cols: list[DeviceColumn], orders: list[SortOrder],
+              widths: list[int | None] | None = None) -> torch.Tensor:
+    """K1's packed order-preserving key of ``cols`` (one ``SortOrder``
+    each, for its direction and null order) on their CUDA device: int64
+    limbs ``[nlimbs, n]``, limb 0 least significant, the first column in
+    the most significant bits.  ``widths[i]`` is the packed width of a
+    string column (default :func:`packed_width`); rows packed at the same
+    widths compare as their keys do."""
+    lib = native.lib("sort")
+    n = cols[0].capacity
+    dev = cols[0].device
+    if widths is None:
+        widths = [None] * len(cols)
+    widths = [packed_width(c) if c.is_string and w is None else w
+              for c, w in zip(cols, widths)]
+    layouts = [key_layout(c, w) for c, w in zip(cols, widths)]
+    total = sum(bits for _k, _i, bits in layouts)
+    limbs = torch.zeros((max(1, (total + 63) // 64), n), dtype=torch.int64,
+                        device=dev)
+    pos = 0
+    # least significant key first
+    for o, c, (kind, item, bits) in reversed(list(zip(orders, cols,
+                                                      layouts))):
+        data = c.data.contiguous()
+        row_bytes = item
+        if kind == _KIND_STRING:
+            row_bytes = packed_width(c)
+            if row_bytes != c.max_len:
+                data = torch.nn.functional.pad(data,
+                                               (0, row_bytes - c.max_len))
+            elif data.data_ptr() % 4:
+                data = data.clone()
+        valid = c.validity.contiguous()
+        lens = None if c.lengths is None else c.lengths.contiguous()
+        native.check(lib.srt_sort_encode(
+            ptr(data), ptr(valid), ptr(lens), kind, row_bytes, item,
+            int(o.ascending), int(o.resolved_nulls_first), pos, ptr(limbs),
+            n, native.stream_ptr(dev)), "srt_sort_encode")
+        pos += bits
+    return limbs
+
+
 def _sort_permutation_cuda(batch: ColumnBatch,
                            orders: list[SortOrder]) -> torch.Tensor:
     lib = native.lib("sort")
     n = batch.num_rows
     dev = batch.device
     stream = native.stream_ptr(dev)
-    cols = [batch.columns[o.child_index] for o in orders]
-    layouts = [key_layout(c) for c in cols]
-    total = sum(bits for _k, _i, bits in layouts)
-    nlimbs = max(1, (total + 63) // 64)
-    limbs = torch.zeros((nlimbs, n), dtype=torch.int64, device=dev)
-    pos = 0
-    # least significant key first
-    for o, c, (kind, item, bits) in reversed(list(zip(orders, cols,
-                                                      layouts))):
-        data = c.data.contiguous()
-        if kind == _KIND_STRING and data.data_ptr() % 4:
-            data = data.clone()
-        valid = c.validity.contiguous()
-        lens = None if c.lengths is None else c.lengths.contiguous()
-        native.check(lib.srt_sort_encode(
-            ptr(data), ptr(valid), ptr(lens), kind, item, int(o.ascending),
-            int(o.resolved_nulls_first), pos, ptr(limbs), n, stream),
-            "srt_sort_encode")
-        pos += bits
+    limbs = pack_keys([batch.columns[o.child_index] for o in orders],
+                      orders)
+    nlimbs = limbs.shape[0]
     or_and = torch.tensor([0, -1] * nlimbs, dtype=torch.int64, device=dev)
     native.check(lib.srt_sort_or_and(ptr(limbs), n, nlimbs, ptr(or_and),
                                      stream), "srt_sort_or_and")

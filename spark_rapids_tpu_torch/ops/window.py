@@ -13,7 +13,11 @@ batch:
 * :func:`running_or_bounded_agg` (K12b, ``csrc/window_agg.cu``):
   sum/count/avg over any frame and min/max over frames whose lower edge
   is the partition start, by a segmented running scan read at the frame's
-  edges;
+  edges; min/max over a frame with a bounded lower edge go to
+* :func:`frame_min_max` (K12c, ``csrc/window_range.cu``): a sparse table
+  whose levels stop at the widest frame of the batch, read at two
+  overlapping spans per row (the reference's ``_sparse_table`` :126 and
+  ``_range_query`` :140 build every level over the whole batch);
 * :func:`row_number`, :func:`rank`, :func:`dense_rank` from the segment
   arrays, and :func:`lead_lag`, index glue plus K3's gather.
 
@@ -29,10 +33,6 @@ infinity, else the finite sum), so a non-finite value outside the frame
 never enters its result.  The reference subtracts prefix sums over the
 whole batch, where one NaN or infinity turns every later frame's
 difference into NaN (ROADMAP.md Queue 3).
-
-Min/max with a bounded lower edge (the reference's sparse table,
-``:126``/``:140``) exist only in the plain version: on a CUDA tensor they
-raise NotImplementedError (ROADMAP.md Queue 2, K12).
 
 All results are in sorted order; Spark does not define window output
 order.
@@ -54,16 +54,11 @@ from spark_rapids_tpu_torch.ops.sort import normalize_floats
 __all__ = ["WindowFrame", "UNBOUNDED", "CURRENT_ROW", "SegmentInfo",
            "sorted_segments", "segment_extents_plain",
            "running_or_bounded_agg", "running_or_bounded_agg_plain",
+           "frame_min_max", "frame_min_max_plain",
            "row_number", "rank", "dense_rank", "lead_lag"]
 
 UNBOUNDED = None
 CURRENT_ROW = 0
-
-_SPARSE_TABLE = ("min/max over a window frame with a bounded lower edge "
-                 "needs the range-min/max kernel of ROADMAP.md Queue 2, K12 "
-                 "(the reference's sparse table), which is not ported yet; "
-                 "only the plain CPU version covers it")
-
 
 @dataclass(frozen=True)
 class WindowFrame:
@@ -216,10 +211,26 @@ def running_or_bounded_agg(op: str, col: DeviceColumn, seg: SegmentInfo,
     _check_op(op, col)
     if col.data.device.type == "cpu":
         return running_or_bounded_agg_plain(op, col, seg, frame)
+    if op in ("min", "max") and frame.lower is not UNBOUNDED:
+        data, valid = frame_min_max(op, col, *_frame_edges(seg, frame))
+        return data, valid, AggSpec(op, 0).result_type(col.dtype)
     return _window_agg_cuda(op, col, seg, frame)
 
 
 running_or_bounded_agg.launches = 0
+
+
+def _frame_totals(x: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` over each row's frame ``[lo, hi]`` (0 when empty), by
+    differences of prefix sums over the whole batch."""
+    n = x.numel()
+    # an empty frame (lo > hi, e.g. ROWS 2 FOLLOWING..5 FOLLOWING at the
+    # partition's tail) totals 0, never a negative cross-partition diff
+    hi1 = torch.maximum(hi + 1, lo).clamp(0, n)
+    ps = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
+                    torch.cumsum(x, 0)])
+    return ps[hi1] - ps[lo.clamp(0, n)]
 
 
 def running_or_bounded_agg_plain(op: str, col: DeviceColumn,
@@ -227,59 +238,86 @@ def running_or_bounded_agg_plain(op: str, col: DeviceColumn,
     """Plain PyTorch version of :func:`running_or_bounded_agg` (any
     device): differences of prefix sums over the whole batch with the
     non-finite values counted apart, and the reference's sparse table for
-    min/max."""
+    min/max (:func:`frame_min_max_plain`)."""
     _check_op(op, col)
     n = col.validity.numel()
     dev = col.validity.device
     lo, hi = _frame_edges(seg, frame)
     lo, hi = lo.long(), hi.long()
-    # an empty frame (lo > hi, e.g. ROWS 2 FOLLOWING..5 FOLLOWING at the
-    # partition's tail) totals 0, never a negative cross-partition diff
-    hi1 = torch.maximum(hi + 1, lo).clamp(0, n)
-    lo_c = lo.clamp(0, n)
     contributes = col.validity
     rtype = AggSpec(op, 0).result_type(col.dtype)
+    if op in ("min", "max"):
+        return (*frame_min_max_plain(op, col, lo, hi), rtype)
 
     def frame_total(x):
-        ps = torch.cat([torch.zeros(1, dtype=x.dtype, device=dev),
-                        torch.cumsum(x, 0)])
-        return ps[hi1] - ps[lo_c]
+        return _frame_totals(x, lo, hi)
 
     cnt = frame_total(contributes.to(torch.int64))
     has = cnt > 0
     if op == "count":
         return cnt, torch.ones(n, dtype=torch.bool, device=dev), rtype
-    if op in ("sum", "avg"):
-        if col.dtype.integral:
-            total = frame_total(torch.where(contributes, col.data.long(),
-                                            0))
-            data = total if op == "sum" else \
-                total.double() / cnt.clamp(min=1).double()
-        else:
-            x = col.data.double()
-            fin = contributes & torch.isfinite(x)
-            total = frame_total(torch.where(fin, x, 0.0))
-            if op == "avg":
-                total = total / cnt.clamp(min=1).double()
-            nan = frame_total((contributes & torch.isnan(x)).long())
-            pinf = frame_total((contributes & (x == float("inf"))).long())
-            ninf = frame_total((contributes & (x == float("-inf"))).long())
-            data = torch.where(ninf > 0, float("-inf"), total)
-            data = torch.where(pinf > 0, float("inf"), data)
-            data = torch.where((nan > 0) | ((pinf > 0) & (ninf > 0)),
-                               float("nan"), data)
-        return torch.where(has, data, torch.zeros((), dtype=data.dtype,
-                                                  device=dev)), has, rtype
-    # min / max
+    if col.dtype.integral:
+        total = frame_total(torch.where(contributes, col.data.long(), 0))
+        data = total if op == "sum" else \
+            total.double() / cnt.clamp(min=1).double()
+    else:
+        x = col.data.double()
+        fin = contributes & torch.isfinite(x)
+        total = frame_total(torch.where(fin, x, 0.0))
+        if op == "avg":
+            total = total / cnt.clamp(min=1).double()
+        nan = frame_total((contributes & torch.isnan(x)).long())
+        pinf = frame_total((contributes & (x == float("inf"))).long())
+        ninf = frame_total((contributes & (x == float("-inf"))).long())
+        data = torch.where(ninf > 0, float("-inf"), total)
+        data = torch.where(pinf > 0, float("inf"), data)
+        data = torch.where((nan > 0) | ((pinf > 0) & (ninf > 0)),
+                           float("nan"), data)
+    return torch.where(has, data, torch.zeros((), dtype=data.dtype,
+                                              device=dev)), has, rtype
+
+
+# ---------------------------------------------------------------------------
+# K12c: min/max over frames with a bounded lower edge
+# ---------------------------------------------------------------------------
+
+def frame_min_max(op: str, col: DeviceColumn, lo: torch.Tensor,
+                  hi: torch.Tensor):
+    """``op`` ("min" or "max") of ``col`` over each row's inclusive frame
+    ``[lo, hi]`` (int32 row indices into the sorted batch, clamped to the
+    row's partition; lo > hi is an empty frame), with Spark's float order
+    (NaN largest, -0.0 == 0.0).  Returns (data of the column's dtype,
+    validity); a frame without a contributing row is null."""
+    _check_op(op, col)
+    if op not in ("min", "max"):
+        raise ValueError(f"frame_min_max op {op}")
+    if col.data.device.type == "cpu":
+        return frame_min_max_plain(op, col, lo, hi)
+    return _frame_min_max_cuda(op, col, lo, hi)
+
+
+frame_min_max.launches = 0
+
+
+def frame_min_max_plain(op: str, col: DeviceColumn, lo: torch.Tensor,
+                        hi: torch.Tensor):
+    """Plain PyTorch version of :func:`frame_min_max` (any device): the
+    reference's sparse table over the whole batch, with NaN and the
+    result's validity from prefix-sum counts."""
+    lo, hi = lo.long(), hi.long()
+    dev = col.validity.device
+    contributes = col.validity
+    cnt = _frame_totals(contributes.to(torch.int64), lo, hi)
+    has = cnt > 0
+    fop = torch.minimum if op == "min" else torch.maximum
     if col.dtype.fractional:
         x = normalize_floats(col.data)
         isnan = torch.isnan(x)
         ident = float("inf") if op == "min" else float("-inf")
         base = torch.where(contributes & ~isnan, x,
                            torch.full((), ident, dtype=x.dtype, device=dev))
-        fop = torch.minimum if op == "min" else torch.maximum
         res = _range_query(_sparse_table(base, fop), lo, hi, fop, ident)
-        nan_cnt = frame_total((contributes & isnan).long())
+        nan_cnt = _frame_totals((contributes & isnan).long(), lo, hi)
         nan = torch.full((), float("nan"), dtype=x.dtype, device=dev)
         if op == "min":
             res = torch.where(has & (cnt == nan_cnt), nan, res)
@@ -291,11 +329,46 @@ def running_or_bounded_agg_plain(op: str, col: DeviceColumn,
         ident = info.max if op == "min" else info.min
         base = torch.where(contributes, d,
                            torch.full((), ident, dtype=d.dtype, device=dev))
-        fop = torch.minimum if op == "min" else torch.maximum
         res = _range_query(_sparse_table(base, fop), lo, hi, fop, ident)
         res = res.to(col.data.dtype)
     return torch.where(has, res, torch.zeros((), dtype=res.dtype,
-                                             device=dev)), has, rtype
+                                             device=dev)), has
+
+
+_KIND_INT, _KIND_FLOAT, _KIND_BOOL = 0, 1, 2
+
+
+def _frame_min_max_cuda(op: str, col: DeviceColumn, lo: torch.Tensor,
+                        hi: torch.Tensor):
+    n = col.validity.numel()
+    dev = col.validity.device
+    out = torch.zeros(n, dtype=col.data.dtype, device=dev)
+    valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, valid
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows exceed the int32 row index")
+    lib = native.lib("window_range")
+    stream = native.stream_ptr(dev)
+    lo = lo.to(torch.int32).contiguous()
+    hi = hi.to(torch.int32).contiguous()
+    width = torch.zeros(1, dtype=torch.int32, device=dev)
+    native.check(lib.srt_window_range_width(ptr(lo), ptr(hi), n, ptr(width),
+                                            stream), "srt_window_range_width")
+    levels = max(int(width.item()), 1).bit_length() - 1  # the one sync
+    item = col.data.element_size()
+    kind = _KIND_BOOL if col.data.dtype == torch.bool else \
+        _KIND_FLOAT if col.dtype.fractional else _KIND_INT
+    keys = torch.empty((levels + 1) * n, device=dev,
+                       dtype=torch.int32 if item <= 4 else torch.int64)
+    has = torch.empty((levels + 1) * n, dtype=torch.uint8, device=dev)
+    native.check(lib.srt_window_range(
+        int(op == "max"), kind, item, ptr(col.data.contiguous()),
+        ptr(col.validity.contiguous()), ptr(lo), ptr(hi), n, levels,
+        ptr(keys), ptr(has), ptr(out), ptr(valid), stream),
+        "srt_window_range")
+    frame_min_max.launches += 1
+    return out, valid
 
 
 def _sparse_table(x: torch.Tensor, op) -> list[torch.Tensor]:
@@ -337,8 +410,6 @@ _OP_CODES = {("sum", False): 0, ("sum", True): 1, ("avg", False): 2,
 
 def _window_agg_cuda(op: str, col: DeviceColumn, seg: SegmentInfo,
                      frame: WindowFrame):
-    if op in ("min", "max") and frame.lower is not UNBOUNDED:
-        raise NotImplementedError(_SPARSE_TABLE)
     n = col.validity.numel()
     dev = col.validity.device
     rtype = AggSpec(op, 0).result_type(col.dtype)

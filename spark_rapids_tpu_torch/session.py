@@ -118,8 +118,9 @@ class DataFrame:
         return DataFrame(self._s, L.Limit(n, self._plan))
 
     def repartition(self, num_partitions: int, *keys) -> "DataFrame":
-        """Hash-repartition on ``keys`` into ``num_partitions`` (a shuffle
-        exchange the adaptive layer never coalesces)."""
+        """Hash-repartition on ``keys`` into ``num_partitions``, or
+        round-robin without keys (a shuffle exchange the adaptive layer
+        never coalesces)."""
         return DataFrame(self._s, L.Repartition(
             num_partitions, [self._col_or_expr(k) for k in keys],
             self._plan))

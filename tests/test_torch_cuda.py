@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from spark_rapids_tpu_torch import TorchSession
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.bench import tpch_gen
 from spark_rapids_tpu_torch.bench.tpch_queries import q1
 from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
@@ -430,16 +431,53 @@ def test_window_agg_matches_plain(dev, op, frame):
             "min": (1, 2, 3, 4, 5, 6), "max": (1, 2, 3, 4, 5, 6)}[op]
     for ci in cols:
         c = sb.columns[ci]
-        if op in ("min", "max") and fr.lower is not None:
-            with pytest.raises(NotImplementedError, match="K12"):
-                W.running_or_bounded_agg(op, c, seg, fr)
-            continue
-        before = W.running_or_bounded_agg.launches
+        # min/max with a bounded lower edge go to K12c, the rest to K12b
+        k12c = op in ("min", "max") and fr.lower is not None
+        before = (W.running_or_bounded_agg.launches,
+                  W.frame_min_max.launches)
         got = W.running_or_bounded_agg(op, c, seg, fr)
-        assert W.running_or_bounded_agg.launches == before + 1
+        assert (W.running_or_bounded_agg.launches,
+                W.frame_min_max.launches) == \
+            (before[0] + (not k12c), before[1] + k12c)
         want = W.running_or_bounded_agg_plain(op, c, seg, fr)
         _assert_window_agg(got, want,
                            c.data if c.dtype.fractional else None)
+
+
+# K12c: min/max over frames with a bounded lower edge
+_K12C_FRAMES = [("rows", -6, 0), ("rows", -3, 3), ("rows", 2, 5),
+                ("rows", -1, -1), ("rows", -100_000, 100_000),
+                ("range", 0, 0), ("range", 0, None)]
+
+
+@pytest.mark.parametrize("frame", _K12C_FRAMES)
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_frame_min_max_matches_plain(dev, op, frame):
+    """Every value type K12c takes (int16/32/64 and dates, f32, f64 with
+    NaN/+-inf/-0.0, bools), with empty frames and one wider than any
+    partition: exactly the plain version, NaN bit for bit."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import window as W
+    rng = np.random.default_rng(73)
+    part, order = (1,), (4,)
+    sb = _window_batch(dev, rng, 40_009, part, order)
+    seg = W.sorted_segments(sb, part, order)
+    lo, hi = W._frame_edges(seg, W.WindowFrame(*frame))
+    x = sb.columns[3]
+    f32 = DeviceColumn(x.data.float(), x.validity, T.FloatType())
+    for c in [sb.columns[i] for i in (1, 2, 3, 4, 5, 6, 7)] + [f32]:
+        before = W.frame_min_max.launches
+        gd, gv = W.frame_min_max(op, c, lo, hi)
+        assert W.frame_min_max.launches == before + 1
+        wd, wv = W.frame_min_max_plain(op, c, lo, hi)
+        assert torch.equal(gv, wv) and gd.dtype == wd.dtype
+        if gd.dtype.is_floating_point:
+            gd, wd = (t.view(torch.int32 if t.dtype == torch.float32
+                             else torch.int64) for t in (gd, wd))
+        assert torch.equal(gd, wd), (c.dtype, frame)
+    empty = K.slice_rows(sb, 0, 0).columns[3]
+    gd, gv = W.frame_min_max(op, empty, lo[:0], hi[:0])
+    assert gd.numel() == 0 and gv.numel() == 0
 
 
 def test_window_ranking_and_lead_lag_on_cuda(dev):
@@ -492,6 +530,98 @@ def test_window_queries_on_cuda_match_cpu(dev, tmp_path):
                     assert math.isclose(a, b, rel_tol=1e-9), (name, g, w)
                 else:
                     assert a == b, (name, g, w)
+
+
+# ---------------------------------------------------------------------------
+# K11: range-partition ids; the round-robin, range and moving-window paths
+# ---------------------------------------------------------------------------
+
+_K11_CASES = [([0], [True], [True]), ([3], [False], [True]),
+              ([3, 1], [True, False], [False, True]),
+              ([5, 2, 0], [False, True, True], [True, False, False]),
+              ([6, 4], [True, False], [False, False])]
+
+
+@pytest.mark.parametrize("parts", [1, 2, 8, 200, 1024])
+@pytest.mark.parametrize("case", range(len(_K11_CASES)))
+def test_range_partition_ids_match_plain(dev, case, parts):
+    """Bounds from a sorted wider batch (strings up to W 32) against rows
+    of a narrower one (W 16 when the rows hold no long string), every key
+    type, both directions and null orders; bounds tie where the keys have
+    few values."""
+    from spark_rapids_tpu_torch.ops import range_partition as RP
+    from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_permutation
+    keys, asc, nf = _K11_CASES[case]
+    rng = np.random.default_rng(79 + case)
+    wide = ColumnBatch.from_arrow(_record_batch(rng, 20_000), dev)
+    rb = _record_batch(rng, 30_011)
+    short = pa.array([None if v is None or len(v) > 12 else v
+                      for v in rb.column(0).to_pylist()], pa.string())
+    narrow = ColumnBatch.from_arrow(pa.RecordBatch.from_arrays(
+        [short] + list(rb.columns[1:]), names=rb.schema.names), dev)
+    orders = [SortOrder(i, a, f) for i, (a, f) in enumerate(zip(asc, nf))]
+    wk = [wide.columns[k] for k in keys]
+    kb = ColumnBatch(wk, wide.num_rows, None, dev)
+    perm = sort_permutation(kb, orders)
+    pos = torch.clamp(torch.arange(1, parts, device=dev) * wide.num_rows
+                      // parts, 0, wide.num_rows - 1)
+    bounds = RP.RangeBounds(K.gather_columns(wk, perm[pos]), orders)
+    rows = [narrow.columns[k] for k in keys]
+    for batch_rows in (rows, [K.slice_rows(narrow, 0, 0).columns[k]
+                              for k in keys]):
+        before = RP.range_partition_ids.launches
+        got = RP.range_partition_ids(batch_rows, bounds)
+        assert RP.range_partition_ids.launches == \
+            before + (batch_rows[0].capacity > 0)
+        want = RP.range_partition_ids_plain(batch_rows, bounds)
+        assert torch.equal(got, want), (keys, parts)
+        if got.numel():
+            assert int(got.min()) >= 0 and int(got.max()) <= parts - 1
+
+
+def test_partition_paths_on_cuda_match_cpu(dev, tmp_path):
+    """top_customers_rr, both range sorts and moving_extrema at sf0.1 in a
+    multi-file layout on the card against the CPU: K10 under the
+    round-robin exchange, K11 under the range ones, K12c on the moving
+    windows (and no K12b)."""
+    import math
+    from spark_rapids_tpu_torch.bench import tpcds_gen
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.ops import partition as P
+    from spark_rapids_tpu_torch.ops import range_partition as RP
+    from spark_rapids_tpu_torch.ops import window as W
+    d = str(tmp_path / "tpcds")
+    tpcds_gen.generate_tpcds(d, sf=0.1, rows_per_file=1 << 15,
+                             tables=("date_dim", "customer", "store_sales"))
+    pin = {"spark.sql.adaptive.advisoryPartitionSizeInBytes": 0}
+
+    def same(got, want):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert math.isclose(a, b, rel_tol=1e-9), (g, w)
+                else:
+                    assert a == b, (g, w)
+
+    before = P.group_by_part.launches
+    same(Q.top_customers_rr(TorchSession(), d).collect(),
+         Q.top_customers_rr(TorchSession(device="cpu"), d).collect())
+    assert P.group_by_part.launches - before >= 9
+    for build in (Q.range_sort_store_sales, Q.range_sort_customer_names):
+        before = RP.range_partition_ids.launches
+        gs, cs = TorchSession(pin), TorchSession(pin, device="cpu")
+        got = [[r for b in bs for r in b.to_rows()]
+               for bs in Q.partition_batches(gs, build(gs, d))]
+        want = [[r for b in bs for r in b.to_rows()]
+                for bs in Q.partition_batches(cs, build(cs, d))]
+        assert RP.range_partition_ids.launches > before
+        assert got == want
+    before = (W.frame_min_max.launches, W.running_or_bounded_agg.launches)
+    same(Q.moving_extrema(TorchSession(), d).collect(),
+         Q.moving_extrema(TorchSession(device="cpu"), d).collect())
+    assert W.frame_min_max.launches - before[0] >= 3
+    assert W.running_or_bounded_agg.launches == before[1]
 
 
 # ---------------------------------------------------------------------------

@@ -354,11 +354,23 @@ def test_equal_subtrees_share_one_shuffle(small_dir, monkeypatch):
 
 
 def test_unported_partitionings_and_codecs_raise(small_dir):
+    """The lz4 codec still raises; round-robin and range partitioning (K11)
+    are ported: a keyless repartition keeps every row, and a range
+    exchange orders its partitions by the key (nulls first), each holding
+    its rows in map order."""
     s = TorchSession(device="cpu")
-    with pytest.raises(NotImplementedError, match="K11"):
-        s.read_parquet(small_dir).repartition(4).collect()
-    with pytest.raises(NotImplementedError, match="K11"):
-        RangePartitioning([("k", True)], 4)
+    assert len(s.read_parquet(small_dir).repartition(4).collect()) == 1870
+    pinned = TorchSession(
+        {"spark.sql.adaptive.advisoryPartitionSizeInBytes": 0}, device="cpu")
+    ex = pex.ShuffleExchangeExec(RangePartitioning([("k", True)], 4),
+                                 pinned.read_parquet(small_dir)._prepared())
+    ctx = ExecCtx(device=CPU, conf=pinned.conf)
+    parts = [[r[0] for b in ex.partition_iter(ctx, p) for r in b.to_rows()]
+             for p in range(4)]
+    ctx.close()
+    assert sum(map(len, parts)) == 1870 and all(parts)
+    keys = [[(k is not None, k or 0) for k in p] for p in parts]
+    assert all(max(a) <= min(b) for a, b in zip(keys, keys[1:]))
     lz4 = TorchSession({"spark.rapids.shuffle.compression.codec": "lz4"},
                        device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):

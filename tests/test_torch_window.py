@@ -113,8 +113,8 @@ def test_sorted_segments_and_ranking_match_jax(part, order):
 
 _FRAMES = [("rows", None, 0), ("rows", None, None), ("rows", -3, 2),
            ("rows", 2, 5), ("rows", None, 3), ("rows", -2, None),
-           ("rows", 0, 0), ("range", None, 0), ("range", 0, 0),
-           ("range", 0, None), ("range", None, None)]
+           ("rows", 0, 0), ("rows", -5000, 4000), ("range", None, 0),
+           ("range", 0, 0), ("range", 0, None), ("range", None, None)]
 
 #: (op, value columns) compared with the reference
 _AGGS = [("sum", (0, 2, 3, 8, 7)), ("count", (1, 4, 7)),

@@ -1,8 +1,13 @@
 """Window execs and plans of the PyTorch/CUDA port against the JAX package:
 ``WindowExec`` with stacked specs over a multi-file scan, the planner's
-window exchanges (and the rule that skips one), TPC-DS q51, q53 and q63
-at sf0.1 in a multi-file layout, the generator's ``store`` and
-``web_sales`` tables, and a window path that imports no JAX.
+window exchanges (and the rule that skips one), min/max over frames with
+a bounded lower edge (K12c's plain version), TPC-DS q51, q53 and q63 and
+``moving_extrema`` at sf0.1 in a multi-file layout, the generator's
+``store`` and ``web_sales`` tables, and a window path that imports no JAX.
+
+The reference's ``_jit_window`` can reuse a compiled body across window
+specs (ROADMAP.md Queue 3), so the bounded-frame queries clear JAX's
+caches before the reference runs and are held against numpy as well.
 
 The same parquet goes through ``TpuSession`` and
 ``TorchSession(device="cpu")``: explain trees have the same node names at
@@ -14,6 +19,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -25,12 +31,14 @@ from spark_rapids_tpu.bench import tpcds_queries as jq
 from spark_rapids_tpu.bench import tpcds_queries5 as jq5
 from spark_rapids_tpu.expr import aggregates as JA
 from spark_rapids_tpu.expr import window as JWX
+from spark_rapids_tpu.expr.conditional import If as JIf
 from spark_rapids_tpu.expr.core import col as jcol
 from spark_rapids_tpu.expr.core import lit as jlit
 from spark_rapids_tpu.plan import logical as JL
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.bench import tpcds_gen as pgen
-from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
+                                                        moving_extrema)
 from spark_rapids_tpu_torch.expr import aggregates as PA
 from spark_rapids_tpu_torch.expr import window as PWX
 from spark_rapids_tpu_torch.expr.core import col as pcol
@@ -188,6 +196,91 @@ def test_unported_window_shapes_raise(small_dir):
                                          glob.alias("t")).collect()
 
 
+#: (name, mode, lower, upper, order key) of the bounded-lower frames:
+#: trailing, centred, following-only (empty at a partition's tail), wider
+#: than any partition, and the RANGE CURRENT ROW frames over peers
+_BOUNDED = [("trail", "rows", -2, 0, "id"), ("centre", "rows", -1, 3, "id"),
+            ("ahead", "rows", 2, 5, "id"), ("wide", "rows", -500, 400, "id"),
+            ("peers", "range", 0, 0, "dt"), ("on", "range", 0, None, "dt")]
+
+
+def _bounded_min_max(W, A, col, session, path):
+    def spec(mode, lo, hi, key):
+        return W.WindowSpec(partition_by=(col("k"),),
+                            order_by=((col(key), True), (col("id"), True))
+                            if mode == "rows" else ((col(key), True),),
+                            frame=W.WindowFrame(mode, lo, hi))
+
+    # the reference plans one WindowExec (and one compile) per expression:
+    # two a frame, min and max taking turns over the double and the long
+    exprs = [col("id"), col("k"), col("dt"), col("v"), col("i")]
+    for f, (name, mode, lo, hi, key) in enumerate(_BOUNDED):
+        pair = ((A.Min, "v"), (A.Max, "i")) if f % 2 else \
+            ((A.Max, "v"), (A.Min, "i"))
+        for fn, c in pair:
+            exprs.append(W.WindowExpression(
+                fn(col(c)), spec(mode, lo, hi, key)).alias(
+                f"{fn.__name__}_{c}_{name}"))
+    return session.read_parquet(path).select(*exprs).order_by(("id", True))
+
+
+def _numpy_bounded(path):
+    """Each row's min and max of v and i over every frame of
+    :data:`_BOUNDED`, row by row over the sorted partitions (None for a
+    frame without a value)."""
+    t = pq.read_table(path).to_pydict()
+    n = len(t["id"])
+    groups = {}
+    for j in range(n):
+        groups.setdefault(t["k"][j], []).append(j)
+    where = {}
+    for key in ("id", "dt"):
+        for rows in groups.values():
+            part = sorted(rows, key=lambda j: ((t[key][j] is not None,
+                                                t[key][j]), t["id"][j]))
+            for pos, j in enumerate(part):
+                where[(key, j)] = (part, pos)
+    out = {}
+    for name, mode, lo, hi, key in _BOUNDED:
+        for ri in range(n):
+            part, pos = where[(key, ri)]
+            if mode == "rows":
+                a, b = max(pos + lo, 0), min(pos + hi, len(part) - 1)
+                frame = part[a:b + 1] if a <= b else []
+            else:
+                peers = [j for j in part if t[key][j] == t[key][ri]]
+                start = part.index(peers[0])
+                frame = peers if hi == 0 else part[start:]
+            for c in ("v", "i"):
+                vals = [t[c][j] for j in frame if t[c][j] is not None]
+                out[(ri, c, name)] = (min(vals) if vals else None,
+                                      max(vals) if vals else None)
+    return t, out
+
+
+def test_bounded_frame_min_max_match_jax_and_numpy(small_dir):
+    path = os.path.join(os.path.dirname(small_dir), "window_one.parquet")
+    pdf = _bounded_min_max(PWX, PA, pcol, TorchSession(device="cpu"), path)
+    got = pdf.collect()
+    jax.clear_caches()
+    jdf = _bounded_min_max(JWX, JA, jcol, TpuSession(), path)
+    assert _node_names(pdf.explain()) == _node_names(jdf.explain())
+    _same_rows(got, jdf.collect())
+    t, want = _numpy_bounded(path)
+    names = pdf.schema.names
+    checked = 0
+    for row in got:
+        ri = row[0]  # ids are 0..n-1 in file order
+        for name, *_f in _BOUNDED:
+            for c in ("v", "i"):
+                for fn, w in zip(("Min", "Max"), want[(ri, c, name)]):
+                    label = f"{fn}_{c}_{name}"
+                    if label in names:
+                        assert row[names.index(label)] == w, (row, label)
+                        checked += 1
+    assert checked == 2 * len(_BOUNDED) * len(got)
+
+
 # ---------------------------------------------------------------------------
 # TPC-DS at sf0.1 in a multi-file layout
 # ---------------------------------------------------------------------------
@@ -232,6 +325,106 @@ def test_window_queries_match_jax(tpcds_dir, name):
     got = pdf.collect()
     assert len(got) == 100
     _same_rows(got, jdf.collect())
+
+
+def _moving_extrema_jax(session, d):
+    """bench/tpcds_queries.py ``moving_extrema`` on the JAX package."""
+    W, c, lit = JWX, jcol, jlit
+    dd = session.read_parquet(os.path.join(d, "date_dim"),
+                              columns=["d_date_sk", "d_date", "d_month_seq"]) \
+        .where((c("d_month_seq") >= lit(1200))
+               & (c("d_month_seq") <= lit(1211)))
+    days = session.read_parquet(
+        os.path.join(d, "store_sales"),
+        columns=["ss_item_sk", "ss_sold_date_sk", "ss_sales_price"]) \
+        .where(c("ss_item_sk").is_not_null()) \
+        .join(dd, on=[("ss_sold_date_sk", "d_date_sk")]) \
+        .group_by("ss_item_sk", "d_date") \
+        .agg(JA.Sum(c("ss_sales_price")).alias("day_sales"))
+
+    def over(fn, frame):
+        return W.WindowExpression(fn(c("day_sales")), W.WindowSpec(
+            partition_by=(c("ss_item_sk"),), order_by=((c("d_date"), True),),
+            frame=frame))
+
+    w = days.select(
+        c("ss_item_sk"), c("day_sales"),
+        over(JA.Max, W.WindowFrame("rows", -6, W.CURRENT_ROW)).alias("high7"),
+        over(JA.Min, W.WindowFrame("rows", -3, 3)).alias("low7"),
+        over(JA.Max, W.WindowFrame("range", W.CURRENT_ROW, W.UNBOUNDED))
+        .alias("high_on"))
+    return w.group_by("ss_item_sk").agg(
+        JA.Sum(JIf(c("day_sales") >= c("high7") - lit(0.005), lit(1),
+                   lit(0))).alias("high_days"),
+        JA.Sum(JIf(c("day_sales") >= c("high_on") - lit(0.005), lit(1),
+                   lit(0))).alias("peak_days"),
+        JA.Sum(c("low7")).alias("low_sum")).order_by(("ss_item_sk", True))
+
+
+def _moving_extrema_numpy(d):
+    """moving_extrema with numpy alone, in exact cents: per (item, day)
+    sums, then per item's days the sliding windows (rows: shifted copies
+    within the item; the forward high: a reversed running max per
+    item)."""
+    dd = pq.read_table(os.path.join(d, "date_dim"),
+                       columns=["d_date_sk", "d_date", "d_month_seq"])
+    seq = dd.column("d_month_seq").to_numpy()
+    keep = (seq >= 1200) & (seq <= 1211)
+    sk = dd.column("d_date_sk").to_numpy()[keep]
+    day = dd.column("d_date").cast(pa.int32()).to_numpy()[keep]
+    ss = pq.read_table(os.path.join(d, "store_sales"),
+                       columns=["ss_item_sk", "ss_sold_date_sk",
+                                "ss_sales_price"])
+    sold = ss.column("ss_sold_date_sk").combine_chunks()
+    ok = sold.is_valid().to_numpy(zero_copy_only=False)
+    sold = sold.fill_null(0).to_numpy(zero_copy_only=False)
+    order = np.argsort(sk)
+    at = np.clip(np.searchsorted(sk[order], sold), 0, len(sk) - 1)
+    ok &= sk[order][at] == sold
+    item = ss.column("ss_item_sk").to_numpy()[ok]
+    key = item.astype(np.int64) * 100_000 + day[order][at][ok]
+    uniq, inv = np.unique(key, return_inverse=True)
+    sales = np.zeros(len(uniq), np.int64)
+    np.add.at(sales, inv, np.rint(
+        ss.column("ss_sales_price").to_numpy()[ok] * 100).astype(np.int64))
+    items = uniq // 100_000
+    n = len(uniq)
+    idx = np.arange(n)
+
+    def shifted(k, fill):
+        j = idx + k
+        inside = (j >= 0) & (j < n)
+        j = np.clip(j, 0, n - 1)
+        return np.where(inside & (items[j] == items), sales[j], fill)
+
+    high7 = np.max([shifted(-k, -1) for k in range(7)], axis=0)
+    low7 = np.min([shifted(k, 2 ** 62) for k in range(-3, 4)], axis=0)
+    high_on = np.empty(n, np.int64)
+    starts = np.flatnonzero(np.r_[True, items[1:] != items[:-1]])
+    for a, b in zip(starts, np.r_[starts[1:], n]):
+        high_on[a:b] = np.maximum.accumulate(sales[a:b][::-1])[::-1]
+    out = []
+    for a, b in zip(starts, np.r_[starts[1:], n]):
+        out.append((int(items[a]), int((sales[a:b] == high7[a:b]).sum()),
+                    int((sales[a:b] == high_on[a:b]).sum()),
+                    float(low7[a:b].sum()) / 100))
+    return out
+
+
+def test_moving_extrema_matches_jax_and_numpy(tpcds_dir):
+    pdf = moving_extrema(TorchSession(device="cpu"), tpcds_dir)
+    got = pdf.collect()
+    jax.clear_caches()
+    jdf = _moving_extrema_jax(TpuSession(), tpcds_dir)
+    plan = _node_names(pdf.explain())
+    assert plan == _node_names(jdf.explain())
+    assert [n for _d, n in plan].count("WindowExec") == 3
+    _same_rows(got, jdf.collect())
+    want = _moving_extrema_numpy(tpcds_dir)
+    assert len(got) == len(want) > 1000
+    for g, w in zip(got, want):
+        assert g[:3] == w[:3], (g, w)
+        assert math.isclose(g[3], w[3], rel_tol=1e-9)
 
 
 def test_window_path_imports_no_jax(tmp_path):
