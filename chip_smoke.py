@@ -14,11 +14,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    K5 prepared-build probe, K6 rank ids, K7 join expansion; K9, K10 in
    phase 6; K12a window segment extents, K12b window frame aggregates in
    phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9; K13i, K4p in
-   phase 10; K8a, K8b in phase 11; K11, K12c in phase 12): seeded inputs
+   phase 10; K8a, K8b in phase 11; K11, K12c in phase 12; K14a-c in
+   phase 13): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
-4. generate TPC-H lineitem at SF10 into .bench_data/ (reused when there),
+4. generate TPC-H lineitem at the --sf scale (SF5 by default, a cut of
+   depth that keeps the whole script within its time) into .bench_data/
+   (reused when there),
    run q1 through TorchSession() on cuda -- one cold run with every launch
    counter set to 0 just before it, then three warm runs -- and check the
    rows against an independent numpy/pyarrow evaluation of q1;
@@ -54,7 +57,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    empty and null rows; pos in [-W-2, W+2] and len in [-2, W+2] plus
    2^31-1, literal and as columns with nulls; every match mode with
    literal needles, the empty one and one wider than W, and needle
-   columns) and at the paths' shapes (q22's SF10 c_phone column, q14's
+   columns) and at the paths' shapes (q22's c_phone column, q14's
    joined p_type rows); then TPC-DS q15 (SF10, default layout, AQE on:
    substr(ca_zip, 1, 5) after three joins), TPC-H q14 (p_type LIKE
    'PROMO%') and q22 (substring(c_phone, 1, 2), a scalar subquery, an
@@ -118,7 +121,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the map side is not coalesced, and moving_extrema (three moving
    min/max windows over ~4.2M (item, day) rows: K12c at least 3 times,
    K12b never);
-13. print the kernel table as one JSON line (launches per path), the
+13. the Generate exec: TPCx-BB's product_reviews at SF10 (85,380 reviews,
+   .bench_data/tpcxbb_sf10_seed42) and store_baskets (one array row per
+   store_sales ticket, ~9.1M, beside store_sales in the default layout),
+   both reused when there; K14a (pieces per row) and K14b (the pieces of
+   split strings) held exactly against their plain versions on 2^22-row
+   stress batches (W 4 to 256; nulls, empty strings, rows of delimiters
+   only, leading, trailing and consecutive delimiters, rows of length W,
+   NULs and UTF-8 bytes; outer off and on; dense cases whose piece width
+   W' is below W; an all-null batch, whose total is 0) and on
+   review_words' scan batch, K14c (array elements) on 2^22-row arrays of
+   int8, int32, int64, f32 and f64 (NaN, -0.0) and bool at W 1 to 64 and
+   on one filtered basket batch, each timed at its path's batch beside
+   its bound, its plain version and a library yardstick; GetArrayItem,
+   ArrayContains and Size over a basket batch on the card against the
+   CPU; then review_words (explode_split of the review text, grouped by
+   word) and basket_items (the baskets of two or more items exploded,
+   joined with item, grouped by category) cold + warm against Python's
+   str.split and numpy: K14a and K14b once per review batch, K14c and K2
+   once per basket batch, and K14 0 times over phases 3-12;
+14. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -729,6 +751,7 @@ def _counters() -> dict:
     from spark_rapids_tpu_torch.ops import strings as STR
     from spark_rapids_tpu_torch.ops import window as W
     from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    from spark_rapids_tpu_torch.ops import generate as GE
     return {"sort_permutation": {"sort_permutation": S.sort_permutation},
             "compact": {"compact": K.compact},
             "gather_columns": {"gather_columns": K.gather_columns},
@@ -758,7 +781,10 @@ def _counters() -> dict:
             "decode_dict": {"decode_dict": WC.decode_dict},
             "range_partition_ids": {
                 "range_partition_ids": RP.range_partition_ids},
-            "frame_min_max": {"frame_min_max": W.frame_min_max}}
+            "frame_min_max": {"frame_min_max": W.frame_min_max},
+            "split_counts": {"split_counts": GE.split_counts},
+            "split_emit": {"split_emit": GE.split_emit},
+            "array_emit": {"array_emit": GE.array_emit}}
 
 
 #: K8a and K8b: every scan batch of more than 1024 rows goes through the
@@ -971,7 +997,13 @@ def run_q6(torch, warm: int) -> dict:
     data_dir = os.path.join(ROOT, ".bench_data",
                             f"tpcds_sf{sf:g}_seed42_onefile")
     t0 = time.perf_counter()
-    tpcds_gen.generate_tpcds(data_dir, sf=sf, seed=42, tables=tables,
+    # drawn once in the default layout (phase 6 reads it), then written
+    # again as one file per table
+    default_dir = os.path.join(ROOT, ".bench_data",
+                               f"tpcds_sf{sf:g}_seed42_default")
+    tpcds_gen.generate_tpcds(default_dir, sf=sf, seed=42, tables=tables,
+                             rows_per_file=DEFAULT_ROWS_PER_FILE)
+    tpcds_gen.relayout_tpcds(default_dir, data_dir, sf, 42, tables,
                              rows_per_file=1 << 40)
     print(f"[q6] TPC-DS SF{sf:g} {list(tables)} ready in "
           f"{time.perf_counter() - t0:.1f} s (one file per table)",
@@ -1927,7 +1959,7 @@ def check_substring(torch, dev, phones) -> dict:
     """K13a against its plain version on the 2^24-row stress batch (every
     width from 4 to 256; pos in [-W-2, W+2] and len in [-2, W+2] plus
     2^31-1, literal and as columns with nulls) and at q22's shape (the
-    SF10 c_phone column, W 16, substring(c_phone, 1, 2)), exactly; timed
+    c_phone column, W 16, substring(c_phone, 1, 2)), exactly; timed
     at q22's shape."""
     from spark_rapids_tpu_torch.ops import native
     from spark_rapids_tpu_torch.ops import strings as OS
@@ -4128,14 +4160,505 @@ def run_partition_phase(torch, dev, warm: int):
     return entries, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the Generate exec -- K14a/K14b (explode of split strings) and
+# K14c (explode of arrays); review_words and basket_items
+# ---------------------------------------------------------------------------
+
+#: rows of the K14 stress batches
+K14_ROWS = 1 << 22
+#: the delimiter of the split stress and of review_words
+K14_DELIM = 0x20
+#: bytes besides the delimiter: NUL, ASCII, ',' and the bytes of 2-, 3-
+#: and 4-byte UTF-8 sequences
+_K14_OTHER = [0, ord("a"), ord("b"), ord(","), 0xC3, 0xA9, 0xE2, 0x82,
+              0xAC, 0xF0, 0x9F, 0x98, 0x80]
+#: K14a/K14b stress: width -> (per-row delimiter shares of 256, their
+#: weights).  A share of 0 gives pieces as long as the row (the piece
+#: width W' is then W); "dense" cases keep every piece short, so that
+#: W' is below W; 256 is a row of delimiters only
+_K14_SPLIT_CASES = [
+    (4, (0, 26, 77, 256), (3, 3, 3, 1)),
+    (16, (0, 13, 77, 256), (3, 3, 3, 1)),
+    (64, (0, 3, 26, 256), (3, 3, 3, 1)),
+    (256, (0, 1, 13, 256), (4, 3, 2, 1)),
+    (64, (128,), (1,)),
+    (256, (77,), (1,)),
+]
+#: K14c stress: element dtype name -> widths
+_K14_ARRAY_CASES = {"int8": (1, 8), "int32": (1, 16, 64), "int64": (8, 64),
+                    "float32": (4, 16), "float64": (1, 64), "bool": (8, 32)}
+#: the counters of phase 13's kernels
+_GENERATE_ENTRIES = ("split_counts", "split_emit", "array_emit")
+#: output rows compared with the plain versions at a time
+_K14_CHUNK = 1 << 28
+
+
+def _k14_strings(torch, gen, n: int, w: int, shares, weights, dev,
+                 null_p: float = 0.1):
+    """uint8 [n, w] strings on the card: each row's delimiter share drawn
+    from ``shares`` (of 256) with ``weights``, lengths 0..w with a tenth
+    at w, NULs and UTF-8 bytes, ``null_p`` nulls, zeros past each
+    length."""
+    other = torch.tensor(_K14_OTHER, dtype=torch.uint8, device=dev)
+    probs = torch.tensor(weights, dtype=torch.float64, device=dev)
+    share = torch.tensor(shares, device=dev)[
+        torch.multinomial(probs, n, replacement=True, generator=gen)]
+    data = torch.empty((n, w), dtype=torch.uint8, device=dev)
+    step = max(1, (1 << 24) // w)  # rows drawn at a time
+    for r in range(0, n, step):
+        rows = min(step, n - r)
+        data[r:r + rows] = torch.where(
+            torch.randint(0, 256, (rows, w), device=dev, generator=gen)
+            < share[r:r + rows, None], K14_DELIM,
+            other[torch.randint(0, len(_K14_OTHER), (rows, w), device=dev,
+                                generator=gen)])
+    lengths = torch.randint(0, w + 1, (n,), device=dev, generator=gen)
+    lengths = torch.where(torch.rand(n, device=dev, generator=gen) < 0.1,
+                          w, lengths)
+    valid = torch.rand(n, device=dev, generator=gen) >= null_p
+    lengths = torch.where(valid, lengths, 0).to(torch.int32)
+    inside = torch.arange(w, device=dev)[None, :] < lengths[:, None]
+    return torch.where(inside, data, 0).to(torch.uint8), lengths, valid
+
+
+def _row_chunks(torch, emit, w: int):
+    """[(r0, r1, o0, o1)]: row ranges whose output rows times ``w`` stay
+    near _K14_CHUNK, with their output slots."""
+    cum = np.concatenate([[0], torch.cumsum(emit.long(), 0).cpu().numpy()])
+    per = max(_K14_CHUNK // max(w, 1), 1)
+    cuts = np.searchsorted(cum, np.arange(per, cum[-1], per), side="right")
+    bounds = [0] + [int(c) - 1 for c in cuts] + [emit.numel()]
+    bounds = sorted(set(b for b in bounds if 0 <= b <= emit.numel()))
+    return [(a, b, int(cum[a]), int(cum[b])) for a, b in zip(bounds,
+                                                             bounds[1:])]
+
+
+def _k14_split_same(torch, data, lengths, valid, outer: bool, what: str):
+    """K14a and K14b against their plain versions, exactly, the plain ones
+    over row chunks; returns (total, W')."""
+    from spark_rapids_tpu_torch.columnar.column import round_string_width
+    from spark_rapids_tpu_torch.ops import generate as GE
+    n, w = data.shape
+    emit, total, widest = GE.split_counts(data, lengths, valid, K14_DELIM,
+                                          outer)
+    out_w = round_string_width(widest)
+    got = GE.split_emit(data, lengths, valid, K14_DELIM, outer, emit, total,
+                        out_w)
+    ptot, pwide = 0, 0
+    for r0, r1, o0, o1 in _row_chunks(torch, emit, w):
+        t = (data[r0:r1], lengths[r0:r1], valid[r0:r1])
+        pe, pt, pw = GE.split_counts_plain(*t, K14_DELIM, outer)
+        if not torch.equal(pe, emit[r0:r1]):
+            raise AssertionError(f"K14a {what}: rows {r0}..{r1} differ "
+                                 "from the plain version")
+        ptot, pwide = ptot + pt, max(pwide, pw)
+        want = GE.split_emit_plain(*t, K14_DELIM, outer, pe, pt, out_w)
+        got_c = [x[o0:o1] for x in got]
+        got_c[3] = got_c[3] - r0
+        for name, a, b in zip(("bytes", "lengths", "validity", "src",
+                               "pos"), got_c, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"K14b {what}: {name} of rows "
+                                     f"{r0}..{r1} differs from the plain "
+                                     "version")
+    if (ptot, pwide) != (total, widest):
+        raise AssertionError(f"K14a {what}: total/widest {total}/{widest}, "
+                             f"plain {ptot}/{pwide}")
+    return total, out_w
+
+
+def check_split_explode(torch, dev, words) -> dict:
+    """K14a/K14b exactly against their plain versions on the stress
+    batches (2^22 rows a case, W 4, 16, 64, 256; nulls, empty strings,
+    rows of delimiters only, leading, trailing and consecutive
+    delimiters, rows of length W, NULs and UTF-8 bytes; outer off and
+    on -- pos is always written; W' below W in the dense cases; an
+    all-null batch, whose total is 0) and on review_words' scan batch;
+    timed at review_words' batch.  Returns (K14a entry, K14b entry)."""
+    from spark_rapids_tpu_torch.columnar.column import round_string_width
+    from spark_rapids_tpu_torch.ops import generate as GE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1410)
+    cases, narrowed = 0, 0
+    for w, shares, weights in _K14_SPLIT_CASES:
+        t = _k14_strings(torch, gen, K14_ROWS, w, shares, weights, dev)
+        for outer in (False, True):
+            total, out_w = _k14_split_same(torch, *t, outer,
+                                           f"W={w} shares={shares} "
+                                           f"outer={outer}")
+            cases += 1
+            narrowed += out_w < w
+        print(f"[K14a/K14b] stress W={w} shares={shares}: {total} pieces, "
+              f"W'={out_w}: equal", flush=True)
+        del t
+        torch.cuda.empty_cache()
+    if not narrowed:
+        raise AssertionError("no K14 stress case narrowed W' below W")
+    t = _k14_strings(torch, gen, 1 << 16, 16, (13,), (1,), dev, null_p=1.0)
+    if GE.split_counts(*t, K14_DELIM, False)[1] != 0 or \
+            _k14_split_same(torch, *t, True, "all null")[0] != 1 << 16:
+        raise AssertionError("K14 all-null batch: total not 0, or not one "
+                             "row a row under outer")
+    data, lengths, valid = words
+    n, w = data.shape
+    for outer in (False, True):
+        total, out_w = _k14_split_same(torch, data, lengths, valid, outer,
+                                       "review_words batch")
+    emit, total, widest = GE.split_counts(data, lengths, valid, K14_DELIM,
+                                          False)
+    out_w = round_string_width(widest)
+    a_ms = _time_ms(torch, lambda: GE.split_counts(
+        data, lengths, valid, K14_DELIM, False), reps=20)
+    a_plain = _time_ms(torch, lambda: GE.split_counts_plain(
+        data, lengths, valid, K14_DELIM, False))
+    j = torch.arange(w, device=dev)
+    a_lib = _time_ms(torch, lambda: ((data == K14_DELIM) & (
+        j[None, :] < lengths[:, None])).sum(1), reps=20)
+    b_ms = _time_ms(torch, lambda: GE.split_emit(
+        data, lengths, valid, K14_DELIM, False, emit, total, out_w), reps=20)
+    b_plain = _time_ms(torch, lambda: GE.split_emit_plain(
+        data, lengths, valid, K14_DELIM, False, emit, total, out_w), reps=3)
+    # in: the sectors inside the lengths, lengths, validity; K14a writes
+    # emit and two int64, K14b reads emit and writes every piece row
+    inb = _sector_bytes(torch, lengths, w) + n * 5
+    a_bytes = inb + n * 4 + 16
+    b_bytes = inb + n * 4 + total * (out_w + 13)
+    print(f"[K14a/K14b] checked {cases} stress cases of {K14_ROWS} rows, "
+          f"an all-null batch and review_words' batch (both outer modes): "
+          f"equal; timed at review_words' batch: rows={n} W={w} "
+          f"pieces={total} W'={out_w}; K14a ms={a_ms:.4f} (a host read of "
+          f"the total inside) plain_ms={a_plain:.4f} library_ms="
+          f"{a_lib:.4f} ((data == d) & in-length).sum(1)) bound_ms="
+          f"{_bound_ms(a_bytes):.4f}; K14b ms={b_ms:.4f} (K7's offsets "
+          f"scan inside) plain_ms={b_plain:.4f} library_ms=none (no "
+          f"PyTorch call splits rows into pieces) bound_ms="
+          f"{_bound_ms(b_bytes):.4f}", flush=True)
+    src = "spark_rapids_tpu_torch/csrc/generate.cu"
+    return (dict(name="split_counts", route="cuda", source=src,
+                 replaces="spark_rapids_tpu/exec/generate.py:138",
+                 max_abs_err=0.0, ms=a_ms, plain_ms=a_plain,
+                 bound_ms=_bound_ms(a_bytes), bound_by="bytes",
+                 library_ms=a_lib),
+            dict(name="split_emit", route="cuda", source=src,
+                 replaces="spark_rapids_tpu/exec/generate.py:149",
+                 max_abs_err=0.0, ms=b_ms, plain_ms=b_plain,
+                 bound_ms=_bound_ms(b_bytes), bound_by="bytes",
+                 library_ms=None))
+
+
+def _k14_array_same(torch, data, lengths, valid, outer: bool, what: str):
+    from spark_rapids_tpu_torch.ops import generate as GE
+    emit, total = GE.array_counts(lengths, valid, outer)
+    got = GE.array_emit(data, lengths, valid, outer, emit, total)
+    for r0, r1, o0, o1 in _row_chunks(torch, emit, 8):
+        pe, pt = GE.array_counts(lengths[r0:r1], valid[r0:r1], outer)
+        want = GE.array_emit_plain(data[r0:r1], lengths[r0:r1], valid[r0:r1],
+                                   outer, pe, pt)
+        got_c = [x[o0:o1] for x in got]
+        got_c[2] = got_c[2] - r0
+        # the elements bit for bit: -0.0 and NaN included
+        got_c[0] = got_c[0].view(torch.uint8)
+        want = (want[0].view(torch.uint8),) + tuple(want[1:])
+        for name, a, b in zip(("elements", "validity", "src", "pos"), got_c,
+                              want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"K14c {what}: {name} of rows "
+                                     f"{r0}..{r1} differs from the plain "
+                                     "version")
+    return total
+
+
+def _k14_arrays(torch, gen, n: int, w: int, dtype, dev):
+    """[n, w] arrays on the card: ~10% null and ~10% empty, lengths 1..w
+    else; floats from {0, -0.0, 1.5, NaN, inf, -inf}; zeros past each
+    length."""
+    if dtype.is_floating_point:
+        vals = torch.tensor([0.0, -0.0, 1.5, float("nan"), float("inf"),
+                             float("-inf")], dtype=dtype, device=dev)
+        data = vals[torch.randint(0, 6, (n, w), device=dev, generator=gen)]
+    elif dtype == torch.bool:
+        data = torch.randint(0, 2, (n, w), device=dev, generator=gen) > 0
+    else:
+        info = torch.iinfo(dtype)
+        data = torch.randint(max(info.min, -(1 << 40)),
+                             min(info.max, 1 << 40), (n, w), device=dev,
+                             generator=gen).to(dtype)
+    u = torch.rand(n, device=dev, generator=gen)
+    lengths = torch.randint(1, w + 1, (n,), device=dev, generator=gen)
+    valid = u >= 0.1
+    lengths = torch.where(valid & (u >= 0.2), lengths, 0).to(torch.int32)
+    inside = torch.arange(w, device=dev)[None, :] < lengths[:, None]
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    return torch.where(inside, data, zero).contiguous(), lengths, valid
+
+
+def check_array_explode(torch, dev, items) -> dict:
+    """K14c exactly against its plain version on 2^22-row stress batches
+    (int8, int32, int64, f32 and f64 with NaN and -0.0, bool; W 1 to 64;
+    null and empty arrays; outer off and on) and on one basket_items scan
+    batch after its filter; timed at that batch."""
+    from spark_rapids_tpu_torch.ops import generate as GE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1411)
+    cases = 0
+    for name, widths in _K14_ARRAY_CASES.items():
+        for w in widths:
+            t = _k14_arrays(torch, gen, K14_ROWS, w, getattr(torch, name),
+                            dev)
+            for outer in (False, True):
+                _k14_array_same(torch, *t, outer, f"{name} W={w} "
+                                f"outer={outer}")
+                cases += 1
+            del t
+        torch.cuda.empty_cache()
+    data, lengths, valid = items
+    n, w = data.shape
+    for outer in (False, True):
+        _k14_array_same(torch, data, lengths, valid, outer,
+                        "basket_items batch")
+    emit, total = GE.array_counts(lengths, valid, False)
+    ms = _time_ms(torch, lambda: GE.array_emit(data, lengths, valid, False,
+                                               emit, total), reps=20)
+    plain_ms = _time_ms(torch, lambda: GE.array_emit_plain(
+        data, lengths, valid, False, emit, total))
+    j = torch.arange(w, device=dev)
+    rows = torch.arange(n, device=dev)
+
+    def library():
+        torch.repeat_interleave(rows, emit, output_size=total)
+        return data[j[None, :] < lengths[:, None]]
+
+    lib_ms = _time_ms(torch, library, reps=20)
+    es = data.element_size()
+    # in: the element sectors inside the lengths, lengths, validity and
+    # emit; out: element, validity, src and pos a row
+    nbytes = _sector_bytes(torch, lengths * es, w * es) + n * 9 + \
+        total * (es + 9)
+    print(f"[K14c] checked {cases} stress cases of {K14_ROWS} rows and one "
+          f"basket_items batch (both outer modes): equal; timed at the "
+          f"batch: rows={n} W={w} elements={total} ms={ms:.4f} (K7's "
+          f"offsets scan inside) plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_ms:.4f} (repeat_interleave of the rows + the in-length "
+          f"mask of the elements) bound_ms={_bound_ms(nbytes):.4f}",
+          flush=True)
+    return dict(name="array_emit", route="cuda",
+                source="spark_rapids_tpu_torch/csrc/generate.cu",
+                replaces="spark_rapids_tpu/exec/generate.py:90",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib_ms)
+
+
+def reference_review_words(data_dir: str) -> list[tuple]:
+    """review_words by Python's str.split(" "): (word, uses, average
+    rating, first position, last position), by uses descending, then
+    word."""
+    import pyarrow.parquet as pq
+    t = pq.read_table(os.path.join(data_dir, "product_reviews"),
+                      columns=["pr_review_rating", "pr_review_content"])
+    stats: dict = {}
+    for r, text in zip(t.column(0).to_pylist(), t.column(1).to_pylist()):
+        if text is None:
+            continue
+        for k, word in enumerate(text.split(" ")):
+            s = stats.get(word)
+            if s is None:
+                stats[word] = [1, r, k, k]
+            else:
+                s[0] += 1
+                s[1] += r
+                s[2] = min(s[2], k)
+                s[3] = max(s[3], k)
+    return sorted(((w_, c, tot / c, lo, hi) for w_, (c, tot, lo, hi)
+                   in stats.items()), key=lambda x: (-x[1], x[0]))
+
+
+def _check_review_words(rows, want) -> None:
+    if len(rows) != len(want):
+        raise AssertionError(f"review_words: {len(rows)} words, expected "
+                             f"{len(want)}")
+    for g, w_ in zip(rows, want):
+        if (g[0], g[1], g[3], g[4]) != (w_[0], w_[1], w_[3], w_[4]) or \
+                not abs(g[2] - w_[2]) <= F64_RTOL * abs(w_[2]):
+            raise AssertionError(f"review_words row {g} != {w_}")
+
+
+def reference_basket_items(data_dir: str) -> list[tuple]:
+    """basket_items from store_sales itself (not the baskets file): every
+    ticket's rows in file order, positions within the ticket, tickets of
+    at least two rows, joined with item's category; (category, items,
+    sum of positions, largest position), nulls first."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.io.scan import _expand_paths
+    ss = pa.concat_tables(
+        pq.read_table(f, columns=["ss_ticket_number", "ss_item_sk"])
+        for f in _expand_paths(os.path.join(data_dir, "store_sales")))
+    ticket = ss.column(0).to_numpy()
+    item_sk = ss.column(1).to_numpy()
+    order = np.argsort(ticket, kind="stable")
+    t = ticket[order]
+    starts = np.flatnonzero(np.r_[True, t[1:] != t[:-1]])
+    size = np.diff(np.r_[starts, t.size])
+    pos = np.arange(t.size) - np.repeat(starts, size)
+    keep = np.repeat(size >= 2, size)
+    items, pos = item_sk[order][keep], pos[keep]
+    it = pq.read_table(os.path.join(data_dir, "item"),
+                       columns=["i_item_sk", "i_category"])
+    sk = it.column(0).to_numpy()
+    if np.unique(sk).size != sk.size:
+        raise AssertionError("item keys are not unique")
+    cats = it.column(1).to_pylist()
+    names = sorted(set(cats), key=lambda c: (c is not None, c or ""))
+    code = np.array([names.index(c) for c in cats])
+    row = _lookup(sk, items)
+    hit = row >= 0
+    c = code[row[hit]]
+    p = pos[hit]
+    n = np.bincount(c, minlength=len(names))
+    psum = np.bincount(c, weights=p, minlength=len(names))
+    pmax = np.full(len(names), -1)
+    np.maximum.at(pmax, c, p)
+    return [(names[k], int(n[k]), int(psum[k]), int(pmax[k]))
+            for k in range(len(names)) if n[k]]
+
+
+def _path_batch(torch, session, query, data_dir: str, table: str):
+    """The first scan batch of ``table`` in ``query``'s plan, read and
+    staged as the scan does, on the card."""
+    from spark_rapids_tpu_torch.bench.profile_query import fact_scan
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.io.scan import _effective_batch_rows
+    scan = fact_scan(query(session, data_dir)._prepared(), table)
+    rows = _effective_batch_rows(scan.output_schema, session.conf.settings)
+    rb = next(iter(scan._read_file(sorted(scan._files)[0], rows)))
+    return ColumnBatch.from_arrow(rb, session.device)
+
+
+def _check_collections_on_cpu(torch, batch) -> None:
+    """GetArrayItem(items, 0) and ArrayContains(items, k) on the card
+    against the same expressions on the CPU."""
+    from spark_rapids_tpu_torch.expr import (ArrayContains, GetArrayItem,
+                                             Size, bind, col, eval_device,
+                                             lit)
+    cpu = batch.to("cpu")
+    k = int(batch.columns[2].data[0, 0])
+    for e in (GetArrayItem(col("items"), lit(0)),
+              GetArrayItem(col("items"), lit(2)),
+              ArrayContains(col("items"), lit(k)), Size(col("items"))):
+        b = bind(e, batch.schema)
+        got, want = eval_device(b, batch), eval_device(b, cpu)
+        if not (torch.equal(got.data.cpu(), want.data)
+                and torch.equal(got.validity.cpu(), want.validity)):
+            raise AssertionError(f"{e!r} on the card differs from the CPU")
+    print(f"[basket_items] GetArrayItem(items, 0|2), ArrayContains(items, "
+          f"{k}) and Size(items) over one basket batch ({batch.num_rows} "
+          "rows): the card equals the CPU", flush=True)
+
+
+def run_generate_phase(torch, dev, warm: int):
+    """product_reviews and store_baskets at SF10; K14a/K14b and K14c
+    against their plain versions; review_words and basket_items cold +
+    warm against Python/numpy; (entries, {path: launches})."""
+    from spark_rapids_tpu_torch.bench import generate_queries as GQ
+    from spark_rapids_tpu_torch.bench.profile_query import fact_scan
+    from spark_rapids_tpu_torch.exec.core import collect_device
+    from spark_rapids_tpu_torch.ops import kernels as dk
+    bench = os.path.join(ROOT, ".bench_data")
+    t0 = time.perf_counter()
+    rw_dir = GQ.prepare_review_words(bench, Q6_SF)
+    bi_dir = GQ.prepare_basket_items(bench, Q6_SF)
+    print(f"[generate] SF{Q6_SF:g} product_reviews and store_baskets ready "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    session = _cuda_session()
+    rw = _path_batch(torch, session, GQ.review_words, rw_dir,
+                     "product_reviews").columns[1]
+    entries = dict(zip(("split_counts", "split_emit"), check_split_explode(
+        torch, dev, (rw.data, rw.lengths, rw.validity))))
+    del rw
+    torch.cuda.empty_cache()
+    bb = _path_batch(torch, session, GQ.basket_items, bi_dir,
+                     "store_baskets")
+    _check_collections_on_cpu(torch, bb)
+    bb = dk.compact(bb, bb.columns[2].validity & (bb.columns[2].lengths
+                                                  >= 2))
+    items = bb.columns[2]
+    entries["array_emit"] = check_array_explode(
+        torch, dev, (items.data, items.lengths, items.validity))
+    del bb, items
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want_rw = reference_review_words(rw_dir)
+    want_bi = reference_basket_items(bi_dir)
+    print(f"[generate] Python/numpy references in "
+          f"{time.perf_counter() - t0:.1f} s: {len(want_rw)} words, "
+          f"{len(want_bi)} categories", flush=True)
+    paths = {}
+    for label, build, data_dir, fact, cols, want, check, need, zero in (
+            ("review_words", GQ.review_words, rw_dir, "product_reviews",
+             ["pr_review_rating", "pr_review_content"], want_rw,
+             _check_review_words,
+             ("split_counts", "split_emit", "sort_permutation",
+              "gather_columns", "segment_aggregate") + _SCAN_ENTRIES,
+             ("array_emit",)),
+            ("basket_items", GQ.basket_items, bi_dir, "store_baskets",
+             ["ticket", "customer", "items"], want_bi,
+             lambda r, w_: _check_equal_rows("basket_items", r, w_),
+             ("array_emit", "compact", "sort_permutation", "gather_columns",
+              "segment_aggregate", "join_probe_fast", "join_expand")
+             + _SCAN_ENTRIES, ("split_counts", "split_emit"))):
+        held = {}
+
+        def run(build=build, data_dir=data_dir):
+            df = build(session, data_dir)
+            held["root"] = df._prepared()
+            return collect_device(held["root"], df._ctx())
+
+        print(build(session, data_dir).explain(), flush=True)
+        got = _drive(torch, label, None, lambda r, c=check, w_=want: c(r, w_),
+                     need + zero, warm,
+                     _MAY_DICT + ("build_prepare_fast", "matched_build_rows"),
+                     zero=zero, run=run,
+                     describe=lambda r: f"{len(r)} rows, first {r[:2]}")
+        paths[label] = got
+        batches = _scan_batches(data_dir, fact, cols)
+        k14 = [got[e][e] for e in need if e in _GENERATE_ENTRIES]
+        if any(k != batches for k in k14):
+            raise AssertionError(f"{label}: K14 launched {k14} times for "
+                                 f"{batches} scan batches")
+        if label == "basket_items" and got["compact"]["compact"] != batches:
+            raise AssertionError("basket_items: K2 did not compact each "
+                                 "basket batch once")
+        gen_rows = sum(r[1] for r in want)
+        split = fact_scan(held["root"], fact).stats.as_dict()
+        print(f"[{label}] K14 launched {k14} times, once per scan batch "
+              f"({batches}); generate output rows {gen_rows}; last warm "
+              f"run's scan of {fact}: {split}", flush=True)
+    return entries, paths
+
+
+def _check_equal_rows(label: str, rows, want) -> None:
+    if rows != want:
+        raise AssertionError(f"{label}: rows {rows[:3]}... differ from the "
+                             f"numpy evaluation {want[:3]}...")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=10.0,
+    ap.add_argument("--sf", type=float, default=5.0,
                     help="TPC-H scale factor of q1, q14 and q22 (the "
                     "TPC-DS queries run at SF10 always)")
     ap.add_argument("--warm", type=int, default=3,
                     help="warm runs of each query")
     args = ap.parse_args(argv)
+    # blocks split to the bytes asked for, so a path's allocated peak does
+    # not depend on what earlier runs left in the allocator's cache (with
+    # the default, basket_items' peak rose 149,504 bytes from its first
+    # warm run to the second, its requested bytes the same); set before
+    # torch initialises CUDA
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -4154,6 +4677,8 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[ptxas {name}] {line.strip()}")
     dev = torch.device("cuda", 0)
+    # K14 runs on phase 13's paths only: its counters stay 0 until then
+    _reset_counters(_GENERATE_ENTRIES)
     rng = np.random.default_rng(20261017)
     entries = {}
     entries["compact"] = check_compact(torch, dev, rng)
@@ -4206,6 +4731,18 @@ def main(argv=None) -> int:
                                                              args.warm)
     entries.update(partition_entries)
     paths.update(partition_paths)
+    earlier = {k: v for g in _GENERATE_ENTRIES
+               for k, v in _read_counters((g,), "phases 3-12",
+                                          _GENERATE_ENTRIES)[g].items()}
+    if any(earlier.values()):
+        raise AssertionError(f"K14 launched on an earlier path: {earlier}")
+    print(f"[generate] K14 launches over phases 3-12: {earlier}",
+          flush=True)
+    torch.cuda.empty_cache()
+    generate_entries, generate_paths = run_generate_phase(torch, dev,
+                                                          args.warm)
+    entries.update(generate_entries)
+    paths.update(generate_paths)
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

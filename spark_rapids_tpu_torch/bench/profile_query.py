@@ -2,13 +2,16 @@
 q6, q15, q24, q51, q63, q84 or q84_all_cities, the ``top_customers``
 repartition, the round-robin, range and moving-window paths
 (``top_customers_rr``, ``range_sort_store_sales``,
-``range_sort_customer_names``, ``moving_extrema``), or the mortgage jobs
-simple_agg, percentiles and agg_join.
+``range_sort_customer_names``, ``moving_extrema``), the mortgage jobs
+simple_agg, percentiles and agg_join, or the Generate paths
+``review_words`` and ``basket_items`` (``bench/generate_queries.py``).
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
 ``bench/tpch_gen.py`` (the TPC-H query's tables), ``bench/tpcds_gen.py``
-(the TPC-DS query's tables) or ``bench/mortgage_gen.py`` (``--sf``
-thousand loans, 1000 by default, seed 7), reused when present, then:
+(the TPC-DS query's tables), ``bench/mortgage_gen.py`` (``--sf``
+thousand loans, 1000 by default, seed 7) or ``bench/tpcxbb_gen.py`` and
+``generate_queries.write_baskets`` (product_reviews; store_baskets from
+the default layout's store_sales), reused when present, then:
 
 * times a cold and a warm run (host clock, ending in a device
   synchronise), each building the query -- so q6's and q24's scalar
@@ -19,14 +22,15 @@ thousand loans, 1000 by default, seed 7), reused when present, then:
   table (lineitem for q1 and q14, orders for q22, catalog_sales for q15,
   store_returns for q84 and q84_all_cities, store_sales for the other
   TPC-DS queries, the first quarter's performance file for the mortgage
-  jobs), and splits it: pyarrow's decode and the encode seconds on the
+  jobs, product_reviews and store_baskets for the Generate paths), and
+  splits it: pyarrow's decode and the encode seconds on the
   prefetch thread, the bytes sent against the raw leaves', and, from a
   second drain under ``torch.profiler``, the device time of the copies
   to the card and of K8a and K8b;
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
-  the run, the kernels that take most of it, and K8's and the copies'
-  share.
+  the run, the kernels that take most of it, and K8's, K14's and the
+  copies' share.
 
 The wire codec follows ``SRT_WIRE_CODEC`` (on unless ``0``), so an A/B of
 the codec runs this script with and without ``SRT_WIRE_CODEC=0``, in
@@ -55,6 +59,7 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
     python -m spark_rapids_tpu_torch.bench.profile_query --query q22
     python -m spark_rapids_tpu_torch.bench.profile_query --query q24
     python -m spark_rapids_tpu_torch.bench.profile_query --query percentiles
+    python -m spark_rapids_tpu_torch.bench.profile_query --query review_words
     SRT_WIRE_CODEC=0 python -m spark_rapids_tpu_torch.bench.profile_query \
         --query q1
 """
@@ -69,6 +74,7 @@ import torch
 
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.bench import mortgage, tpcds_gen, tpch_gen
+from spark_rapids_tpu_torch.bench.generate_queries import GENERATE_PATHS
 from spark_rapids_tpu_torch.bench.tpcds_queries import (PARTITION_PATHS,
                                                         TPCDS_QUERIES,
                                                         partition_batches,
@@ -148,7 +154,8 @@ def main(argv=None) -> int:
     ap.add_argument("--query",
                     choices=("q1", "q14", "q22", "q6", "q15", "q24", "q51",
                              "q63", "q84", "q84_all_cities", "repartition")
-                    + tuple(PARTITION_PATHS) + _MORTGAGE, default="q6")
+                    + tuple(PARTITION_PATHS) + _MORTGAGE
+                    + tuple(GENERATE_PATHS), default="q6")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 10); for the mortgage "
                     "jobs thousands of loans (default 1000)")
@@ -169,6 +176,13 @@ def main(argv=None) -> int:
         mortgage.generate_mortgage(data_dir, sf=args.sf, seed=7)
         query = mortgage.MORTGAGE_QUERIES[args.query]
         fact = ("Performance_2003Q1", None)
+    elif args.query in GENERATE_PATHS:
+        query, prepare, table = GENERATE_PATHS[args.query]
+        data_dir = prepare(bench, args.sf)
+        fact = (table, None)
+        # the baskets sit beside store_sales in the default layout
+        args.layout = "default" if args.query == "basket_items" \
+            else "onefile"
     elif args.query in _TPCH:
         data_dir = os.path.join(bench, f"tpch_sf{args.sf:g}_seed7")
         groups, big = _TPCH[args.query]
@@ -242,6 +256,8 @@ def main(argv=None) -> int:
         "copy_to_card_ms": _ms_of(rows, "HtoD"),
         "k8a_ms": _ms_of(rows, "decode_fixed_kernel"),
         "k8b_ms": _ms_of(rows, "decode_dict_kernel"),
+        "k14_ms": _ms_of(rows, "split_counts_kernel", "split_emit_kernel",
+                         "array_emit_kernel"),
         "top_device_ops": [{"name": k[:80], "calls": c, "ms": us / 1e3}
                            for us, k, c in rows[:args.top]],
     }

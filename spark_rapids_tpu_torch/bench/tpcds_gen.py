@@ -31,7 +31,8 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["generate_tpcds", "table_row_counts", "TABLES"]
+__all__ = ["generate_tpcds", "relayout_tpcds", "table_row_counts",
+           "TABLES"]
 
 #: the tables this port generates (those of its TPC-DS queries)
 TABLES = ("date_dim", "item", "customer", "customer_address", "store",
@@ -725,6 +726,48 @@ def generate_tpcds(data_dir: str, sf: float = 0.01, seed: int = 42,
         _write_parquet(out, data, rows_per_file,
                        date_cols=("d_date",) if t == "date_dim" else ())
         del data
+        with open(os.path.join(out, stamp), "w") as f:
+            f.write(stamp + "\n")
+    return written
+
+
+def relayout_tpcds(src_dir: str, data_dir: str, sf: float, seed: int,
+                   tables: Sequence[str],
+                   rows_per_file: int = 1 << 20) -> dict[str, int]:
+    """The tables of ``src_dir``, generated there at ``sf`` and ``seed``
+    in another file layout, written under ``data_dir`` in files of
+    ``rows_per_file`` rows (the rows :func:`generate_tpcds` would draw,
+    read back instead of drawn again); returns {table: rows}.  A table
+    whose stamp is present is reused; one missing from ``src_dir``
+    raises."""
+    import glob as _glob
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    stamp = f"_{_SCHEMA_VERSION}_sf{sf:g}_seed{seed}_rpf{rows_per_file}"
+    src_stamp = f"_{_SCHEMA_VERSION}_sf{sf:g}_seed{seed}_rpf"
+    written = {}
+    for t in tables:
+        out = os.path.join(data_dir, t)
+        written[t] = table_row_counts(sf)[t]
+        if os.path.exists(os.path.join(out, stamp)):
+            continue
+        src = os.path.join(src_dir, t)
+        if not _glob.glob(os.path.join(_glob.escape(src), src_stamp + "*")):
+            raise FileNotFoundError(f"{src} holds no {t} at sf {sf:g}, "
+                                    f"seed {seed}")
+        table = pa.concat_tables(
+            pq.read_table(f) for f in
+            sorted(_glob.glob(os.path.join(_glob.escape(src),
+                                           "part-*.parquet"))))
+        if os.path.isdir(out):
+            shutil.rmtree(out)
+        os.makedirs(out)
+        n = table.num_rows
+        for i in range(max(1, -(-n // rows_per_file))):
+            pq.write_table(table.slice(i * rows_per_file, rows_per_file),
+                           os.path.join(out, f"part-{i:05d}.parquet"),
+                           row_group_size=_ROW_GROUP)
         with open(os.path.join(out, stamp), "w") as f:
             f.write(stamp + "\n")
     return written

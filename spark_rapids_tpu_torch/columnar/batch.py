@@ -36,7 +36,8 @@ from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     round_string_width,
                                                     torch_dtype)
 
-__all__ = ["ColumnBatch", "PackedBatch", "strings_to_matrix", "upload"]
+__all__ = ["ColumnBatch", "PackedBatch", "lists_to_matrix",
+           "strings_to_matrix", "upload"]
 
 #: wire-codec default (overridable per call; SRT_WIRE_CODEC=0 turns it off
 #: for every batch, as in the reference, batch.py:34)
@@ -114,8 +115,9 @@ class _PackBuilder:
 
     def add_var(self, matrix: np.ndarray, lengths: np.ndarray,
                 validity: np.ndarray | None):
-        """A string column as its [n, W] byte matrix and lengths (null
-        rows already zero)."""
+        """A string or array column as its [n, W] byte or element matrix
+        and lengths (null rows already zero).  The matrix ships raw, the
+        lengths encoded when the codec is on (reference batch.py:138-159)."""
         mdesc = ("raw", self._add_leaf(matrix))
         if self.codec:
             ldesc = wc.encode_lengths(lengths, matrix.shape[1],
@@ -305,10 +307,15 @@ class ColumnBatch:
                     pack.add_var(bm, lens, validity)
                     w = bm.shape[1]
                 raw_bytes += n * (w + 5)
-            elif isinstance(dt, (T.ArrayType, T.MapType)):
+            elif isinstance(dt, T.ArrayType):
+                m, lens = lists_to_matrix(arr, dt)
+                pack.add_var(m, lens, validity)
+                raw_bytes += m.nbytes + n * 5
+            elif isinstance(dt, T.MapType):
                 raise NotImplementedError(
-                    f"{dt} columns are not ported yet (ROADMAP.md Queue 1 "
-                    "item 8)")
+                    f"{dt} columns have no device representation: the "
+                    "reference keeps maps on its host, and the port has no "
+                    "host oracle yet (ROADMAP.md Queue 1 item 4)")
             else:
                 data = T.arrow_fixed_to_numpy(arr, dt)
                 pack.add_fixed(data, validity)
@@ -337,9 +344,10 @@ class ColumnBatch:
         cols = []
         for f in schema:
             v = torch.zeros(num_rows, dtype=torch.bool, device=device)
-            if isinstance(f.data_type, T.StringType):
+            if isinstance(f.data_type, (T.StringType, T.ArrayType)):
                 cols.append(DeviceColumn(
-                    torch.zeros((num_rows, 4), dtype=torch.uint8,
+                    torch.zeros((num_rows, 4),
+                                dtype=torch_dtype(f.data_type),
                                 device=device), v, f.data_type,
                     torch.zeros(num_rows, dtype=torch.int32, device=device)))
             else:
@@ -401,7 +409,17 @@ class ColumnBatch:
             dt = field.data_type
             vbits = pa.py_buffer(np.packbits(validity, bitorder="little"))
             nulls = int(n - validity.sum())
-            if isinstance(dt, T.StringType):
+            if isinstance(dt, T.ArrayType):
+                offsets = np.zeros(n + 1, dtype=np.int32)
+                np.cumsum(lengths, out=offsets[1:])
+                w = data.shape[1]
+                mask = np.arange(w, dtype=np.int32)[None, :] < lengths[:, None]
+                values = _fixed_arrow(dt.element_type,
+                                      np.ascontiguousarray(data[mask]))
+                arrays.append(pa.Array.from_buffers(
+                    T.to_arrow(dt), n, [vbits, pa.py_buffer(offsets)], nulls,
+                    children=[values]))
+            elif isinstance(dt, T.StringType):
                 offsets = np.zeros(n + 1, dtype=np.int32)
                 np.cumsum(lengths, out=offsets[1:])
                 w = data.shape[1] if data.ndim == 2 else 0
@@ -410,14 +428,8 @@ class ColumnBatch:
                 arrays.append(pa.StringArray.from_buffers(
                     n, pa.py_buffer(offsets), pa.py_buffer(chars), vbits,
                     nulls))
-            elif isinstance(dt, T.BooleanType):
-                bits = np.packbits(data.astype(np.bool_), bitorder="little")
-                arrays.append(pa.Array.from_buffers(
-                    pa.bool_(), n, [vbits, pa.py_buffer(bits)], nulls))
             else:
-                arrays.append(pa.Array.from_buffers(
-                    T.to_arrow(dt), n,
-                    [vbits, pa.py_buffer(np.ascontiguousarray(data))], nulls))
+                arrays.append(_fixed_arrow(dt, data, vbits, nulls))
         return pa.RecordBatch.from_arrays(arrays,
                                           schema=self.schema.to_arrow())
 
@@ -436,6 +448,9 @@ class ColumnBatch:
                 elif isinstance(dt, T.StringType):
                     vals.append(bytes(data[i, :lengths[i]]).decode(
                         "utf-8", "replace"))
+                elif isinstance(dt, T.ArrayType):
+                    # storage values, as the reference's device collect
+                    vals.append(data[i, :lengths[i]].tolist())
                 elif isinstance(dt, T.DateType):
                     vals.append(_dt.date(1970, 1, 1)
                                 + _dt.timedelta(days=int(data[i])))
@@ -446,6 +461,57 @@ class ColumnBatch:
                     vals.append(data[i].item())
             cols.append(vals)
         return list(zip(*cols)) if cols else [()] * self.num_rows
+
+
+def _fixed_arrow(dt: T.DataType, data: np.ndarray, vbits=None,
+                 nulls: int = 0):
+    """A fixed-width Arrow array of ``dt`` over numpy ``data``."""
+    import pyarrow as pa
+    n = data.shape[0]
+    if isinstance(dt, T.BooleanType):
+        bits = np.packbits(data.astype(np.bool_), bitorder="little")
+        return pa.Array.from_buffers(pa.bool_(), n,
+                                     [vbits, pa.py_buffer(bits)], nulls)
+    return pa.Array.from_buffers(
+        T.to_arrow(dt), n, [vbits, pa.py_buffer(np.ascontiguousarray(data))],
+        nulls)
+
+
+def lists_to_matrix(arr, dtype: T.ArrayType):
+    """Arrow list array -> (element matrix [n, W] of the element's dtype,
+    int32 [n] lengths); W is ``round_string_width`` of the longest list
+    and null rows get no elements (reference batch.py:472-505).  Element
+    nulls are refused: they have no device representation."""
+    import pyarrow as pa
+    arr = arr.cast(pa.large_list(T.to_arrow(dtype.element_type)))
+    n = len(arr)
+    offsets = np.frombuffer(arr.buffers()[1], dtype=np.int64, count=n + 1,
+                            offset=arr.offset * 8)
+    # this slice's window of the child values (``.values`` spans the
+    # whole child buffer)
+    values = arr.values.slice(int(offsets[0]),
+                              int(offsets[-1] - offsets[0]))
+    if values.null_count:
+        raise ValueError("arrays with null elements have no device "
+                         "representation")
+    offsets = offsets - offsets[0]
+    flat = T.arrow_fixed_to_numpy(values, dtype.element_type)
+    lens = (offsets[1:] - offsets[:-1]).astype(np.int32)
+    if arr.null_count:
+        lens = np.where(T.arrow_validity_numpy(arr), lens, 0).astype(
+            np.int32)
+    maxw = int(lens.max()) if n else 0
+    w = round_string_width(max(maxw, 1))
+    out = np.zeros((n, w), dtype=dtype.element_type.np_dtype)
+    if n and flat.size:
+        mask = np.arange(w, dtype=np.int32)[None, :] < lens[:, None]
+        if arr.null_count:
+            # a null row may span values: take each row's own window
+            pos = offsets[:-1, None] + np.arange(w, dtype=np.int64)[None, :]
+            out[mask] = flat[np.minimum(pos[mask], flat.size - 1)]
+        else:
+            out[mask] = flat
+    return out, lens
 
 
 def strings_to_matrix(arr):

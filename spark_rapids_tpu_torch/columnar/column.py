@@ -5,10 +5,15 @@ The column contract is the reference package's (``column.py:44``):
 * fixed-width types: ``data`` -- tensor ``[num_rows]`` of the type's torch
   dtype, ``validity`` -- bool ``[num_rows]``;
 * strings: ``data`` -- uint8 ``[num_rows, W]`` padded UTF-8 bytes with W
-  from :func:`round_string_width`, ``lengths`` -- int32 ``[num_rows]``.
+  from :func:`round_string_width`, ``lengths`` -- int32 ``[num_rows]``;
+* arrays (reference ``column.py:82-93``): ``data`` -- the element matrix
+  ``[num_rows, W]`` in the element's torch dtype (bool as 1-byte bool),
+  W from :func:`round_string_width` of the longest array, ``lengths`` --
+  int32 ``[num_rows]`` element counts.  Elements are never null.
 
-Null rows carry zeroed data and zero length, so kernels may run unmasked
-and the same inputs reach both packages' functions bit for bit.
+Null rows carry zeroed data and zero length (no elements), so kernels
+may run unmasked and the same inputs reach both packages' functions bit
+for bit.
 
 Unlike the reference there is no capacity padding: tensors are exactly
 ``num_rows`` long (XLA needed static shapes; PyTorch and CUDA do not).
@@ -79,8 +84,13 @@ class DeviceColumn:
         return isinstance(self.dtype, T.StringType)
 
     @property
+    def is_array(self) -> bool:
+        return isinstance(self.dtype, T.ArrayType)
+
+    @property
     def is_var_width(self) -> bool:
-        """Matrix layout (strings): data[num_rows, W] + lengths."""
+        """Matrix layout (strings, arrays): data[num_rows, W] +
+        lengths."""
         return self.lengths is not None
 
     @property

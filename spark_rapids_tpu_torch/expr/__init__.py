@@ -3,3 +3,6 @@ from spark_rapids_tpu_torch.expr.core import (Alias, BoundReference,  # noqa: F4
                                               Expression, Literal,
                                               UnresolvedAttribute, bind, col,
                                               eval_device, lit, output_name)
+from spark_rapids_tpu_torch.expr.collections import (  # noqa: F401
+    ArrayContains, GetArrayItem, GetMapValue, MapKeys, MapLookup, MapValues,
+    Size)

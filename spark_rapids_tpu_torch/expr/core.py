@@ -32,9 +32,10 @@ __all__ = [
 class Val:
     """Column value flowing through expression evaluation.
 
-    data:     tensor [n] (strings: uint8 [n, W] byte matrix).
+    data:     tensor [n] (strings: uint8 [n, W] byte matrix; arrays:
+              [n, W] element matrix).
     validity: bool tensor [n].
-    lengths:  int32 [n] for strings, else None.
+    lengths:  int32 [n] for strings and arrays, else None.
     dtype:    SQL type.
     """
     data: Any
@@ -91,7 +92,7 @@ class EvalCtx:
     def canonical(self, data, validity, dtype: T.DataType,
                   lengths=None) -> Val:
         """Zero data at invalid slots (the column invariant)."""
-        if isinstance(dtype, T.StringType):
+        if isinstance(dtype, (T.StringType, T.ArrayType)):
             data = torch.where(validity[:, None], data,
                                self.zeros(data.dtype))
             lengths = torch.where(validity, lengths, self.zeros(torch.int32))

@@ -72,6 +72,8 @@ def _effective_batch_rows(schema: T.Schema, settings: dict) -> int:
     byte_cap = MAX_READER_BATCH_SIZE_BYTES.get(settings)
     width = 1  # validity
     for f in schema:
+        # an array's np_dtype is its element's: arrays take the
+        # variable-width estimate, as strings do (the reference's)
         if f.data_type.np_dtype is None or \
                 isinstance(f.data_type, T.ArrayType):
             width += 32          # offset + data estimate

@@ -48,6 +48,7 @@ SOURCES = {
     "wirecodec": "wirecodec.cu",
     "range_partition": "range_partition.cu",
     "window_range": "window_range.cu",
+    "generate": "generate.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -141,6 +142,13 @@ _SIGNATURES = {
         "srt_window_range_width": [_P, _P, _L, _P, _P],
         "srt_window_range": [_I, _I, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P,
                              _P, _P],
+    },
+    "generate": {
+        "srt_split_counts": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P],
+        "srt_split_emit": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _I, _P, _P,
+                           _P, _P, _P],
+        "srt_array_emit": [_P, _I, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P,
+                           _P],
     },
 }
 

@@ -1,16 +1,16 @@
 """Logical plan nodes (port of ``spark_rapids_tpu/plan/logical.py``, the
 nodes the port lowers: Scan, Project, Filter, Aggregate, Join, Sort,
-Limit, Repartition, Window, Union)."""
+Limit, Repartition, Window, Union, Generate)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.core import PlanNode
 from spark_rapids_tpu_torch.expr.core import Expression
 
 __all__ = ["LogicalPlan", "Scan", "Project", "Filter", "Aggregate", "Join",
-           "Sort", "Limit", "Repartition", "Window", "Union"]
+           "Sort", "Limit", "Repartition", "Window", "Union", "Generate"]
 
 
 class LogicalPlan:
@@ -150,3 +150,18 @@ class Union(LogicalPlan):
     @property
     def schema(self):
         return self.inputs[0].schema
+
+
+@dataclass
+class Generate(LogicalPlan):
+    """A generator (explode/posexplode) appended to the child's columns
+    (reference ``plan/logical.py:158-170``)."""
+    generator: Expression
+    child: LogicalPlan
+    outer: bool = False
+    pos: bool = False
+    output_names: list = field(default_factory=lambda: ["col"])
+
+    @property
+    def children(self):
+        return (self.child,)

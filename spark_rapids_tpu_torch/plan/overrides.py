@@ -4,7 +4,7 @@
 :75-110 without the AQE shuffled-join exchange, which is off by default,
 or the mesh; a limit over a sort as :117-137 without the mesh TopN; an
 explicit repartition as :178-195; a window as :141-155; a union as
-:138-140).  ``_lower_project``
+:138-140; a generate as :163-168).  ``_lower_project``
 (:479) plans the window expressions of a projection: one ``WindowExec``
 per distinct spec, each over a hash exchange on its partition keys where
 the child is not already distributed on them (:435), then the final
@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.exec import (CoalesceBatchesExec,
 from spark_rapids_tpu_torch.exec.core import ExecCtx, PlanNode, TargetSize
 from spark_rapids_tpu_torch.exec.exchange import (AdaptiveShuffleReaderExec,
                                                   ShuffleExchangeExec)
+from spark_rapids_tpu_torch.exec.generate import GenerateExec
 from spark_rapids_tpu_torch.exec.partitioning import (HashPartitioning,
                                                       RoundRobinPartitioning)
 from spark_rapids_tpu_torch.expr.core import (Alias, UnresolvedAttribute,
@@ -96,6 +97,11 @@ def lower(node: L.LogicalPlan, conf: TorchConf) -> PlannedNode:
     if isinstance(node, L.Union):
         cs = [lower(i, conf) for i in node.inputs]
         return PlannedNode(UnionExec([c.exec_node for c in cs]), cs)
+    if isinstance(node, L.Generate):
+        c = lower(node.child, conf)
+        return PlannedNode(GenerateExec(node.generator, c.exec_node,
+                                        outer=node.outer, pos=node.pos,
+                                        output_names=node.output_names), [c])
     if isinstance(node, L.Window):
         c = lower(node.child, conf)
         # partition on the first expression's spec; WindowExec itself

@@ -6,7 +6,8 @@ versions on the CPU (the tests do this).  The DataFrame methods are the
 ones the port's TPC-H, TPC-DS and mortgage query functions use --
 ``read_parquet``, ``read_csv``, ``select``, ``where``, ``with_column``,
 ``join``, ``union``, ``group_by().agg()``, ``agg``, ``order_by``,
-``limit``, ``collect``, ``explain`` -- and ``repartition``; ``select`` takes window
+``limit``, ``collect``, ``explain`` -- and ``repartition``, ``explode``
+and ``explode_split``; ``select`` takes window
 expressions (``expr/window.py``), which the planner lowers to
 ``WindowExec``s.  Admission,
 cancellation, the result cache and the serving planes wait for later
@@ -124,6 +125,29 @@ class DataFrame:
         return DataFrame(self._s, L.Repartition(
             num_partitions, [self._col_or_expr(k) for k in keys],
             self._plan))
+
+    def explode(self, expr, output_name: str = "col", pos: bool = False,
+                outer: bool = False) -> "DataFrame":
+        """explode(array column): one output row per element, the child
+        columns repeated; ``pos`` adds the element's index before it,
+        ``outer`` keeps a null or empty array as one row of nulls."""
+        from spark_rapids_tpu_torch.exec.generate import Explode
+        gen = Explode(self._col_or_expr(expr))
+        names = ["pos", output_name] if pos else [output_name]
+        return DataFrame(self._s, L.Generate(gen, self._plan, outer=outer,
+                                             pos=pos, output_names=names))
+
+    def explode_split(self, expr, delimiter: str, output_name: str = "col",
+                      pos: bool = False, outer: bool = False) -> "DataFrame":
+        """explode(split(expr, delimiter)) for a one-byte delimiter: one
+        output row per piece, the child columns repeated; ``pos`` adds the
+        piece's index, ``outer`` keeps a null string as one row of
+        nulls."""
+        from spark_rapids_tpu_torch.exec.generate import SplitExplode
+        gen = SplitExplode(self._col_or_expr(expr), delimiter)
+        names = ["pos", output_name] if pos else [output_name]
+        return DataFrame(self._s, L.Generate(gen, self._plan, outer=outer,
+                                             pos=pos, output_names=names))
 
     # -- actions --------------------------------------------------------
     def collect(self) -> list[tuple]:

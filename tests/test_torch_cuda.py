@@ -1017,3 +1017,129 @@ def test_from_arrow_codec_on_cuda_matches_cpu(dev):
                           None if a.lengths is None else a.lengths.cpu()), b)
     assert WC.decode_fixed.launches > before[0]
     assert WC.decode_dict.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# K14: explode of split strings and of arrays
+# ---------------------------------------------------------------------------
+
+_DELIM = 0x20
+#: bytes besides the delimiter: NUL, ASCII, ',' and the bytes of 2-, 3-
+#: and 4-byte UTF-8 sequences
+_OTHER = [0, ord("a"), ord("b"), ord(","), 0xC3, 0xA9, 0xE2, 0x82, 0xAC,
+          0xF0, 0x9F, 0x98, 0x80]
+
+
+def _split_stress(n: int, w: int, seed: int, dev, null_p: float = 0.1):
+    """Seeded strings [n, w] on ``dev``: per row a delimiter share of 0,
+    5%, 30% or 100% (leading, trailing and consecutive delimiters come
+    with it), lengths 0..w with a tenth at w, NULs and UTF-8 bytes,
+    nulls; zero past each length."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev)
+
+    other = torch.tensor(_OTHER, dtype=torch.uint8, device=dev)
+    share = torch.tensor([0, 13, 77, 256], device=dev)[ints(4, (n,))]
+    data = torch.where(ints(256, (n, w)) < share[:, None],
+                       torch.tensor(_DELIM, dtype=torch.uint8, device=dev),
+                       other[ints(len(_OTHER), (n, w))])
+    lengths = ints(w + 1, (n,))
+    lengths = torch.where(ints(10, (n,)) == 0, w, lengths)
+    valid = ints(1000, (n,)) >= int(null_p * 1000)
+    lengths = torch.where(valid, lengths, 0).to(torch.int32)
+    inside = torch.arange(w, device=dev)[None, :] < lengths[:, None]
+    return torch.where(inside, data, 0).to(torch.uint8), lengths, valid
+
+
+def _split_both(data, lengths, valid, outer, out_w=None):
+    from spark_rapids_tpu_torch.columnar.column import round_string_width
+    from spark_rapids_tpu_torch.ops import generate as GE
+    got = GE.split_counts(data, lengths, valid, _DELIM, outer)
+    want = GE.split_counts_plain(data, lengths, valid, _DELIM, outer)
+    assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+    emit, total, widest = got
+    w = out_w or round_string_width(widest)
+    a = GE.split_emit(data, lengths, valid, _DELIM, outer, emit, total, w)
+    b = GE.split_emit_plain(data, lengths, valid, _DELIM, outer, emit,
+                            total, w)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    return total
+
+
+@pytest.mark.parametrize("w", [4, 8, 12, 16, 20, 64, 256])
+@pytest.mark.parametrize("outer", [False, True])
+def test_split_explode_matches_plain(dev, w, outer):
+    from spark_rapids_tpu_torch.ops import generate as GE
+    data, lengths, valid = _split_stress(4099, w, 140 + w, dev)
+    before = GE.split_counts.launches, GE.split_emit.launches
+    assert _split_both(data, lengths, valid, outer) > 0
+    # the input's own width, and a narrower width below it
+    _split_both(data, lengths, valid, outer, out_w=w)
+    assert GE.split_counts.launches == before[0] + 2
+    assert GE.split_emit.launches == before[1] + 2
+
+
+def test_split_explode_all_null(dev):
+    from spark_rapids_tpu_torch.ops import generate as GE
+    data, lengths, valid = _split_stress(1000, 16, 7, dev, null_p=1.0)
+    emit, total, widest = GE.split_counts(data, lengths, valid, _DELIM,
+                                          False)
+    assert total == 0 and widest == 0 and not bool(emit.any())
+    assert _split_both(data, lengths, valid, True) == 1000
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.int64,
+                                   torch.float32, torch.float64, torch.bool])
+@pytest.mark.parametrize("w", [1, 4, 16, 64])
+@pytest.mark.parametrize("outer", [False, True])
+def test_array_explode_matches_plain(dev, dtype, w, outer):
+    from spark_rapids_tpu_torch.ops import generate as GE
+    g = torch.Generator(device=dev).manual_seed(w)
+    n = 5003
+    if dtype.is_floating_point:
+        vals = torch.tensor([0.0, -0.0, 1.5, float("nan"), float("inf")],
+                            dtype=dtype, device=dev)
+        data = vals[torch.randint(0, 5, (n, w), generator=g, device=dev)]
+    elif dtype == torch.bool:
+        data = torch.randint(0, 2, (n, w), generator=g, device=dev) > 0
+    else:
+        data = torch.randint(-100, 100, (n, w), generator=g,
+                             device=dev).to(dtype)
+    lengths = torch.randint(0, w + 1, (n,), generator=g,
+                            device=dev).to(torch.int32)
+    valid = torch.randint(0, 8, (n,), generator=g, device=dev) > 0
+    lengths = torch.where(valid, lengths, 0)
+    inside = torch.arange(w, device=dev)[None, :] < lengths[:, None]
+    data = torch.where(inside, data, torch.zeros((), dtype=dtype,
+                                                 device=dev))
+    emit, total = GE.array_counts(lengths, valid, outer)
+    before = GE.array_emit.launches
+    got = GE.array_emit(data, lengths, valid, outer, emit, total)
+    want = GE.array_emit_plain(data, lengths, valid, outer, emit, total)
+    assert GE.array_emit.launches == before + 1
+    # bit for bit: -0.0 and NaN included
+    assert torch.equal(got[0].view(torch.uint8), want[0].view(torch.uint8))
+    for x, y in zip(got[1:], want[1:]):
+        assert torch.equal(x, y)
+
+
+def test_generate_paths_on_cuda_match_cpu(dev, tmp_path):
+    """review_words and basket_items at sf 0.05 through TorchSession() on
+    the card and on the CPU; K14a/K14b launch on the first, K14c on the
+    second, once per scan batch."""
+    from spark_rapids_tpu_torch.bench import generate_queries as GQ
+    from spark_rapids_tpu_torch.ops import generate as GE
+    for name, counters in (("review_words", (GE.split_counts,
+                                             GE.split_emit)),
+                           ("basket_items", (GE.array_emit,))):
+        build, prepare, _fact = GQ.GENERATE_PATHS[name]
+        data_dir = prepare(str(tmp_path), 0.05)
+        before = [c.launches for c in counters]
+        got = build(TorchSession(), data_dir).collect()
+        assert [c.launches - b for c, b in zip(counters, before)] == \
+            [1] * len(counters)
+        want = build(TorchSession(device="cpu"), data_dir).collect()
+        assert got == want and got

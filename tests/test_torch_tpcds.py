@@ -151,6 +151,31 @@ def test_generator_reuses_and_counts(dirs, tmp_path):
                 if f.endswith(".parquet")]) == 3
 
 
+def test_relayout_writes_the_generated_rows(tmp_path):
+    """relayout_tpcds re-slices a generated table into another layout:
+    the files generate_tpcds writes for that layout, reused when there;
+    a table missing from the source raises."""
+    a, b, c = (str(tmp_path / x) for x in "abc")
+    pgen.generate_tpcds(a, sf=0.01, tables=("date_dim",),
+                        rows_per_file=30_000)
+    pgen.generate_tpcds(c, sf=0.01, tables=("date_dim",),
+                        rows_per_file=ONE_FILE)
+    pgen.relayout_tpcds(a, b, 0.01, 42, ("date_dim",),
+                        rows_per_file=ONE_FILE)
+    assert sorted(os.listdir(os.path.join(b, "date_dim"))) == \
+        sorted(os.listdir(os.path.join(c, "date_dim")))
+    assert pq.read_table(os.path.join(b, "date_dim")).equals(
+        pq.read_table(os.path.join(c, "date_dim")))
+    part = os.path.join(b, "date_dim", "part-00000.parquet")
+    mtime = os.path.getmtime(part)
+    pgen.relayout_tpcds(a, b, 0.01, 42, ("date_dim",),
+                        rows_per_file=ONE_FILE)
+    assert os.path.getmtime(part) == mtime
+    with pytest.raises(FileNotFoundError):
+        pgen.relayout_tpcds(a, b, 0.01, 42, ("item",),
+                            rows_per_file=ONE_FILE)
+
+
 def _same_rows(got, want, rtol):
     assert len(got) == len(want)
     for g, w in zip(got, want):
