@@ -15,7 +15,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    phase 6; K12a window segment extents, K12b window frame aggregates in
    phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9; K13i, K4p in
    phase 10; K8a, K8b in phase 11; K11, K12c in phase 12; K14a-c in
-   phase 13): seeded inputs
+   phase 13; K13e-h, K4s in phase 14): seeded inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -140,7 +140,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
    joined with item, grouped by category) cold + warm against Python's
    str.split and numpy: K14a and K14b once per review batch, K14c and K2
    once per basket batch, and K14 0 times over phases 3-12;
-14. print the kernel table as one JSON line (launches per path), the
+14. the last string kernels over the mortgage files of phase 10 (reused):
+   K13e (trims), K13f (length), K13g (locate) and K13h (substring_index)
+   held exactly against their plain versions on 2^22-row stress batches
+   (W 4, 16, 64 and 256; spaces-only rows, commas, slashes, NULs, UTF-8
+   bytes, lone continuation bytes, empty and null rows; all three trims,
+   count in -3..2 over ',', space and NUL, literal needles (empty, wider
+   than W) and needle columns with start in -1..W+2), at path A's first
+   performance scan batch (4,194,304 reporting dates) and at path B's 1M
+   seller names; K4s (string min/max) on 2^22-row stress batches (W 4, 16
+   and 64; one segment, ~1000 and one-row segments) and at both paths'
+   shapes (every performance row's period by loan, ~1M segments; the base
+   names by state and form, ~66 segments); each timed beside its bound
+   and its plain version; then loan_period_span (per loan the first and
+   last reporting month as YYYY-MM, then per first month the loans and
+   their last months) and seller_legal_forms (seller names cut at their
+   commas, trimmed, measured and searched, per state and legal form)
+   cold + warm against numpy and Python's str functions: K13h, K13c and
+   K4s must launch on the first, K13e-h and K4s on the second, and K13e-h
+   and K4s 0 times over phases 3-13;
+15. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -784,7 +803,13 @@ def _counters() -> dict:
             "frame_min_max": {"frame_min_max": W.frame_min_max},
             "split_counts": {"split_counts": GE.split_counts},
             "split_emit": {"split_emit": GE.split_emit},
-            "array_emit": {"array_emit": GE.array_emit}}
+            "array_emit": {"array_emit": GE.array_emit},
+            "trim": {"trim": STR.trim},
+            "char_length": {"char_length": STR.char_length},
+            "locate": {"locate": STR.locate},
+            "substring_index": {"substring_index": STR.substring_index},
+            "segment_string_min_max": {
+                "segment_string_min_max": G.segment_string_min_max}}
 
 
 #: K8a and K8b: every scan batch of more than 1024 rows goes through the
@@ -4638,6 +4663,501 @@ def run_generate_phase(torch, dev, warm: int):
     return entries, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the last string kernels -- K13e-h (trims, length, locate,
+# substring_index) and K4s (string min/max); loan_period_span and
+# seller_legal_forms over the mortgage files
+# ---------------------------------------------------------------------------
+
+#: rows of the K13e-h and K4s stress batches
+K13EH_ROWS = 1 << 22
+#: rows compared with a plain version at a time
+_PLAIN_CHUNK = 1 << 20
+#: bytes of the K13e-h stress rows: spaces (thrice as often), the
+#: delimiters ',' and '/', NUL, ASCII, the bytes of 2-, 3- and 4-byte
+#: UTF-8 sequences and a lone continuation byte
+_K13EH_BYTES = [0x20, 0x20, 0x20, ord(","), ord("/"), 0x00, ord("a"),
+                ord("b"), 0xC3, 0xA9, 0xE2, 0x82, 0xAC, 0xF0, 0x9F, 0x98,
+                0x80]
+#: bytes of the K4s stress rows: few, so that prefixes, ties and NUL
+#: tails are common
+_K4S_BYTES = [0x00, ord("a"), ord("b"), 0xC3, 0xA9, 0xFF]
+#: the counters of phase 14's kernels
+_STRING_FUNC_ENTRIES = ("trim", "char_length", "locate", "substring_index",
+                        "segment_string_min_max")
+_TRIM_MODES = ((True, True), (True, False), (False, True))
+
+
+def _byte_rows(torch, gen, n: int, w: int, alphabet, dev,
+               spaces_p: float = 0.0):
+    """uint8 [n, w] rows of bytes drawn from ``alphabet`` on the card,
+    ``spaces_p`` of them spaces only; lengths 0..w with a tenth at w, a
+    tenth null, zeros past every length."""
+    table = torch.tensor(alphabet, dtype=torch.uint8, device=dev)
+    data = torch.empty((n, w), dtype=torch.uint8, device=dev)
+    step = max(1, (1 << 24) // w)  # rows drawn at a time
+    for r in range(0, n, step):
+        rows = min(step, n - r)
+        data[r:r + rows] = table[torch.randint(
+            0, len(alphabet), (rows, w), device=dev, generator=gen)]
+    if spaces_p:
+        data[torch.rand(n, device=dev, generator=gen) < spaces_p] = 0x20
+    lengths = torch.randint(0, w + 1, (n,), device=dev, generator=gen)
+    lengths = torch.where(torch.rand(n, device=dev, generator=gen) < 0.1,
+                          w, lengths)
+    valid = torch.rand(n, device=dev, generator=gen) >= 0.1
+    lengths = torch.where(valid, lengths, 0).to(torch.int32)
+    inside = torch.arange(w, device=dev)[None, :] < lengths[:, None]
+    return torch.where(inside, data, 0).to(torch.uint8), lengths, valid
+
+
+def _chunked_same(torch, got, plain, n: int, what: str) -> None:
+    """``got`` (a tensor or a tuple of [n, ...] tensors) equals
+    ``plain(r0, r1)`` on every chunk of rows."""
+    got = got if isinstance(got, tuple) else (got,)
+    for r0 in range(0, n, _PLAIN_CHUNK):
+        r1 = min(n, r0 + _PLAIN_CHUNK)
+        want = plain(r0, r1)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w_ in zip(got, want):
+            if g[r0:r1].shape != w_.shape or not torch.equal(g[r0:r1], w_):
+                raise AssertionError(f"{what}: rows {r0}..{r1} differ from "
+                                     "the plain version")
+
+
+def _rows_of(ts, r0: int, r1: int):
+    return tuple(t[r0:r1] for t in ts)
+
+
+def _string_funcs_stress(torch, dev) -> int:
+    """K13e-h against their plain versions on 2^22-row batches at W 4, 16,
+    64 and 256; returns the number of kernel calls compared."""
+    from spark_rapids_tpu_torch.ops import strings as OS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1411)
+    n, calls = K13EH_ROWS, 0
+    for w in (4, 16, 64, 256):
+        s = _byte_rows(torch, gen, n, w, _K13EH_BYTES, dev, spaces_p=0.1)
+        for left, right in _TRIM_MODES:
+            _chunked_same(torch, OS.trim(*s, left, right),
+                          lambda a, b: OS.trim_plain(*_rows_of(s, a, b),
+                                                     left, right),
+                          n, f"K13e stress W{w} {left}/{right}")
+        _chunked_same(torch, OS.char_length(*s),
+                      lambda a, b: OS.char_length_plain(*_rows_of(s, a, b)),
+                      n, f"K13f stress W{w}")
+        calls += 4
+        for delim in (ord(","), 0x20, 0x00):
+            for count in (-3, -1, 0, 1, 2):
+                _chunked_same(
+                    torch, OS.substring_index(*s, delim, count),
+                    lambda a, b: OS.substring_index_plain(
+                        *_rows_of(s, a, b), delim, count),
+                    n, f"K13h stress W{w} delim {delim} count {count}")
+                calls += 1
+        needles = [OS.literal_needle(t, dev)
+                   for t in ["", "a", " a", "é", "\x80"]]
+        if w <= 64:  # the plain version compares every needle byte
+            needles.append(OS.literal_needle("x" * (w + 4), dev))
+        needles.append(_byte_rows(torch, gen, n, 4, _K13EH_BYTES, dev))
+        for nd in needles:
+            col = nd[0].shape[0] == n
+            for start in ((1, 3) if col else (-1, 1, 2, w // 2, w + 2)):
+                _chunked_same(
+                    torch, OS.locate(*s, *nd, start),
+                    lambda a, b: OS.locate_plain(
+                        *_rows_of(s, a, b),
+                        *(_rows_of(nd, a, b) if col else nd), start),
+                    n, f"K13g stress W{w} needle {nd[0].shape} start "
+                    f"{start}")
+                calls += 1
+        del s, needles
+        torch.cuda.empty_cache()
+    return calls
+
+
+def _k4s_stress(torch, dev) -> int:
+    """K4s against its plain version on 2^22-row batches at W 4, 16 and
+    64: one giant segment, ~1000 segments and one-row segments, min and
+    max; returns the number of kernel calls compared."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import segmented as G
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1412)
+    n, calls = K13EH_ROWS, 0
+    for w in (4, 16, 64):
+        data, lengths, valid = _byte_rows(torch, gen, n, w, _K4S_BYTES, dev)
+        col = DeviceColumn(data, valid, T.StringType(), lengths)
+        for groups in (1, 1000, n):
+            if groups == n:
+                flags = torch.ones(n, dtype=torch.uint8, device=dev)
+            else:
+                key = torch.sort(torch.randint(0, groups, (n,), device=dev,
+                                               generator=gen))[0]
+                flags = torch.ones(n, dtype=torch.uint8, device=dev)
+                flags[1:] = (key[1:] != key[:-1]).to(torch.uint8)
+            starts = torch.nonzero(flags).squeeze(1).to(torch.int32)
+            for is_max in (False, True):
+                got = G.segment_string_min_max(col, flags, starts, is_max)
+                want = G.segment_string_min_max_plain(col, flags, starts,
+                                                      is_max)
+                _assert_equal_cols(torch, [got], [want],
+                                   f"K4s stress W{w} {starts.numel()} "
+                                   f"segments max={is_max}")
+                calls += 1
+        del data, lengths, valid, col
+        torch.cuda.empty_cache()
+    return calls
+
+
+def _read_quarters(data_dir: str, sub: str, schema, columns):
+    """The named columns of every quarter's file, in quarter order, as
+    pyarrow arrays, each row's quarter as an index into the quarter names,
+    and the names."""
+    import glob
+    import pyarrow as pa
+    import pyarrow.csv as pc
+    at = schema.to_arrow()
+    tables, quarters, qnames = [], [], []
+    for p in sorted(glob.glob(os.path.join(data_dir, sub, "*.txt_0"))):
+        t = pc.read_csv(
+            p, read_options=pc.ReadOptions(column_names=at.names),
+            parse_options=pc.ParseOptions(delimiter="|"),
+            convert_options=pc.ConvertOptions(
+                column_types={f.name: f.type for f in at},
+                include_columns=columns))
+        tables.append(t)
+        quarters.append(np.full(t.num_rows, len(qnames), np.int64))
+        qnames.append(os.path.basename(p).split(".")[0].split("_")[-1])
+    t = pa.concat_tables(tables)
+    return ({c: t.column(c).combine_chunks() for c in columns},
+            np.concatenate(quarters), qnames)
+
+
+def _codes(arr):
+    """(int64 codes, the distinct python values) of a pyarrow string
+    array without nulls."""
+    if arr.null_count:
+        raise AssertionError("mortgage data: unexpected null strings")
+    d = arr.dictionary_encode()
+    return (d.indices.to_numpy().astype(np.int64),
+            d.dictionary.to_pylist())
+
+
+def reference_loan_period_span(perf, q, qnames) -> list:
+    """loan_period_span with numpy and Python's str.split: the period
+    ``YYYY-MM`` of each distinct reporting date, its rank in byte order,
+    per (quarter, loan) the least and greatest rank, then per (quarter,
+    first rank) the loans and the least and greatest last rank."""
+    codes, dates = _codes(perf["monthly_reporting_period"])
+    periods = [d.split("/")[-1] + "-" + d.split("/")[0] for d in dates]
+    uniq = sorted(set(periods), key=str.encode)
+    rank_of = {p: i for i, p in enumerate(uniq)}
+    r = np.array([rank_of[p] for p in periods], np.int64)[codes]
+    loan = perf["loan_id"].to_numpy()
+    o = np.lexsort((loan, q))
+    qs, ls, rs = q[o], loan[o], r[o]
+    s1 = np.flatnonzero(np.r_[True, (qs[1:] != qs[:-1])
+                              | (ls[1:] != ls[:-1])])
+    first = np.minimum.reduceat(rs, s1)
+    last = np.maximum.reduceat(rs, s1)
+    q1 = qs[s1]
+    o2 = np.lexsort((first, q1))
+    q2, f2, l2 = q1[o2], first[o2], last[o2]
+    s2 = np.flatnonzero(np.r_[True, (q2[1:] != q2[:-1])
+                              | (f2[1:] != f2[:-1])])
+    cnt = np.diff(np.r_[s2, len(q2)])
+    lo = np.minimum.reduceat(l2, s2)
+    hi = np.maximum.reduceat(l2, s2)
+    return [(qnames[q2[i]], uniq[f2[i]], int(c), uniq[a], uniq[b])
+            for i, c, a, b in zip(s2, cnt, lo, hi)]
+
+
+def reference_seller_legal_forms(acq) -> list:
+    """seller_legal_forms with Python's str functions over the distinct
+    names and numpy counts of each (name, state) pair."""
+    ncode, names = _codes(acq["seller_name"])
+    scode, states = _codes(acq["property_state"])
+    pair, cnt = np.unique(ncode * len(states) + scode, return_counts=True)
+    groups: dict = {}
+    for p, c in zip(pair.tolist(), cnt.tolist()):
+        name, state = names[p // len(states)], states[p % len(states)]
+        base = name.split(",")[0].rstrip(" ")
+        form = name.split(",")[-1].strip(" ")
+        g = groups.setdefault((state, form), [0, None, None, 0, 0, 0])
+        g[0] += c
+        g[1] = base if g[1] is None else min(g[1], base, key=str.encode)
+        g[2] = base if g[2] is None else max(g[2], base, key=str.encode)
+        g[3] = max(g[3], len(base))
+        g[4] += c * int("BANK" in name)
+        g[5] = max(g[5], name.find(",", 1) + 1)
+    keys = sorted(groups, key=lambda k: (k[0].encode(), k[1].encode()))
+    return [(k[0], k[1], *groups[k]) for k in keys]
+
+
+def _to_card(torch, dev, arrays: dict):
+    """A ColumnBatch of pyarrow arrays on the card."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    return ColumnBatch.from_arrow(pa.record_batch(list(arrays.values()),
+                                                  names=list(arrays)), dev)
+
+
+def check_string_funcs(torch, dev, period_batch, names) -> dict:
+    """K13e-h against their plain versions on the stress batches, at path
+    A's period batch (K13h at both signs) and at path B's seller names
+    (every function of the path); timed at those shapes."""
+    from spark_rapids_tpu_torch.ops import strings as OS
+    t0 = time.perf_counter()
+    calls = _string_funcs_stress(torch, dev)
+    stress_s = time.perf_counter() - t0
+    p = (period_batch.data, period_batch.lengths, period_batch.validity)
+    n = p[0].shape[0]
+    for count in (-1, 1):
+        _chunked_same(torch, OS.substring_index(*p, ord("/"), count),
+                      lambda a, b: OS.substring_index_plain(
+                          *_rows_of(p, a, b), ord("/"), count),
+                      n, f"K13h period batch count {count}")
+    s = (names.data, names.lengths, names.validity)
+    m = s[0].shape[0]
+    first = OS.substring_index(*s, ord(","), 1)
+    last = OS.substring_index(*s, ord(","), -1)
+    for got, count in ((first, 1), (last, -1)):
+        _chunked_same(torch, got, lambda a, b: OS.substring_index_plain(
+            *_rows_of(s, a, b), ord(","), count), m,
+            f"K13h seller names count {count}")
+    base = OS.trim(*first, False, True)
+    form = OS.trim(*last, True, True)
+    for got, src, left, right in ((base, first, False, True),
+                                  (form, last, True, True)):
+        _chunked_same(torch, got, lambda a, b: OS.trim_plain(
+            *_rows_of(src, a, b), left, right), m, "K13e seller names")
+    _chunked_same(torch, OS.char_length(*base),
+                  lambda a, b: OS.char_length_plain(*_rows_of(base, a, b)),
+                  m, "K13f base names")
+    bank = OS.literal_needle("BANK", dev)
+    comma = OS.literal_needle(",", dev)
+    for nd, start in ((bank, 1), (comma, 2)):
+        _chunked_same(torch, OS.locate(*s, *nd, start),
+                      lambda a, b: OS.locate_plain(*_rows_of(s, a, b), *nd,
+                                                   start),
+                      m, f"K13g seller names start {start}")
+    print(f"[string funcs] K13e-h: {calls} stress calls of 2^22 rows (W 4, "
+          f"16, 64, 256) in {stress_s:.1f} s, path A's period batch "
+          f"({n} x W{p[0].shape[1]}) and path B's {m} seller names "
+          f"(W{s[0].shape[1]}): equal to the plain versions", flush=True)
+    out = {}
+    timed = (
+        ("trim", "K13e trim (the forms)",
+         lambda: OS.trim(*last, True, True),
+         lambda: OS.trim_plain(*last, True, True),
+         _sector_bytes(torch, last[1], last[0].shape[1]) + 5 * m
+         + _nbytes(form[:2]), "spark_rapids_tpu/expr/strings.py:91"),
+        ("char_length", "K13f length (the base names)",
+         lambda: OS.char_length(*base),
+         lambda: OS.char_length_plain(*base),
+         _sector_bytes(torch, base[1], base[0].shape[1]) + 5 * m + 4 * m,
+         "spark_rapids_tpu/expr/strings.py:126"),
+        ("locate", "K13g locate('BANK', name)",
+         lambda: OS.locate(*s, *bank, 1),
+         lambda: OS.locate_plain(*s, *bank, 1),
+         _sector_bytes(torch, s[1], s[0].shape[1]) + 5 * m + _nbytes(bank)
+         + 5 * m,
+         "spark_rapids_tpu/expr/strings.py:539"),
+        ("substring_index", "K13h substring_index(period, '/', -1)",
+         lambda: OS.substring_index(*p, ord("/"), -1),
+         lambda: OS.substring_index_plain(*p, ord("/"), -1),
+         _sector_bytes(torch, p[1], p[0].shape[1]) + 5 * n + p[0].numel()
+         + 4 * n,
+         "spark_rapids_tpu/expr/strings.py:612"))
+    for name, label, fn, plain, nbytes, replaces in timed:
+        ms = _time_ms(torch, fn, reps=20)
+        plain_ms = _time_ms(torch, plain)
+        print(f"[{label}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms=none (no PyTorch call computes it) "
+              f"bound_ms={_bound_ms(nbytes):.4f} ({nbytes} bytes)",
+              flush=True)
+        out[name] = dict(name=name, route="cuda",
+                         source="spark_rapids_tpu_torch/csrc/"
+                         "string_funcs.cu", replaces=replaces,
+                         max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                         library_ms=None)
+    return out
+
+
+def _sorted_segments(torch, batch, keys):
+    """The batch sorted by ``keys`` (K1 + K3), its segment flags and
+    starts."""
+    from spark_rapids_tpu_torch.ops.segmented import _cols_differ
+    from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_batch
+    sb = sort_batch(batch, [SortOrder(k, True, True) for k in keys])
+    flag = torch.zeros(sb.num_rows, dtype=torch.bool, device=sb.device)
+    flag[0] = True
+    for k in keys:
+        flag |= _cols_differ(sb.columns[k])
+    flags = flag.to(torch.uint8)
+    return sb, flags, torch.nonzero(flags).squeeze(1).to(torch.int32)
+
+
+def check_string_min_max(torch, dev, periods, sellers) -> dict:
+    """K4s against its plain version on the stress batches, at path A's
+    per-loan shape (every performance row's period, sorted by loan: ~1M
+    segments) and at path B's (the base names sorted by state and form:
+    ~66 segments); timed at path A's."""
+    from spark_rapids_tpu_torch.ops import segmented as G
+    t0 = time.perf_counter()
+    calls = _k4s_stress(torch, dev)
+    stress_s = time.perf_counter() - t0
+    shapes = {}
+    for label, (batch, keys, ci) in (("A", periods), ("B", sellers)):
+        sb, flags, starts = _sorted_segments(torch, batch, keys)
+        col = sb.columns[ci]
+        for is_max in (False, True):
+            _assert_equal_cols(
+                torch, [G.segment_string_min_max(col, flags, starts,
+                                                 is_max)],
+                [G.segment_string_min_max_plain(col, flags, starts,
+                                                is_max)],
+                f"K4s path {label} max={is_max}")
+        shapes[label] = (col, flags, starts)
+    col, flags, starts = shapes["A"]
+    n, g = col.data.shape[0], starts.numel()
+    ms = _time_ms(torch, lambda: G.segment_string_min_max(col, flags, starts,
+                                                          False), reps=10)
+    plain_ms = _time_ms(torch, lambda: G.segment_string_min_max_plain(
+        col, flags, starts, False), reps=3)
+    b_col, b_flags, b_starts = shapes["B"]
+    ms_b = _time_ms(torch, lambda: G.segment_string_min_max(
+        b_col, b_flags, b_starts, False), reps=10)
+    w = col.data.shape[1]
+    nbytes = _sector_bytes(torch, col.lengths, w) + n * (4 + 1 + 1) + \
+        g * 4 + g * (w + 4 + 1)
+    print(f"[K4s string min/max] {calls} stress calls of 2^22 rows (W 4, "
+          f"16, 64; 1, ~1000 and 2^22 segments) in {stress_s:.1f} s, path "
+          f"A ({n} periods in {g} loans, W{w}) and path B "
+          f"({b_col.data.shape[0]} base names in {b_starts.numel()} "
+          f"groups, W{b_col.data.shape[1]}): equal to the plain version; "
+          f"path A ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none "
+          f"(no PyTorch call takes a segmented string min) "
+          f"bound_ms={_bound_ms(nbytes):.4f} ({nbytes} bytes); path B "
+          f"ms={ms_b:.4f}",
+          flush=True)
+    return {"segment_string_min_max": dict(
+        name="segment_string_min_max", route="cuda",
+        source="spark_rapids_tpu_torch/csrc/segmented.cu",
+        replaces="spark_rapids_tpu/ops/segmented.py:216", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=_bound_ms(nbytes),
+        bound_by="bytes", library_ms=None)}
+
+
+def _path_inputs(torch, dev, data_dir: str, perf, acq):
+    """Path A's first period scan batch, every period sorted-ready with
+    its loan, and path B's names, states, bases and forms, on the card."""
+    from spark_rapids_tpu_torch.bench.mortgage_gen import perf_schema
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.conf import TorchConf
+    from spark_rapids_tpu_torch.io import CsvScanExec
+    from spark_rapids_tpu_torch.io.scan import _effective_batch_rows
+    from spark_rapids_tpu_torch.ops import strings as OS
+    scan = CsvScanExec(os.path.join(data_dir, "perf",
+                                    "Performance_2003Q1.txt_0"),
+                       schema=perf_schema(), header=False, delimiter="|",
+                       columns=["loan_id", "monthly_reporting_period"])
+    rows = _effective_batch_rows(scan.output_schema, TorchConf().settings)
+    rb = next(iter(scan._read_file(scan._files[0], rows)))
+    period_batch = ColumnBatch.from_arrow(rb, dev).columns[1]
+    allp = _to_card(torch, dev, {
+        "loan_id": perf["loan_id"],
+        "p": perf["monthly_reporting_period"]})
+    pc = allp.columns[1]
+    p = (pc.data, pc.lengths, pc.validity)
+    dash = OS.literal_needle("-", dev)
+    d, ln, v = OS.concat([OS.substring_index(*p, ord("/"), -1), dash,
+                          OS.substring_index(*p, ord("/"), 1)])
+    period = DeviceColumn(d, v, T.StringType(), ln)
+    periods = ColumnBatch([allp.columns[0], period], allp.num_rows,
+                          T.Schema([T.StructField("loan_id", T.LongType()),
+                                    T.StructField("period",
+                                                  T.StringType())]), dev)
+    ab = _to_card(torch, dev, {"seller_name": acq["seller_name"],
+                               "property_state": acq["property_state"]})
+    names = ab.columns[0]
+    s = (names.data, names.lengths, names.validity)
+    base = OS.trim(*OS.substring_index(*s, ord(","), 1), False, True)
+    form = OS.trim(*OS.substring_index(*s, ord(","), -1), True, True)
+    st = T.StringType()
+    sellers = ColumnBatch(
+        [ab.columns[1], DeviceColumn(form[0], form[2], st, form[1]),
+         DeviceColumn(base[0], base[2], st, base[1])], ab.num_rows,
+        T.Schema([T.StructField(x, st) for x in ("state", "form", "base")]),
+        dev)
+    return period_batch, names, (periods, [0], 1), (sellers, [0, 1], 2)
+
+
+def run_string_funcs_phase(torch, dev, warm: int):
+    """K13e-h and K4s against their plain versions, then loan_period_span
+    and seller_legal_forms over 1M loans, cold + warm against
+    numpy/Python; returns ({kernel: entry}, {path: launches})."""
+    from spark_rapids_tpu_torch.bench import mortgage as M
+    from spark_rapids_tpu_torch.bench import string_queries as SQ
+    from spark_rapids_tpu_torch.bench.mortgage_gen import (acq_schema,
+                                                           perf_schema)
+    data_dir = os.path.join(ROOT, ".bench_data",
+                            f"mortgage_sf{MORTGAGE_SF}_seed7")
+    t0 = time.perf_counter()
+    made = M.generate_mortgage(data_dir, sf=MORTGAGE_SF, seed=7)
+    perf, perf_q, qnames = _read_quarters(
+        data_dir, "perf", perf_schema(),
+        ["loan_id", "monthly_reporting_period"])
+    acq, _q, _names = _read_quarters(data_dir, "acq", acq_schema(),
+                                     ["seller_name", "property_state"])
+    if qnames != sorted(qnames):
+        raise AssertionError(f"quarters out of order: {qnames}")
+    want = {"loan_period_span": reference_loan_period_span(perf, perf_q,
+                                                           qnames),
+            "seller_legal_forms": reference_seller_legal_forms(acq)}
+    print(f"[string paths] mortgage sf {MORTGAGE_SF} "
+          f"{'generated' if made else 'reused'}; {len(perf_q)} performance "
+          f"and {len(acq['seller_name'])} acquisition rows; numpy/Python "
+          f"references in {time.perf_counter() - t0:.1f} s: "
+          f"{len(want['loan_period_span'])} and "
+          f"{len(want['seller_legal_forms'])} rows", flush=True)
+    period_batch, names, periods, sellers = _path_inputs(torch, dev,
+                                                         data_dir, perf, acq)
+    del perf, perf_q, acq
+    entries = check_string_funcs(torch, dev, period_batch, names)
+    entries.update(check_string_min_max(torch, dev, periods, sellers))
+    del period_batch, names, periods, sellers
+    torch.cuda.empty_cache()
+    session = _cuda_session()
+    every = tuple(_counters())
+    base = ("sort_permutation", "gather_columns", "segment_aggregate",
+            "segment_flags", "segment_string_min_max")
+    paths = {}
+    # path A's loan ids decode through K8a, its dates through K8b; path
+    # B reads two dictionary-encoded string columns (K8b) and no number
+    for label, need, maybe in (
+            ("loan_period_span",
+             base + ("substring_index", "concat", "decode_fixed"),
+             _MAY_DICT),
+            ("seller_legal_forms",
+             base + ("substring_index", "trim", "char_length", "locate",
+                     "decode_dict"), ("decode_fixed",))):
+        maybe += ("partition_ids_for_keys", "group_by_part", "compact")
+        build = SQ.STRING_PATHS[label][0]
+        paths[label] = _drive(
+            torch, label, lambda b=build: b(session, data_dir),
+            lambda r, w_=want[label], lb=label: _check_equal_rows(lb, r,
+                                                                  w_),
+            every, warm, maybe, _all_but(every, need + maybe),
+            describe=lambda r: f"{len(r)} rows, first {r[:2]}")
+    return entries, paths
+
+
 def _check_equal_rows(label: str, rows, want) -> None:
     if rows != want:
         raise AssertionError(f"{label}: rows {rows[:3]}... differ from the "
@@ -4677,8 +5197,9 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[ptxas {name}] {line.strip()}")
     dev = torch.device("cuda", 0)
-    # K14 runs on phase 13's paths only: its counters stay 0 until then
-    _reset_counters(_GENERATE_ENTRIES)
+    # K14 runs on phase 13's paths only, K13e-h and K4s on phase 14's:
+    # their counters stay 0 until then
+    _reset_counters(_GENERATE_ENTRIES + _STRING_FUNC_ENTRIES)
     rng = np.random.default_rng(20261017)
     entries = {}
     entries["compact"] = check_compact(torch, dev, rng)
@@ -4743,6 +5264,18 @@ def main(argv=None) -> int:
                                                           args.warm)
     entries.update(generate_entries)
     paths.update(generate_paths)
+    earlier = {k: v for g in _STRING_FUNC_ENTRIES
+               for k, v in _read_counters((g,), "phases 3-13",
+                                          _STRING_FUNC_ENTRIES)[g].items()}
+    if any(earlier.values()):
+        raise AssertionError(f"K13e-h or K4s launched on an earlier path: "
+                             f"{earlier}")
+    print(f"[string paths] K13e-h and K4s launches over phases 3-13: "
+          f"{earlier}", flush=True)
+    torch.cuda.empty_cache()
+    func_entries, func_paths = run_string_funcs_phase(torch, dev, args.warm)
+    entries.update(func_entries)
+    paths.update(func_paths)
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

@@ -23,7 +23,7 @@ query functions do.  The rows are the reference's.
 
 ``etl`` (the delinquency-window feature ETL) is not ported yet: it needs
 ``from_pydict``, a cross join that explodes every performance row twelve
-times, ``Floor`` and four-key left joins (ROADMAP.md Queue 1, slice 8).
+times, ``Floor`` and four-key left joins (ROADMAP.md Queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ def read_acquisition(session, data_dir: str, columns=None):
 def run_etl(session, data_dir: str):
     raise NotImplementedError(
         "the mortgage ETL (explode(0..11) as a cross join, from_pydict, "
-        "Floor, four-key left joins) is ROADMAP.md Queue 1 slice 8")
+        "Floor, four-key left joins) is ROADMAP.md Queue 1 item 1")
 
 
 def simple_aggregates(session, data_dir: str):

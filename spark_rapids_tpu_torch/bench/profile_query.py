@@ -3,8 +3,10 @@ q6, q15, q24, q51, q63, q84 or q84_all_cities, the ``top_customers``
 repartition, the round-robin, range and moving-window paths
 (``top_customers_rr``, ``range_sort_store_sales``,
 ``range_sort_customer_names``, ``moving_extrema``), the mortgage jobs
-simple_agg, percentiles and agg_join, or the Generate paths
-``review_words`` and ``basket_items`` (``bench/generate_queries.py``).
+simple_agg, percentiles and agg_join, the Generate paths
+``review_words`` and ``basket_items`` (``bench/generate_queries.py``), or
+the string paths ``loan_period_span`` and ``seller_legal_forms``
+(``bench/string_queries.py``, over the mortgage files).
 
 Runs the query through ``TorchSession()`` on CUDA over data generated by
 ``bench/tpch_gen.py`` (the TPC-H query's tables), ``bench/tpcds_gen.py``
@@ -22,15 +24,17 @@ the default layout's store_sales), reused when present, then:
   table (lineitem for q1 and q14, orders for q22, catalog_sales for q15,
   store_returns for q84 and q84_all_cities, store_sales for the other
   TPC-DS queries, the first quarter's performance file for the mortgage
-  jobs, product_reviews and store_baskets for the Generate paths), and
+  jobs and loan_period_span, the first quarter's acquisition file for
+  seller_legal_forms, product_reviews and store_baskets for the Generate
+  paths), and
   splits it: pyarrow's decode and the encode seconds on the
   prefetch thread, the bytes sent against the raw leaves', and, from a
   second drain under ``torch.profiler``, the device time of the copies
   to the card and of K8a and K8b;
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
-  the run, the kernels that take most of it, and K8's, K14's and the
-  copies' share.
+  the run, the kernels that take most of it, and K8's, K14's, K13e-h's,
+  K4s's and the copies' share.
 
 The wire codec follows ``SRT_WIRE_CODEC`` (on unless ``0``), so an A/B of
 the codec runs this script with and without ``SRT_WIRE_CODEC=0``, in
@@ -60,6 +64,8 @@ Prints one JSON line.  Usage, from the repo root on a machine with a card:
     python -m spark_rapids_tpu_torch.bench.profile_query --query q24
     python -m spark_rapids_tpu_torch.bench.profile_query --query percentiles
     python -m spark_rapids_tpu_torch.bench.profile_query --query review_words
+    python -m spark_rapids_tpu_torch.bench.profile_query \
+        --query loan_period_span
     SRT_WIRE_CODEC=0 python -m spark_rapids_tpu_torch.bench.profile_query \
         --query q1
 """
@@ -75,6 +81,7 @@ import torch
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.bench import mortgage, tpcds_gen, tpch_gen
 from spark_rapids_tpu_torch.bench.generate_queries import GENERATE_PATHS
+from spark_rapids_tpu_torch.bench.string_queries import STRING_PATHS
 from spark_rapids_tpu_torch.bench.tpcds_queries import (PARTITION_PATHS,
                                                         TPCDS_QUERIES,
                                                         partition_batches,
@@ -155,7 +162,8 @@ def main(argv=None) -> int:
                     choices=("q1", "q14", "q22", "q6", "q15", "q24", "q51",
                              "q63", "q84", "q84_all_cities", "repartition")
                     + tuple(PARTITION_PATHS) + _MORTGAGE
-                    + tuple(GENERATE_PATHS), default="q6")
+                    + tuple(GENERATE_PATHS) + tuple(STRING_PATHS),
+                    default="q6")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 10); for the mortgage "
                     "jobs thousands of loans (default 1000)")
@@ -170,12 +178,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     bench = os.path.join(_ROOT, ".bench_data")
     if args.sf is None:
-        args.sf = 1000.0 if args.query in _MORTGAGE else 10.0
-    if args.query in _MORTGAGE:
+        args.sf = 1000.0 if args.query in _MORTGAGE + tuple(STRING_PATHS) \
+            else 10.0
+    if args.query in _MORTGAGE + tuple(STRING_PATHS):
         data_dir = os.path.join(bench, f"mortgage_sf{args.sf:g}_seed7")
         mortgage.generate_mortgage(data_dir, sf=args.sf, seed=7)
-        query = mortgage.MORTGAGE_QUERIES[args.query]
-        fact = ("Performance_2003Q1", None)
+        if args.query in STRING_PATHS:
+            query, table = STRING_PATHS[args.query]
+            fact = (table, None)
+        else:
+            query = mortgage.MORTGAGE_QUERIES[args.query]
+            fact = ("Performance_2003Q1", None)
     elif args.query in GENERATE_PATHS:
         query, prepare, table = GENERATE_PATHS[args.query]
         data_dir = prepare(bench, args.sf)
@@ -258,6 +271,9 @@ def main(argv=None) -> int:
         "k8b_ms": _ms_of(rows, "decode_dict_kernel"),
         "k14_ms": _ms_of(rows, "split_counts_kernel", "split_emit_kernel",
                          "array_emit_kernel"),
+        "k13eh_ms": _ms_of(rows, "slice_kernel", "length_kernel",
+                           "locate_kernel"),
+        "k4s_ms": _ms_of(rows, "MinMaxS"),
         "top_device_ops": [{"name": k[:80], "calls": c, "ms": us / 1e3}
                            for us, k, c in rows[:args.top]],
     }

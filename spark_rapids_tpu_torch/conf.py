@@ -134,7 +134,7 @@ SHUFFLE_COMPRESSION_CODEC = register(ConfEntry(
     "NvcompLZ4CompressionCodec.scala:25)  The port stores map outputs "
     "uncompressed on the device; lz4 and zstd raise NotImplementedError "
     "until the serializer and codecs are ported (ROADMAP.md Queue 1 "
-    "item 7).",
+    "item 6).",
     check=lambda v: v in ("none", "lz4", "zstd"),
     check_doc="must be none|lz4|zstd"))
 

@@ -31,7 +31,6 @@
 // count_star, min/max over integers, booleans, dates and floats (Spark
 // NaN semantics: NaN is the largest value), and first/last with or without
 // ignoreNulls (as a row index; the wrapper gathers the values with K3).
-// String min/max is not covered here.
 //
 // Bound on the H100: bytes.  Each aggregate reads its input column and its
 // validity once, plus one flag byte a row; the key columns are read once
@@ -48,6 +47,24 @@
 // and the result equals the plain PyTorch version (and the reference's
 // formula) bit for bit: inf - inf gives NaN, as there.  Bound: bytes, per
 // (q, segment) a 4 B start, an 8 B count, two 8 B gathers, 8 B + 1 B out.
+//
+// K4s, string min/max (srt_seg_string_minmax), replaces
+// spark_rapids_tpu/ops/segmented.py:216-238, which sorts (segment,
+// non-contributing flag, the string's key words) with lax.sort and takes
+// each segment's first row.  Rows reach K4 already sorted by the keys,
+// with the segment flags and starts of the boundary pass, so the second
+// sort is not needed: K4s is the same tile + combine reduction as the
+// other aggregates, its state the row index of the least (greatest) valid
+// string so far.  Two rows compare as the reference's sort operands
+// order them (ops/sort.py encode_key_operands): the padded bytes as
+// big-endian 32-bit words, then the length (a NUL tail sorts by length);
+// rows equal in both hold the same bytes, so which of them wins does not
+// change the result.  Null rows never win; a segment without a valid row
+// gets -1, and the wrapper gathers the winners with K3 (-1: a null row).
+// One segment of 2^24 rows is folded by 4096 tiles and one warp over their
+// pieces; 2^20 one-row segments by one warp each.  Bound: bytes, each row
+// read once (its words up to the first difference), plus its length,
+// validity and flag; the winners' rows once more by K3.
 #include "common.cuh"
 
 namespace srt_seg {
@@ -59,7 +76,7 @@ enum ValKind { kInt = 0, kFloat = 1, kBool = 2, kString = 3 };
 enum AggOp {
   kSumI = 0, kSumF = 1, kAvg = 2, kCount = 3, kCountStar = 4, kMinI = 5,
   kMaxI = 6, kMinF = 7, kMaxF = 8, kFirst = 9, kLast = 10,
-  kFirstNonNull = 11, kLastNonNull = 12
+  kFirstNonNull = 11, kLastNonNull = 12, kMinS = 13, kMaxS = 14
 };
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -160,6 +177,35 @@ struct Pick {  // first/last row index among eligible rows
   }
 };
 
+// K4s: the state holds a row index; comb reads both rows' bytes.
+template <bool kMax>
+struct MinMaxS {
+  typedef long long A;
+  const uint32_t* data;  // [n, nw] words, 4-byte aligned
+  const int32_t* lens;
+  int nw;
+  static __device__ bool elig(bool valid) { return valid; }
+  static __device__ A lift(const Vals&, int64_t i) { return i; }
+  // <0, 0, >0 as row i sorts before, with or after row j
+  __device__ int cmp(long long i, long long j) const {
+    const uint32_t* x = data + i * nw;
+    const uint32_t* y = data + j * nw;
+    for (int k = 0; k < nw; ++k) {
+      const uint32_t a = x[k], b = y[k];
+      if (a != b)
+        return __byte_perm(a, 0, 0x0123) < __byte_perm(b, 0, 0x0123) ? -1 : 1;
+    }
+    return lens[i] < lens[j] ? -1 : (lens[i] > lens[j] ? 1 : 0);
+  }
+  __device__ St<A> comb(St<A> a, St<A> b) const {
+    if (a.cnt == 0) return b;
+    if (b.cnt == 0) return a;
+    const int c = cmp(a.acc, b.acc);
+    const bool take_b = kMax ? (c < 0) : (c > 0);
+    return {take_b ? b.acc : a.acc, a.cnt + b.cnt};
+  }
+};
+
 template <class Op>
 struct Piece {
   int f;
@@ -168,17 +214,19 @@ struct Piece {
 
 template <class Op>
 struct PieceScanOp {
+  Op fold;
   __device__ Piece<Op> operator()(const Piece<Op>& x,
                                   const Piece<Op>& y) const {
     Piece<Op> r;
     r.f = x.f | y.f;
-    r.s = y.f ? y.s : Op::comb(x.s, y.s);
+    r.s = y.f ? y.s : fold.comb(x.s, y.s);
     return r;
   }
 };
 
 template <class Op>
-__global__ void seg_tile_kernel(Vals v, const uint8_t* __restrict__ flags,
+__global__ void seg_tile_kernel(Op fold, Vals v,
+                                const uint8_t* __restrict__ flags,
                                 int64_t n,
                                 const int32_t* __restrict__ tile_offsets,
                                 St<typename Op::A>* __restrict__ slots) {
@@ -202,7 +250,8 @@ __global__ void seg_tile_kernel(Vals v, const uint8_t* __restrict__ flags,
         ++nflags;
         tail = ident;
       }
-      if (Op::elig(v.valid[i] != 0)) tail = Op::comb(tail, S{Op::lift(v, i), 1});
+      if (fold.elig(v.valid[i] != 0))
+        tail = fold.comb(tail, S{fold.lift(v, i), 1});
     }
   }
   int kbefore;
@@ -215,7 +264,7 @@ __global__ void seg_tile_kernel(Vals v, const uint8_t* __restrict__ flags,
   init.f = 0;
   init.s = ident;
   Piece<Op> carry;
-  PieceScan(tmp.p).ExclusiveScan(in, carry, init, PieceScanOp<Op>());
+  PieceScan(tmp.p).ExclusiveScan(in, carry, init, PieceScanOp<Op>{fold});
   const int64_t slot0 = (int64_t)tile_offsets[blockIdx.x] + blockIdx.x;
   const int64_t last = (base + kTile < n ? base + kTile : n) - 1;
   S run = carry.s;
@@ -229,7 +278,8 @@ __global__ void seg_tile_kernel(Vals v, const uint8_t* __restrict__ flags,
         ++k;
         run = ident;
       }
-      if (Op::elig(v.valid[i] != 0)) run = Op::comb(run, S{Op::lift(v, i), 1});
+      if (fold.elig(v.valid[i] != 0))
+        run = fold.comb(run, S{fold.lift(v, i), 1});
       if (i == last) slots[slot0 + k] = run;
     }
   }
@@ -265,7 +315,8 @@ __device__ __forceinline__ St<A> shfl_down(St<A> s, int off) {
 }
 
 template <class Op>
-__global__ void seg_combine_kernel(const St<typename Op::A>* __restrict__ slots,
+__global__ void seg_combine_kernel(Op fold, const St<typename Op::A>*
+                                                __restrict__ slots,
                                    const int32_t* __restrict__ starts, int G,
                                    int ntiles, int op, Out out) {
   typedef St<typename Op::A> S;
@@ -279,10 +330,10 @@ __global__ void seg_combine_kernel(const St<typename Op::A>* __restrict__ slots,
   const int64_t a = lo + lane * chunk;
   const int64_t b = (a + chunk < hi) ? a + chunk : hi;
   S st = {typename Op::A(0), 0};
-  for (int64_t j = a; j < b; ++j) st = Op::comb(st, slots[j]);
+  for (int64_t j = a; j < b; ++j) st = fold.comb(st, slots[j]);
   for (int off = 1; off < 32; off <<= 1) {
     const S o = shfl_down(st, off);
-    if ((lane & (2 * off - 1)) == 0) st = Op::comb(st, o);
+    if ((lane & (2 * off - 1)) == 0) st = fold.comb(st, o);
   }
   if (lane != 0) return;
   const bool has = st.cnt > 0;
@@ -297,6 +348,7 @@ __global__ void seg_combine_kernel(const St<typename Op::A>* __restrict__ slots,
       out.valid[g] = has;
       break;
     case kFirst: case kLast: case kFirstNonNull: case kLastNonNull:
+    case kMinS: case kMaxS:
       static_cast<int32_t*>(out.data)[g] = has ? (int32_t)st.acc : -1;
       break;
     default:  // sums and min/max: the result type's zero when empty
@@ -310,15 +362,16 @@ __global__ void seg_combine_kernel(const St<typename Op::A>* __restrict__ slots,
 template <class Op>
 void launch_agg(Vals v, const uint8_t* flags, int64_t n,
                 const int32_t* tile_offsets, const int32_t* starts, int G,
-                void* slots, int op, Out out, cudaStream_t st) {
+                void* slots, int op, Out out, cudaStream_t st,
+                Op fold = Op()) {
   const int nt = num_tiles(n);
   typedef St<typename Op::A> S;
-  seg_tile_kernel<Op><<<nt, kThreads, 0, st>>>(v, flags, n, tile_offsets,
-                                               (S*)slots);
+  seg_tile_kernel<Op><<<nt, kThreads, 0, st>>>(fold, v, flags, n,
+                                               tile_offsets, (S*)slots);
   const int64_t threads = (int64_t)G * 32;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
   seg_combine_kernel<Op><<<blocks, kThreads, 0, st>>>(
-      (const S*)slots, starts, G, nt, op, out);
+      fold, (const S*)slots, starts, G, nt, op, out);
 }
 
 __global__ void seg_flags_kernel(const void* __restrict__ data,
@@ -482,6 +535,33 @@ int srt_seg_agg(int op, const void* data, const void* valid, int kind,
     case kLastNonNull: launch_agg<Pick<true, false>>(v, f, n, to, s, G, slots, op, o, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// K4s: out_idx int32 [G], per segment the row of the least (is_max: the
+// greatest) valid string, -1 where the segment has none.  data uint8
+// [n, w] (w a multiple of 4, 4-byte aligned), lens int32 [n]; flags,
+// tile_offsets, starts and slots as for srt_seg_agg.
+int srt_seg_string_minmax(int is_max, const void* data, const void* lens,
+                          const void* valid, int w, const void* flags,
+                          int64_t n, const void* tile_offsets,
+                          const void* starts, int G, void* slots,
+                          void* out_idx, void* stream) {
+  if (n <= 0 || G <= 0 || w <= 0 || w % 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Vals v = {data, (const uint8_t*)valid, kString, w};
+  Out o = {out_idx, nullptr, kInt, 4};
+  const uint8_t* f = (const uint8_t*)flags;
+  const int32_t* to = (const int32_t*)tile_offsets;
+  const int32_t* s = (const int32_t*)starts;
+  const uint32_t* words = (const uint32_t*)data;
+  const int32_t* l = (const int32_t*)lens;
+  if (is_max)
+    launch_agg<MinMaxS<true>>(v, f, n, to, s, G, slots, kMaxS, o, st,
+                              MinMaxS<true>{words, l, w / 4});
+  else
+    launch_agg<MinMaxS<false>>(v, f, n, to, s, G, slots, kMinS, o, st,
+                               MinMaxS<false>{words, l, w / 4});
   return (int)cudaGetLastError();
 }
 

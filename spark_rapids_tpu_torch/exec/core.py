@@ -5,7 +5,7 @@ partition, an iterator of device batches.  The port keeps the batching
 contracts (``CoalesceGoal``) and the plan introspection, and calls device
 functions directly where the reference went through ``ctx.dispatch``.  The
 spill catalog, the retry scopes, the concurrent partition drain and the
-per-operator metrics wait for later slices (ROADMAP.md Queue 1 items 7-9).
+per-operator metrics wait for later slices (ROADMAP.md Queue 1 items 6 and 9).
 """
 from __future__ import annotations
 
@@ -134,7 +134,7 @@ class PlanNode:
 def drain_partitions(ctx: ExecCtx, node: PlanNode) -> Iterator:
     """Every partition's batches in partition order (sequentially: the
     reference's worker-pool drain needs the device semaphore and the
-    spill catalog, ROADMAP.md Queue 1 item 7)."""
+    spill catalog, ROADMAP.md Queue 1 item 6)."""
     for pid in range(node.num_partitions(ctx)):
         yield from node.partition_iter(ctx, pid)
 

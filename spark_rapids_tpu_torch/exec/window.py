@@ -20,7 +20,7 @@ one WindowExec per distinct spec, as Spark's does.
 Not ported: the bounded-memory two-pass global window (``_stream_global``
 :191: plain aggregates over a window with neither partition nor order
 keys), which parks its batches in the BufferCatalog (ROADMAP.md Queue 1
-item 7); such a window raises NotImplementedError.
+item 6); such a window raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ __all__ = ["WindowExec"]
 _STREAM_GLOBAL = ("a window with neither partition nor order keys runs as "
                   "the reference's two-pass bounded-memory stream, which "
                   "parks batches in the BufferCatalog: it waits for the "
-                  "memory runtime (ROADMAP.md Queue 1 item 7)")
+                  "memory runtime (ROADMAP.md Queue 1 item 6)")
 
 
 def _wexpr_dtype(w: WindowExpression, bound_input) -> T.DataType:

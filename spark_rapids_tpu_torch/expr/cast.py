@@ -5,7 +5,7 @@ non-ANSI semantics): narrowing integer casts wrap; float -> integral
 truncates toward zero, maps NaN to 0 and saturates at the 64-bit range
 before narrowing; numeric <-> boolean is ``x != 0`` / ``1|0``; date <->
 timestamp converts days and microseconds.  Casts to or from strings are
-not ported yet (ROADMAP.md Queue 1 item 3).
+not ported yet (ROADMAP.md Queue 1 item 4, the host oracle).
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ class Cast(Expression):
         if isinstance(src, T.StringType) or isinstance(dst, T.StringType):
             raise NotImplementedError(
                 "string casts are not ported yet (ROADMAP.md Queue 1 "
-                "item 3)")
+                "item 4, the host oracle)")
         d = a.data
         out = torch_dtype(dst)
         if isinstance(src, T.BooleanType):

@@ -1,13 +1,16 @@
 """String expressions: Substring, StartsWith, EndsWith, Contains, Like,
-Concat, ConcatWs, Upper, Lower, Hex.
+Concat, ConcatWs, Upper, Lower, StringTrim, StringTrimLeft,
+StringTrimRight, Length, StringLocate, SubstringIndex, Hex.
 
 Port of part of ``spark_rapids_tpu/expr/strings.py``.  Strings are padded
 uint8 byte matrices with lengths (``columnar/column.py``); the work is
 done by the kernels of ``ops/strings.py``: K13a ``substring`` (UTF-8
 character-correct, Spark's ``substringSQL``), K13b ``string_match``
 (prefix, suffix, contains, equals), K13c ``concat`` (Concat and
-ConcatWs), K13d ``case_map`` (Upper and Lower) and K13i ``hex_string``
-(Hex).  A literal operand
+ConcatWs), K13d ``case_map`` (Upper and Lower), K13e ``trim`` (the three
+trims, spaces only), K13f ``char_length`` (Length), K13g ``locate``
+(StringLocate), K13h ``substring_index`` (SubstringIndex, one-byte
+delimiters) and K13i ``hex_string`` (Hex).  A literal operand
 reaches a kernel as one row (a pos/len scalar, a one-row needle or
 piece), a column as a column.
 
@@ -20,20 +23,26 @@ same.
 exact; ``_simple_shape`` below is the reference's); any other pattern,
 or one with ``_`` or the escape character, raises NotImplementedError on
 every device: the reference evaluates those in its host oracle, which
-the port does not have yet (ROADMAP.md Queue 1 item 4).  The other
-string expressions of the reference (trims, Length,
-StringLocate, SubstringIndex, ...) are ROADMAP.md Queue 2 K13e-h.
+the port does not have yet (ROADMAP.md Queue 1 item 4); so does
+SubstringIndex with a delimiter that is not one UTF-8 byte.  StringLocate
+follows the reference's device branch for an empty needle (``start``
+when ``start - 1`` is at most the character count, else 0), where
+Spark's answer differs (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.core import Expression, Literal, Val
-from spark_rapids_tpu_torch.ops.strings import (case_map, concat,
-                                                hex_string, literal_needle,
-                                                string_match, substring)
+from spark_rapids_tpu_torch.ops.strings import (case_map, char_length,
+                                                concat, hex_string,
+                                                literal_needle, locate,
+                                                string_match, substring,
+                                                substring_index, trim)
 
 __all__ = ["Substring", "StartsWith", "EndsWith", "Contains", "Like",
-           "Concat", "ConcatWs", "Upper", "Lower", "Hex"]
+           "Concat", "ConcatWs", "Upper", "Lower", "StringTrim",
+           "StringTrimLeft", "StringTrimRight", "Length", "StringLocate",
+           "SubstringIndex", "Hex"]
 
 
 def _scalar_or_column(child: Expression, v):
@@ -185,6 +194,118 @@ class Lower(_CaseMap):
     """lower(str): ASCII A-Z to a-z (the reference's device branch)."""
     sql_name = "Lower"
     upper = False
+
+
+class _TrimBase(Expression):
+    _left = True
+    _right = True
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.StringType()
+
+    def _eval(self, vals, ctx):
+        a = vals[0]
+        # a null row has length 0 and zero bytes, and the trim keeps it so
+        data, lengths, validity = trim(a.data, a.lengths, a.validity,
+                                       self._left, self._right)
+        return Val(data, validity, lengths, T.StringType())
+
+
+class StringTrim(_TrimBase):
+    """trim(str): spaces (0x20) off both ends."""
+    sql_name = "StringTrim"
+
+
+class StringTrimLeft(_TrimBase):
+    """ltrim(str): spaces off the left end."""
+    sql_name = "StringTrimLeft"
+    _right = False
+
+
+class StringTrimRight(_TrimBase):
+    """rtrim(str): spaces off the right end."""
+    sql_name = "StringTrimRight"
+    _left = False
+
+
+class Length(Expression):
+    """length(str): the character count (Spark length), IntegerType."""
+    sql_name = "Length"
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.IntegerType()
+
+    def _eval(self, vals, ctx):
+        a = vals[0]
+        return Val(char_length(a.data, a.lengths, a.validity), a.validity,
+                   None, T.IntegerType())
+
+
+class StringLocate(Expression):
+    """locate(substr, str[, start]): the 1-based character position of the
+    first occurrence at or after character ``start``; 0 when absent or
+    ``start < 1``; null where either input is (``start`` a python int)."""
+    sql_name = "StringLocate"
+
+    def __init__(self, substr: Expression, string: Expression,
+                 start: int = 1):
+        self.children = (substr, string)
+        self.start = start
+
+    def with_new_children(self, children):
+        return StringLocate(children[0], children[1], self.start)
+
+    @property
+    def dtype(self):
+        return T.IntegerType()
+
+    def _eval(self, vals, ctx):
+        sub, s = vals
+        out, validity = locate(s.data, s.lengths, s.validity,
+                               *_needle(self.children[0], sub, ctx.device),
+                               self.start)
+        return Val(out, validity, None, T.IntegerType())
+
+
+class SubstringIndex(Expression):
+    """substring_index(str, delim, count): the bytes before the count-th
+    delimiter (count > 0), after the |count|-th from the end (count < 0),
+    or '' (count == 0).  One-byte delimiters only; any other raises."""
+    sql_name = "SubstringIndex"
+
+    def __init__(self, child: Expression, delim: str, count: int):
+        self.children = (child,)
+        self.delim = delim
+        self.count = count
+
+    def with_new_children(self, children):
+        return SubstringIndex(children[0], self.delim, self.count)
+
+    @property
+    def dtype(self):
+        return T.StringType()
+
+    def _eval(self, vals, ctx):
+        a = vals[0]
+        d = self.delim.encode("utf-8")
+        if len(d) != 1:
+            raise NotImplementedError(
+                f"substring_index with the delimiter {self.delim!r} "
+                f"({len(d)} UTF-8 bytes): only one-byte delimiters run on "
+                "the port's devices; the reference evaluates the others in "
+                "its host oracle, which is ROADMAP.md Queue 1 item 4")
+        data, lengths, validity = substring_index(a.data, a.lengths,
+                                                  a.validity, d[0],
+                                                  self.count)
+        return Val(data, validity, lengths, T.StringType())
 
 
 def _piece(child: Expression, inputs, ctx):

@@ -49,6 +49,7 @@ SOURCES = {
     "range_partition": "range_partition.cu",
     "window_range": "window_range.cu",
     "generate": "generate.cu",
+    "string_funcs": "string_funcs.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -82,6 +83,8 @@ _SIGNATURES = {
         "srt_seg_agg": [_I, _P, _P, _I, _I, _P, _L, _P, _P, _I, _P, _P, _P,
                         _I, _I, _P],
         "srt_seg_percentile": [_P, _L, _P, _P, _I, _P, _I, _P, _P, _P],
+        "srt_seg_string_minmax": [_I, _P, _P, _P, _I, _P, _L, _P, _P, _I,
+                                  _P, _P, _P],
     },
     "join_probe": {
         "srt_join_build_keys": [_P, _P, _P, _L, _I, _P, _P, _P],
@@ -149,6 +152,13 @@ _SIGNATURES = {
                            _P, _P, _P],
         "srt_array_emit": [_P, _I, _I, _P, _P, _L, _I, _P, _P, _P, _P, _P,
                            _P],
+    },
+    "string_funcs": {
+        "srt_trim": [_P, _P, _P, _L, _I, _I, _P, _P, _P],
+        "srt_substring_index": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P],
+        "srt_char_length": [_P, _P, _P, _L, _I, _P, _P],
+        "srt_locate": [_P, _P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                       _P],
     },
 }
 

@@ -17,8 +17,13 @@ last, -0.0 tied with 0.0); K4 counts them, and :func:`segment_percentile`
 (K4p, ``srt_seg_percentile`` in ``csrc/segmented.cu``) picks
 ``v[lo] + (v[hi] - v[lo]) * frac`` at ``pos = (count - 1) * q`` for every
 q over the column in one launch.
-String min/max exists only in the plain version so far; on a CUDA tensor
-it raises NotImplementedError (ROADMAP.md Queue 2, K4).
+
+String min/max (K4s, :func:`segment_string_min_max`,
+``srt_seg_string_minmax``) reduces each segment of the key-sorted rows to
+the row of its least (greatest) valid string, ordered as the sort orders
+strings (bytes as big-endian words, then the length), and K3 gathers
+those rows; the plain version sorts (segment, null last, the string's
+sort operands) and takes each segment's first row, as the reference does.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ from spark_rapids_tpu_torch.ops.sort import (SortOrder, chain_sort,
 
 __all__ = ["AggSpec", "sorted_group_by", "segment_aggregate",
            "segment_aggregate_plain", "segment_percentile",
-           "segment_percentile_plain"]
+           "segment_percentile_plain", "segment_string_min_max",
+           "segment_string_min_max_plain"]
 
 _AGG_OPS = ("sum", "count", "count_star", "min", "max", "avg", "first", "last",
             "first_non_null", "last_non_null", "percentile")
@@ -315,6 +321,73 @@ def _segment_percentile_cuda(values, starts, counts, qs):
 
 
 # ---------------------------------------------------------------------------
+# K4s: string min/max
+# ---------------------------------------------------------------------------
+
+def segment_string_min_max(col: DeviceColumn, flags: torch.Tensor,
+                           starts: torch.Tensor, is_max: bool,
+                           tile_offsets: torch.Tensor | None = None,
+                           slots: torch.Tensor | None = None
+                           ) -> DeviceColumn:
+    """Per segment of rows sorted by the group keys, the least (``is_max``:
+    the greatest) valid string of ``col``; a segment without one is null.
+    ``flags`` (uint8 [n], 1 at each segment's first row) and ``starts``
+    (int32 [G], those rows) are K4's boundary pass; on CUDA its tile
+    offsets and its aggregate scratch ``slots`` are reused when given."""
+    if not col.is_string:
+        raise ValueError(f"segment_string_min_max over {col.dtype}")
+    if col.data.device.type == "cpu":
+        return segment_string_min_max_plain(col, flags, starts, is_max)
+    return _string_min_max_cuda(col, flags, starts, is_max, tile_offsets,
+                                slots)
+
+
+segment_string_min_max.launches = 0
+
+
+def segment_string_min_max_plain(col: DeviceColumn, flags: torch.Tensor,
+                                 starts: torch.Tensor,
+                                 is_max: bool) -> DeviceColumn:
+    """Plain PyTorch version of :func:`segment_string_min_max` (any
+    device): the reference's per-segment sort."""
+    n = col.data.shape[0]
+    g = starts.shape[0]
+    seg_id = torch.cumsum(flags.to(torch.int64), 0) - 1
+    has = torch.zeros(g, dtype=torch.int64, device=seg_id.device).index_add_(
+        0, seg_id, col.validity.to(torch.int64)) > 0
+    return _min_max_plain("max" if is_max else "min", col, col.validity,
+                          seg_id, g, n, has)
+
+
+def _string_min_max_cuda(col, flags, starts, is_max, tile_offsets, slots):
+    n = col.data.shape[0]
+    g = starts.shape[0]
+    dev = col.data.device
+    lib = native.lib("segmented")
+    stream = native.stream_ptr(dev)
+    nt = num_tiles(n)
+    if tile_offsets is None:
+        tile_offsets = torch.empty(nt + 1, dtype=torch.int32, device=dev)
+        native.check(lib.srt_seg_prepare(
+            ptr(flags), n, ptr(torch.empty(nt, dtype=torch.int32,
+                                           device=dev)),
+            ptr(tile_offsets), stream), "srt_seg_prepare")
+    if slots is None:
+        slots = torch.empty(2 * (g + nt), dtype=torch.int64, device=dev)
+    data = col.data.contiguous()
+    if data.data_ptr() % 16:
+        data = data.clone()  # rows are compared as aligned words
+    pick = torch.empty(g, dtype=torch.int32, device=dev)
+    native.check(lib.srt_seg_string_minmax(
+        int(is_max), ptr(data), ptr(col.lengths.to(torch.int32).contiguous()),
+        ptr(col.validity.contiguous()), col.max_len, ptr(flags), n,
+        ptr(tile_offsets), ptr(starts), g, ptr(slots), ptr(pick), stream),
+        "srt_seg_string_minmax")
+    segment_string_min_max.launches += 1
+    return gather_columns([col], pick)[0]
+
+
+# ---------------------------------------------------------------------------
 # CUDA (csrc/segmented.cu)
 # ---------------------------------------------------------------------------
 
@@ -346,12 +419,6 @@ def _op_code(spec: AggSpec, col: DeviceColumn | None) -> int:
 
 def _check_cuda_covered(sb: ColumnBatch, aggs: list[AggSpec]) -> None:
     for spec in aggs:
-        if spec.op in ("min", "max") and \
-                sb.columns[spec.child_index].is_string:
-            raise NotImplementedError(
-                f"{spec.op} over strings has no CUDA segmented-aggregate "
-                "kernel yet (ROADMAP.md Queue 2, K4: string min/max); only "
-                "the plain CPU version covers it")
         if spec.op not in _AGG_OPS:
             raise NotImplementedError(f"aggregate op {spec.op}")
 
@@ -480,6 +547,11 @@ def _segment_aggregate_cuda(sb: ColumnBatch, key_indices: list[int],
             continue
         col = sb.columns[spec.child_index] if spec.op != "count_star" \
             else None
+        if spec.op in ("min", "max") and col.is_string:
+            outs.append(segment_string_min_max(col, flags, starts,
+                                               spec.op == "max", offsets,
+                                               slots))
+            continue
         code = _op_code(spec, col)
         picks = spec.op in ("first", "last", "first_non_null",
                             "last_non_null")

@@ -1,5 +1,7 @@
 """String kernels: Spark ``substring`` (K13a), literal matching (K13b),
-concatenation (K13c), ASCII case mapping (K13d) and hex of a long (K13i).
+concatenation (K13c), ASCII case mapping (K13d), trims (K13e), character
+length (K13f), ``locate`` (K13g), ``substring_index`` (K13h) and hex of a
+long (K13i).
 
 Port of the device branches of ``spark_rapids_tpu/expr/strings.py``:
 ``_char_starts`` (:29) with ``Substring._device`` (:174), the byte
@@ -7,10 +9,11 @@ comparisons of ``StartsWith`` (:294), ``EndsWith`` (:310), ``Contains``
 (:329) and the ``equals`` shape of ``Like`` (``predicates.py:58``
 ``_string_eq``), ``_concat2_device`` (:252) as ``Concat`` (:235) and
 ``ConcatWs`` (:484) fold it, and ``Upper._device`` (:63) and
-``Lower._device`` (:76), and ``Hex`` (:756-803).  Strings are the column
-contract's byte
-matrices: uint8 ``[n, W]`` (W a power of two >= 4) with int32 lengths
-and bool validity.
+``Lower._device`` (:76), the trims' ``_TrimBase._device`` (:91-123),
+``Length`` (:126-145), the device branches of ``StringLocate`` (:539-570)
+and ``SubstringIndex`` (:612-646), and ``Hex`` (:756-803).  Strings are
+the column contract's byte matrices: uint8 ``[n, W]`` (W a power of two
+>= 4) with int32 lengths and bool validity.
 
 * K13a, ``csrc/string_substr.cu``: one thread per row of up to 32 bytes,
   a group of ``min(W / 4, 32)`` lanes per wider row, counts the row's
@@ -39,6 +42,17 @@ and bool validity.
   padded matrix mapping ``a-z`` to ``A-Z`` (or back), four bytes a word
   at a time; bytes >= 0x80 and the zero tail pass unchanged, and the
   lengths and validity are the input's (not copied).
+* K13e-h, ``csrc/string_funcs.cu``: one thread per row, reading the row
+  as 16-byte vectors (4-byte words where W is not a multiple of 16).
+  K13e finds the first and last byte that is not a space (0x20) inside
+  the length and writes the bytes between them to the front of the
+  output row; K13h counts the delimiter bytes and writes the prefix
+  before the count-th one, or the suffix after the (ndelim + count +
+  1)-th one shifted to the front.  Both keep the input's width W, with
+  zeros after the result.  K13f counts the character starts inside the
+  length; K13g compares the needle (one row for a literal, or a column)
+  at every character start at or after character ``start - 1`` and
+  gives the 1-based character position of the first match.
 * K13i, ``csrc/string_hex.cu``: one thread per int64 row writes its
   upper-case hex digits (two's complement, leading zeros dropped, "0"
   for 0) as one 16-byte W 16 row with zeros after the digits; null rows
@@ -46,7 +60,9 @@ and bool validity.
 
 The reference computes ``start + len`` in int32, so ``substring('hello',
 2, 2147483647)`` wraps to ``''`` there (ROADMAP.md Queue 3); both
-versions here give Spark's ``'ello'``.
+versions here give Spark's ``'ello'``.  ``locate`` of an empty needle
+follows the reference: ``start`` when ``start - 1`` is at most the
+character count, else 0 (ROADMAP.md Queue 3 notes Spark's rule).
 
 Beside each kernel is its plain PyTorch version.  A wrapper takes it only
 for a tensor on the CPU; on a CUDA tensor it launches its kernel or
@@ -66,7 +82,9 @@ from spark_rapids_tpu_torch.ops.kernels import ptr
 __all__ = ["substring", "substring_plain", "string_match",
            "string_match_plain", "literal_needle", "MATCH_MODES", "concat",
            "concat_plain", "concat_width", "case_map", "case_map_plain",
-           "hex_string", "hex_string_plain", "MAX_PIECES"]
+           "hex_string", "hex_string_plain", "MAX_PIECES", "trim",
+           "trim_plain", "char_length", "char_length_plain", "locate",
+           "locate_plain", "substring_index", "substring_index_plain"]
 
 #: mode codes of csrc/string_match.cu
 MATCH_MODES = {"prefix": 0, "suffix": 1, "contains": 2, "equals": 3}
@@ -560,4 +578,261 @@ def _hex_cuda(data, validity):
         ptr(data.contiguous()), ptr(validity.contiguous()), ptr(out),
         ptr(out_len), n, native.stream_ptr(dev)), "srt_hex")
     hex_string.launches += 1
+    return out, out_len, validity
+
+
+# ---------------------------------------------------------------------------
+# K13e-h: trims, character length, locate, substring_index
+# ---------------------------------------------------------------------------
+
+#: trim mode bits of csrc/string_funcs.cu
+_TRIM_LEFT, _TRIM_RIGHT = 1, 2
+
+
+def _shift_rows(data, first, new_len):
+    """Row i's bytes [first[i], first[i] + new_len[i]) at the front of a
+    row of the input's width, zeros after them (first, new_len int64)."""
+    w = data.shape[1]
+    j = torch.arange(w, device=data.device)[None, :]
+    out = torch.gather(data, 1, (first[:, None] + j).clamp(max=w - 1))
+    return torch.where(j < new_len[:, None], out,
+                       torch.zeros((), dtype=torch.uint8,
+                                   device=data.device))
+
+
+def trim(data: torch.Tensor, lengths: torch.Tensor, validity: torch.Tensor,
+         left: bool = True, right: bool = True):
+    """Spark ``trim`` (both ends), ``ltrim`` (``right=False``) or
+    ``rtrim`` (``left=False``) of every row: spaces (0x20) only.  Returns
+    (uint8 [n, W] with zeros after each result, int32 lengths, validity);
+    the validity is the input's own tensor."""
+    _check_strings(data, lengths, validity, "trim")
+    if not (left or right):
+        raise ValueError("trim: trim at least one end")
+    if data.device.type == "cpu":
+        return trim_plain(data, lengths, validity, left, right)
+    return _trim_cuda(data, lengths, validity, left, right)
+
+
+trim.launches = 0
+
+
+def trim_plain(data: torch.Tensor, lengths: torch.Tensor,
+               validity: torch.Tensor, left: bool = True,
+               right: bool = True):
+    """Plain PyTorch version of :func:`trim` (any device): the reference's
+    ``_TrimBase._device``."""
+    n, w = data.shape
+    ln = lengths.long()
+    j = torch.arange(w, device=data.device)[None, :]
+    nonspace = (data != 32) & (j < ln[:, None])
+    any_ns = nonspace.any(1)
+    zero = torch.zeros(n, dtype=torch.int64, device=data.device)
+    first = torch.where(any_ns, nonspace.to(torch.uint8).argmax(1), 0) \
+        if left else zero
+    last = torch.where(any_ns,
+                       w - 1 - nonspace.flip(1).to(torch.uint8).argmax(1),
+                       -1) if right else ln - 1
+    new_len = torch.where(any_ns, (last - first + 1).clamp(min=0), 0)
+    return (_shift_rows(data, first, new_len), new_len.to(torch.int32),
+            validity)
+
+
+def _trim_cuda(data, lengths, validity, left, right):
+    n, w = data.shape
+    out = torch.empty((n, w), dtype=torch.uint8, device=data.device)
+    out_len = torch.empty(n, dtype=torch.int32, device=data.device)
+    if n == 0:
+        return out, out_len, validity
+    data = _aligned(data)
+    lengths = lengths.to(torch.int32).contiguous()
+    mode = (_TRIM_LEFT if left else 0) | (_TRIM_RIGHT if right else 0)
+    native.check(native.lib("string_funcs").srt_trim(
+        ptr(data), ptr(lengths), ptr(validity.contiguous()), n, w, mode,
+        ptr(out), ptr(out_len), native.stream_ptr(data.device)), "srt_trim")
+    trim.launches += 1
+    return out, out_len, validity
+
+
+def char_length(data: torch.Tensor, lengths: torch.Tensor,
+                validity: torch.Tensor) -> torch.Tensor:
+    """Spark ``length`` of every row: the bytes inside the length that
+    start a character (``(b & 0xC0) != 0x80``), int32 [n]; 0 at null
+    rows (their length is 0)."""
+    _check_strings(data, lengths, validity, "char_length")
+    if data.device.type == "cpu":
+        return char_length_plain(data, lengths, validity)
+    return _char_length_cuda(data, lengths, validity)
+
+
+char_length.launches = 0
+
+
+def char_length_plain(data: torch.Tensor, lengths: torch.Tensor,
+                      validity: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`char_length` (any device)."""
+    j = torch.arange(data.shape[1], device=data.device)[None, :]
+    starts = ((data & 0xC0) != 0x80) & (j < lengths.long()[:, None])
+    return torch.where(validity, starts.sum(1), 0).to(torch.int32)
+
+
+def _char_length_cuda(data, lengths, validity):
+    n, w = data.shape
+    out = torch.empty(n, dtype=torch.int32, device=data.device)
+    if n == 0:
+        return out
+    data = _aligned(data)
+    native.check(native.lib("string_funcs").srt_char_length(
+        ptr(data), ptr(lengths.to(torch.int32).contiguous()),
+        ptr(validity.contiguous()), n, w, ptr(out),
+        native.stream_ptr(data.device)), "srt_char_length")
+    char_length.launches += 1
+    return out
+
+
+def locate(data: torch.Tensor, lengths: torch.Tensor, validity: torch.Tensor,
+           needle: torch.Tensor, needle_lengths: torch.Tensor,
+           needle_validity: torch.Tensor, start: int = 1):
+    """Spark ``locate(needle, str, start)`` of every row, as the
+    reference's device branch computes it: the 1-based character position
+    of the first match of the needle that begins on a character start at
+    or after character ``start - 1``, 0 when there is none and 0 for
+    ``start < 1``; an empty needle gives ``start`` when ``start - 1`` is at
+    most the row's character count, else 0.  ``needle`` is uint8 [1, Wb]
+    (a literal, for every row) or [n, Wb] (a column).  Returns (int32 [n],
+    bool validity [n]); invalid rows are 0."""
+    _check_match("contains", data, lengths, validity, needle, needle_lengths,
+                 needle_validity)
+    start = int(start)
+    if data.device.type == "cpu":
+        return locate_plain(data, lengths, validity, needle, needle_lengths,
+                            needle_validity, start)
+    return _locate_cuda(data, lengths, validity, needle, needle_lengths,
+                        needle_validity, start)
+
+
+locate.launches = 0
+
+
+def locate_plain(data: torch.Tensor, lengths: torch.Tensor,
+                 validity: torch.Tensor, needle: torch.Tensor,
+                 needle_lengths: torch.Tensor, needle_validity: torch.Tensor,
+                 start: int = 1):
+    """Plain PyTorch version of :func:`locate` (any device): the
+    reference's match matrix over every byte offset, limited to character
+    starts at or after character ``start - 1``."""
+    n, w = data.shape
+    dev = data.device
+    valid = validity & needle_validity.expand(n)
+    if start < 1:
+        return torch.zeros(n, dtype=torch.int32, device=dev), valid
+    la = lengths.long()[:, None]
+    lb = needle_lengths.long().expand(n)[:, None]
+    j = torch.arange(w, device=dev)[None, :]
+    match = j + lb <= la
+    # a needle byte past the row's width never lies inside a match
+    for k in range(min(needle.shape[1], w)):
+        sv = torch.gather(data, 1, (j + k).clamp(max=w - 1).expand(n, w))
+        eq = sv == needle[:, k:k + 1].expand(n, 1)
+        match &= (k >= lb) | (eq & (j + k < la))
+    starts = ((data & 0xC0) != 0x80) & (j < la)
+    char_idx = torch.cumsum(starts.to(torch.int64), 1) - 1
+    match &= starts & (char_idx >= start - 1)
+    found = match.any(1)
+    first = match.to(torch.uint8).argmax(1)
+    pos = torch.gather(char_idx, 1, first[:, None])[:, 0] + 1
+    nchars = starts.sum(1)
+    out = torch.where(lb[:, 0] == 0,
+                      torch.where(nchars >= start - 1, start, 0),
+                      torch.where(found, pos, 0))
+    return torch.where(valid, out, 0).to(torch.int32), valid
+
+
+def _locate_cuda(data, lengths, validity, needle, needle_lengths,
+                 needle_validity, start):
+    n, w = data.shape
+    dev = data.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, out_valid
+    if needle.device != dev:
+        raise ValueError(f"needle on {dev} expected, got {needle.device}")
+    data = _aligned(data)
+    needle = needle.contiguous()
+    # past either end the answer does not change: 0, or 0 for every row
+    start = max(min(start, 2 ** 31 - 1), 0)
+    native.check(native.lib("string_funcs").srt_locate(
+        ptr(data), ptr(lengths.to(torch.int32).contiguous()),
+        ptr(validity.contiguous()), n, w, ptr(needle),
+        ptr(needle_lengths.to(torch.int32).contiguous()),
+        ptr(needle_validity.contiguous()),
+        1 if needle.shape[0] > 1 else 0, needle.shape[1], start, ptr(out),
+        ptr(out_valid), native.stream_ptr(dev)), "srt_locate")
+    locate.launches += 1
+    return out, out_valid
+
+
+def substring_index(data: torch.Tensor, lengths: torch.Tensor,
+                    validity: torch.Tensor, delim: int, count: int):
+    """Spark ``substring_index(str, delim, count)`` of every row for a
+    one-byte delimiter ``delim`` (0..255): ``count > 0`` keeps the bytes
+    before the count-th delimiter (the whole row when it has fewer),
+    ``count < 0`` the bytes after the (ndelim + count + 1)-th one (the
+    whole row when that is not positive), ``count == 0`` nothing.  Returns
+    (uint8 [n, W] with zeros after each result, int32 lengths, validity);
+    the validity is the input's own tensor."""
+    _check_strings(data, lengths, validity, "substring_index")
+    if not 0 <= int(delim) <= 255:
+        raise ValueError(f"substring_index: delimiter byte {delim}")
+    delim, count = int(delim), int(count)
+    if data.device.type == "cpu":
+        return substring_index_plain(data, lengths, validity, delim, count)
+    return _substring_index_cuda(data, lengths, validity, delim, count)
+
+
+substring_index.launches = 0
+
+
+def substring_index_plain(data: torch.Tensor, lengths: torch.Tensor,
+                          validity: torch.Tensor, delim: int, count: int):
+    """Plain PyTorch version of :func:`substring_index` (any device): the
+    reference's cumulative delimiter count."""
+    n, w = data.shape
+    dev = data.device
+    ln = lengths.long()
+    j = torch.arange(w, device=dev)[None, :]
+    is_d = (data == delim) & (j < ln[:, None])
+    cum = torch.cumsum(is_d.to(torch.int64), 1)
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    if count == 0:
+        return (torch.zeros_like(data), zero.to(torch.int32), validity)
+    if count > 0:
+        hit = is_d & (cum == count)
+        new_len = torch.where(hit.any(1), hit.to(torch.uint8).argmax(1), ln)
+        return (_shift_rows(data, zero, new_len), new_len.to(torch.int32),
+                validity)
+    k = cum[:, -1] + count + 1
+    hit = is_d & (cum == k[:, None])
+    first = torch.where((k > 0) & hit.any(1),
+                        hit.to(torch.uint8).argmax(1) + 1, 0)
+    new_len = ln - first
+    return (_shift_rows(data, first, new_len), new_len.to(torch.int32),
+            validity)
+
+
+def _substring_index_cuda(data, lengths, validity, delim, count):
+    n, w = data.shape
+    out = torch.empty((n, w), dtype=torch.uint8, device=data.device)
+    out_len = torch.empty(n, dtype=torch.int32, device=data.device)
+    if n == 0:
+        return out, out_len, validity
+    data = _aligned(data)
+    count = max(min(count, 2 ** 31 - 1), -2 ** 31 + 1)
+    native.check(native.lib("string_funcs").srt_substring_index(
+        ptr(data), ptr(lengths.to(torch.int32).contiguous()),
+        ptr(validity.contiguous()), n, w, delim, count, ptr(out),
+        ptr(out_len), native.stream_ptr(data.device)),
+        "srt_substring_index")
+    substring_index.launches += 1
     return out, out_len, validity

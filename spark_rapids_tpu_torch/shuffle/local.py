@@ -5,10 +5,10 @@ Map-output batches stay on the device, each in a ``_Slot`` of its reduce
 partition, in map-batch order; the adaptive reader reads the per-partition
 sizes and fetches ``(lo, hi)`` slices of a partition's slots.  Codec
 ``none`` is the only one: serialized and compressed outputs (lz4, zstd)
-need the serializer and ``native/lz4.cpp`` (ROADMAP.md Queue 1 item 7).
+need the serializer and ``native/lz4.cpp`` (ROADMAP.md Queue 1 item 6).
 
 What the port leaves out, each with its ROADMAP.md line: spilling the
-slots through the BufferCatalog (Queue 1 item 7; until then a slot holds a
+slots through the BufferCatalog (Queue 1 item 6; until then a slot holds a
 plain device batch), the fault registry and the map-output epochs and
 invalidation of stage recovery (``exec/recovery.py``, Queue 1 item 9),
 the cluster inventory/aliasing calls (Queue 1 item 10) and the metrics
@@ -42,7 +42,7 @@ class LocalShuffleTransport:
         if codec != "none":
             raise NotImplementedError(
                 f"shuffle codec {codec!r} needs the serializer and codecs "
-                "(ROADMAP.md Queue 1 item 7); the port stores map outputs "
+                "(ROADMAP.md Queue 1 item 6); the port stores map outputs "
                 "uncompressed (codec none)")
         #: (shuffle_id, part_id) -> slots in map-batch order
         self._store: dict[tuple, list[_Slot]] = {}

@@ -144,10 +144,65 @@ def test_grand_aggregate_and_empty_input(dev):
 
 
 def test_uncovered_ops_raise_on_cuda(dev):
+    """An op outside the reference's raises on the card; string min/max
+    runs K4s and equals the plain version."""
     rng = np.random.default_rng(3)
     pb = ColumnBatch.from_arrow(_record_batch(rng, 100), dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        G.segment_aggregate(pb, [1], [G.AggSpec("min", 0)])
+    with pytest.raises(NotImplementedError, match="aggregate op median"):
+        G.segment_aggregate(pb, [1], [G.AggSpec("median", 2)])
+    sb = S.sort_batch(pb, [S.SortOrder(1, True, True)])
+    specs = [G.AggSpec("min", 0), G.AggSpec("max", 0)]
+    before = G.segment_string_min_max.launches
+    gk, ga, g = G.segment_aggregate(sb, [1], specs)
+    assert G.segment_string_min_max.launches == before + 2
+    wk, wa, wg = G.segment_aggregate_plain(sb, [1], specs)
+    assert g == wg
+    for a, b in zip(gk + ga, wk + wa):
+        _same(a, b)
+
+
+def _k4s_batch(dev, rng, n: int, w: int, groups: int):
+    """n rows sorted by an int key of ``groups`` groups (0: one group per
+    row), strings of up to w bytes drawn from a pool with NUL-tail ties
+    and rows that differ only in their last byte; a tenth null, groups 3
+    and 5 all null."""
+    key = np.sort(rng.integers(0, groups, n)) if groups else np.arange(n)
+    pool = ["", "a", "ab", "ab\x00", "ab\x00\x00", "b", "é", "😀", "zz"]
+    pool += ["x" * (w - 1) + c for c in "ab"] + ["x" * (w - 2) + "\x00"]
+    vals = np.array(pool, dtype=object)[rng.integers(0, len(pool), n)]
+    null = (rng.random(n) < 0.1) | (key == 3) | (key == 5)
+    rb = pa.RecordBatch.from_arrays(
+        [pa.array(key.astype(np.int32)),
+         pa.array(list(vals), type=pa.string(), mask=null)],
+        names=["k", "s"])
+    return ColumnBatch.from_arrow(rb, dev)
+
+
+@pytest.mark.parametrize("w", [4, 16, 64])
+@pytest.mark.parametrize("groups", [1, 40, 0])
+def test_segment_string_min_max_matches_plain(dev, groups, w):
+    """K4s on one giant segment, ~40 segments and one-row segments, both
+    ends, against its plain version; also through the aggregate."""
+    rng = np.random.default_rng(w + groups)
+    pb = _k4s_batch(dev, rng, 200_003, w, groups)
+    keys = pb.columns[0].data
+    flags = torch.ones(pb.num_rows, dtype=torch.uint8, device=dev)
+    flags[1:] = (keys[1:] != keys[:-1]).to(torch.uint8)
+    starts = torch.nonzero(flags).squeeze(1).to(torch.int32)
+    col = pb.columns[1]
+    for is_max in (False, True):
+        before = G.segment_string_min_max.launches
+        got = G.segment_string_min_max(col, flags, starts, is_max)
+        assert G.segment_string_min_max.launches == before + 1
+        _same(got, G.segment_string_min_max_plain(col, flags, starts,
+                                                  is_max))
+    specs = [G.AggSpec("min", 1), G.AggSpec("max", 1)]
+    for k in ([0], []):
+        gk, ga, g = G.segment_aggregate(pb, k, specs)
+        wk, wa, wg = G.segment_aggregate_plain(pb, k, specs)
+        assert g == wg
+        for a, b in zip(gk + ga, wk + wa):
+            _same(a, b)
 
 
 def test_q1_on_cuda_matches_cpu(dev, tmp_path):
@@ -734,6 +789,96 @@ def test_string_queries_on_cuda_match_cpu(dev, tmp_path):
                     assert math.isclose(a, b, rel_tol=1e-9), (name, g, w)
                 else:
                     assert a == b, (name, g, w)
+
+
+# ---------------------------------------------------------------------------
+# string kernels K13e-h (trims, length, locate, substring_index)
+# ---------------------------------------------------------------------------
+
+def _spaced_rows(rng, n: int, w: int):
+    """_string_rows with commas, slashes and runs of spaces, a tenth of
+    the rows spaces only and a tenth padded with spaces at both ends."""
+    data, lengths, valid = _string_rows(rng, n, w)
+    extra = np.array([32, 32, 44, 47], np.uint8)
+    swap = (rng.random((n, w)) < 0.3) & \
+        (np.arange(w)[None, :] < lengths[:, None])
+    data = np.where(swap, extra[rng.integers(0, 4, (n, w))], data)
+    spaces = (rng.random(n) < 0.1)[:, None] & \
+        (np.arange(w)[None, :] < lengths[:, None])
+    data = np.where(spaces, 32, data).astype(np.uint8)
+    pad = (rng.random(n) < 0.1) & (lengths >= 2)
+    data[pad, 0] = 32
+    data[pad, lengths[pad] - 1] = 32
+    return data, lengths, valid
+
+
+@pytest.mark.parametrize("w", [4, 8, 12, 16, 32, 64, 128, 256])
+def test_trim_length_and_substring_index_match_plain(dev, w):
+    from spark_rapids_tpu_torch.ops import strings as STR
+    rng = np.random.default_rng(500 + w)
+    s = _on(dev, *_spaced_rows(rng, 3001, w))
+    for left, right in ((True, True), (True, False), (False, True)):
+        before = STR.trim.launches
+        got = STR.trim(*s, left, right)
+        assert STR.trim.launches == before + 1
+        _same_tuple(got, STR.trim_plain(*s, left, right))
+    before = STR.char_length.launches
+    got = STR.char_length(*s)
+    assert STR.char_length.launches == before + 1
+    assert torch.equal(got, STR.char_length_plain(*s))
+    for delim in (44, 47, 32, 0):
+        for count in range(-4, 5):
+            before = STR.substring_index.launches
+            got = STR.substring_index(*s, delim, count)
+            assert STR.substring_index.launches == before + 1
+            _same_tuple(got, STR.substring_index_plain(*s, delim, count))
+    # a row slice (offset base) and an empty batch
+    _same_tuple(STR.trim(*(t[7:] for t in s)),
+                STR.trim_plain(*(t[7:] for t in s)))
+    assert STR.trim(*(t[:0] for t in s))[0].shape == (0, w)
+
+
+@pytest.mark.parametrize("w", [4, 12, 16, 64, 256])
+def test_locate_matches_plain(dev, w):
+    from spark_rapids_tpu_torch.ops import strings as STR
+    rng = np.random.default_rng(600 + w)
+    n = 2003
+    s = _on(dev, *_spaced_rows(rng, n, w))
+    needles = [STR.literal_needle(t, dev)
+               for t in ["", "a", "é", " a", "😀", "\x00", ",", "\x80",
+                         "x" * (w + 4)]]
+    pos = _on(dev, rng.integers(1, w + 1, n), np.ones(n, bool))
+    ln = _on(dev, rng.integers(0, w // 2 + 1, n), rng.random(n) >= 0.1)
+    needles.append(STR.substring_plain(*s, pos, ln))
+    needles.append(_on(dev, *_string_rows(rng, n, 2 * w)))
+    for nd in needles:
+        for start in (-1, 0, 1, 2, 3, w // 2, w + 1, w + 2, 2 ** 40):
+            before = STR.locate.launches
+            got = STR.locate(*s, *nd, start)
+            assert STR.locate.launches == before + 1
+            _same_tuple(got, STR.locate_plain(*s, *nd, start))
+
+
+def test_string_paths_on_cuda_match_cpu(dev, tmp_path):
+    """loan_period_span and seller_legal_forms at mortgage sf 0.2 through
+    TorchSession() on the card and on the CPU; K13e-h and K4s launch."""
+    from spark_rapids_tpu_torch.bench import mortgage_gen
+    from spark_rapids_tpu_torch.bench import string_queries as SQ
+    from spark_rapids_tpu_torch.ops import strings as STR
+    d = str(tmp_path / "mortgage")
+    mortgage_gen.generate_mortgage(d, sf=0.2, seed=11)
+    for name, counters in (
+            ("loan_period_span", (STR.substring_index, STR.concat,
+                                  G.segment_string_min_max)),
+            ("seller_legal_forms", (STR.substring_index, STR.trim,
+                                    STR.char_length, STR.locate,
+                                    G.segment_string_min_max))):
+        build, _table = SQ.STRING_PATHS[name]
+        before = [c.launches for c in counters]
+        got = build(TorchSession(), d).collect()
+        assert all(c.launches > b for c, b in zip(counters, before)), name
+        want = build(TorchSession(device="cpu"), d).collect()
+        assert got == want and got
 
 
 # ---------------------------------------------------------------------------

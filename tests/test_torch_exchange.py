@@ -373,7 +373,7 @@ def test_unported_partitionings_and_codecs_raise(small_dir):
     assert all(max(a) <= min(b) for a, b in zip(keys, keys[1:]))
     lz4 = TorchSession({"spark.rapids.shuffle.compression.codec": "lz4"},
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         _repart(lz4, small_dir, 4, "k").collect()
     one = SinglePartitioning()
     b = s.read_parquet(small_dir)._prepared().execute(

@@ -136,7 +136,7 @@ def test_job_plans_match_jax(data_dirs, job):
 
 
 def test_etl_is_not_ported_yet(data_dirs):
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         pm.MORTGAGE_QUERIES["etl"](_cpu(), data_dirs["port"])
 
 

@@ -139,16 +139,80 @@ def test_empty_grand_aggregate_matches_jax():
 
 
 def test_cuda_path_refuses_uncovered_ops():
-    """String min/max has no kernel yet: on a CUDA batch it raises and
-    names its ROADMAP item instead of running plain; percentile runs K4p."""
+    """Every op of the reference has a CUDA path -- string min/max runs
+    K4s, percentile K4p -- and an op outside them raises."""
     rng = np.random.default_rng(8)
     pb = PBatch.from_arrow(_record_batch(rng, 10), CPU)
-    for spec in (psg.AggSpec("min", 6), psg.AggSpec("max", 6)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            psg._check_cuda_covered(pb, [spec])
-    psg._check_cuda_covered(pb, [psg.AggSpec("min", 3),
+    psg._check_cuda_covered(pb, [psg.AggSpec("min", 6),
+                                 psg.AggSpec("max", 6),
+                                 psg.AggSpec("min", 3),
                                  psg.AggSpec("first", 6),
                                  psg.AggSpec("percentile", 3, 0.5)])
+    with pytest.raises(NotImplementedError, match="aggregate op median"):
+        psg._check_cuda_covered(pb, [psg.AggSpec("median", 3)])
+
+
+def _string_minmax_batch(rng, n: int, w: int) -> pa.RecordBatch:
+    """Groups of every size -- one giant group (a third of the rows),
+    one-row groups, all-null groups -- over strings of up to ``w`` bytes:
+    NUL-tail ties ('ab', 'ab\\0', 'ab\\0\\0'), 2- and 4-byte characters,
+    empty strings, nulls, and long rows that differ only in their last
+    byte, so that rows compare over more than one word."""
+    g = np.concatenate([np.zeros(n // 3, np.int32),
+                        rng.integers(1, 40, n - n // 3 - 60).astype(np.int32),
+                        np.arange(100, 160, dtype=np.int32)])  # one-row
+    pool = ["", "a", "ab", "ab\x00", "ab\x00\x00", "b", "\x00", "é", "e",
+            "😀", "zz", "Z"]
+    pool += ["x" * (w - 1) + c for c in "ab"] + ["x" * (w - 2) + "\x00"]
+    vals = np.array(pool, dtype=object)[rng.integers(0, len(pool), n)]
+    null = rng.random(n) < 0.15
+    null |= (g == 7) | (g == 130)                             # all null
+    perm = rng.permutation(n)
+    return pa.RecordBatch.from_arrays(
+        [pa.array(g[perm]), pa.array(list(vals[perm]), type=pa.string(),
+                                     mask=null[perm])], names=["g", "s"])
+
+
+@pytest.mark.parametrize("w", [4, 16, 64])
+@pytest.mark.parametrize("keys", [[0], []], ids=["grouped", "grand"])
+def test_string_min_max_fuzz_matches_jax(keys, w):
+    rng = np.random.default_rng(w + len(keys))
+    specs = [("min", 1, None), ("max", 1, None), ("count", 1, None)]
+    g, _jout, jcols, pout = _run_both(_string_minmax_batch(rng, 700, w),
+                                      keys, specs)
+    assert pout.num_rows == g
+    assert pout.columns[len(keys)].data.shape[1] == w
+    for i in range(len(keys) + len(specs)):
+        _assert_col(pout.columns[i], jcols[i], g, f"column {i}")
+    if keys:  # the all-null groups are null
+        gk = pout.columns[0].data.numpy()
+        for k in (7, 130):
+            assert not pout.columns[1].validity.numpy()[gk == k].any()
+
+
+def test_segment_string_min_max_plain_wrapper():
+    """K4s's plain version from the boundary pass's flags and starts
+    equals the aggregate's string min/max."""
+    rng = np.random.default_rng(12)
+    pb = PBatch.from_arrow(_string_minmax_batch(rng, 500, 16), CPU)
+    sb = psg.sort_batch(pb, [psg.SortOrder(0, True, True)])
+    keys = sb.columns[0].data
+    flags = torch.ones(sb.num_rows, dtype=torch.uint8)
+    flags[1:] = (keys[1:] != keys[:-1]).to(torch.uint8)
+    starts = torch.nonzero(flags).squeeze(1).to(torch.int32)
+    _k, aggs, g = psg.segment_aggregate(sb, [0], [psg.AggSpec("min", 1),
+                                                  psg.AggSpec("max", 1)])
+    assert g == starts.numel()
+    for is_max, want in ((False, aggs[0]), (True, aggs[1])):
+        before = psg.segment_string_min_max.launches
+        got = psg.segment_string_min_max(sb.columns[1], flags, starts,
+                                         is_max)
+        assert psg.segment_string_min_max.launches == before  # the CPU
+        for a, b in ((got.data, want.data), (got.validity, want.validity),
+                     (got.lengths, want.lengths)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="over"):
+        psg.segment_string_min_max(sb.columns[0], flags, starts, False)
 
 
 def _percentile_batch(rng, n: int) -> pa.RecordBatch:

@@ -191,7 +191,7 @@ def test_logical_window_node_matches_jax(small_dir):
 def test_unported_window_shapes_raise(small_dir):
     s = TorchSession(device="cpu")
     glob = PWX.WindowExpression(PA.Sum(pcol("i")), PWX.WindowSpec())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         s.read_parquet(small_dir).select(pcol("id"),
                                          glob.alias("t")).collect()
 
