@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    phase 6; K12a window segment extents, K12b window frame aggregates in
    phase 7; K13a, K13b in phase 8; K13c, K13d in phase 9; K13i, K4p in
    phase 10; K8a, K8b in phase 11; K11, K12c in phase 12; K14a-c in
-   phase 13; K13e-h, K4s in phase 14): seeded inputs
+   phase 13; K13e-h, K4s in phase 14; K15a, K15b in phase 15): seeded
+   inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
    version's, one PyTorch library call's and the memory-bound floor;
@@ -159,7 +160,27 @@ Phases (any failure exits non-zero; no phase's error is caught):
    cold + warm against numpy and Python's str functions: K13h, K13c and
    K4s must launch on the first, K13e-h and K4s on the second, and K13e-h
    and K4s 0 times over phases 3-13;
-15. print the kernel table as one JSON line (launches per path), the
+15. the mesh shuffle over 8 virtual slots on the card
+   (SRT_VIRTUAL_DEVICES=8, spark.rapids.tpu.mesh.deviceCount=8): K15a
+   (pack a shard's columns into one send buffer of P sections) and K15b
+   (front-pack P segments) held exactly against their plain versions on
+   2^24-row exchanges (P 1, 2, 8 and 64; int8 to int64, dates, f32 and
+   f64 with NaN, -0.0 and +-inf, bools, strings of W 4 to 256 differing
+   between sources, nulls; empty sources, every row to one destination,
+   a 0-row total); then top_customers_mesh (MeshExchangeExec ->
+   MeshAggregateExec -> MeshSortExec(limit 100) over all 28.8M
+   store_sales rows), q6_mesh (replicated MeshJoinExecs, two
+   MeshAggregateExecs, a TopN), q6_mesh_partitioned (every join
+   partitioned: spark.rapids.tpu.mesh.join.buildThresholdBytes=0) and
+   q22_mesh (a grand aggregate merged on slot 0, an anti MeshJoinExec, a
+   MeshSortExec without a limit) cold + warm against the numpy/pyarrow
+   evaluations of phases 6 and 8, each planning its Mesh nodes, with
+   mesh_send_overflows 0; K15a and K15b exact and timed at
+   top_customers_mesh's and q6_mesh_partitioned's largest shard and
+   destination, beside their bounds, plain versions and index_select /
+   torch.cat; K15a and K15b must launch on every mesh path and 0 times
+   over phases 3-14;
+16. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -771,6 +792,7 @@ def _counters() -> dict:
     from spark_rapids_tpu_torch.ops import window as W
     from spark_rapids_tpu_torch.columnar import wirecodec as WC
     from spark_rapids_tpu_torch.ops import generate as GE
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
     return {"sort_permutation": {"sort_permutation": S.sort_permutation},
             "compact": {"compact": K.compact},
             "gather_columns": {"gather_columns": K.gather_columns},
@@ -809,7 +831,9 @@ def _counters() -> dict:
             "locate": {"locate": STR.locate},
             "substring_index": {"substring_index": STR.substring_index},
             "segment_string_min_max": {
-                "segment_string_min_max": G.segment_string_min_max}}
+                "segment_string_min_max": G.segment_string_min_max},
+            "mesh_pack": {"mesh_pack": ME.mesh_pack},
+            "mesh_unpack": {"mesh_unpack": ME.mesh_unpack}}
 
 
 #: K8a and K8b: every scan batch of more than 1024 rows goes through the
@@ -5164,6 +5188,341 @@ def _check_equal_rows(label: str, rows, want) -> None:
                              f"numpy evaluation {want[:3]}...")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh shuffle (K15a pack, K15b unpack) and the mesh paths
+# ---------------------------------------------------------------------------
+
+_MESH_ENTRIES = ("mesh_pack", "mesh_unpack")
+#: the mesh paths' conf: 8 slots, laid over the card by SRT_VIRTUAL_DEVICES
+_MESH_CONF = {"spark.rapids.tpu.mesh.deviceCount": 8}
+_MESH_SLOTS = 8
+#: string widths of the stress sources, by source index
+_K15_WIDTHS = (4, 16, 64, 256, 8, 32, 128, 4)
+_K15_ROWS = 1 << 24
+
+
+def _k15_source(torch, gen, n: int, w: int, dev):
+    """A seeded source of ``n`` rows on the card: int8, int16, int32 (and
+    a date), int64, f32 and f64 (NaN, -0.0, +-inf), bool and a string of
+    width ``w``; ~10% nulls per column, null slots zeroed, string bytes
+    zero past the length."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+
+    def valid():
+        return torch.rand(n, generator=gen, device=dev) >= 0.1
+
+    def fixed(t, dt):
+        v = valid()
+        return DeviceColumn(torch.where(v, t, torch.zeros((), dtype=t.dtype,
+                                                          device=dev)),
+                            v, dt)
+
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=dtype)
+
+    def floats(dtype):
+        x = (torch.randn(n, generator=gen, device=dev) * 1e6).to(dtype)
+        special = torch.tensor([float("nan"), -0.0, float("inf"),
+                                -float("inf")], dtype=dtype, device=dev)
+        pick = torch.rand(n, generator=gen, device=dev) < 0.05
+        return torch.where(pick, special[ints(0, 4, torch.int64)], x)
+
+    sv = valid()
+    lens = torch.where(sv, ints(0, w + 1, torch.int32),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    data = torch.randint(1, 256, (n, w), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    data[torch.arange(w, device=dev)[None, :] >= lens[:, None]] = 0
+    cols = [fixed(ints(-128, 128, torch.int8), T.ByteType()),
+            fixed(ints(-2 ** 15, 2 ** 15, torch.int16), T.ShortType()),
+            fixed(ints(-2 ** 31, 2 ** 31 - 1, torch.int32), T.IntegerType()),
+            fixed(ints(0, 20000, torch.int32), T.DateType()),
+            fixed(ints(-2 ** 62, 2 ** 62, torch.int64), T.LongType()),
+            fixed(floats(torch.float32), T.FloatType()),
+            fixed(floats(torch.float64), T.DoubleType()),
+            fixed(torch.rand(n, generator=gen, device=dev) < 0.5,
+                  T.BooleanType()),
+            DeviceColumn(data, sv, T.StringType(), lens)]
+    schema = T.Schema([T.StructField(f"c{i}", c.dtype)
+                       for i, c in enumerate(cols)])
+    return ColumnBatch(cols, n, schema, dev)
+
+
+def _k15_bytes_same(torch, got, want, what: str) -> None:
+    """Columns equal byte for byte (floats by their bits)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} columns vs {len(want)}")
+    for g, w in zip(got, want):
+        for a, b in ((g.data, w.data), (g.validity, w.validity),
+                     (g.lengths, w.lengths)):
+            if (a is None) != (b is None):
+                raise AssertionError(f"{what}: lengths differ in presence")
+            if a is None:
+                continue
+            if a.shape != b.shape or not torch.equal(
+                    a.contiguous().view(torch.uint8),
+                    b.contiguous().view(torch.uint8)):
+                raise AssertionError(f"{what}: a column differs from the "
+                                     "plain version")
+
+
+def _k15_check(torch, sources, ids, p: int, what: str) -> int:
+    """K15a and K15b against their plain versions over one exchange of
+    ``sources`` by ``ids`` into ``p`` destinations: every send buffer
+    byte for byte, every destination's columns; returns the calls."""
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    from spark_rapids_tpu_torch.ops.partition import partition_order
+    from spark_rapids_tpu_torch.parallel.mesh_shuffle import count_matrix
+    orders = []
+    for b, part in zip(sources, ids):
+        if b.num_rows == 0:
+            orders.append((torch.empty(0, dtype=torch.int32,
+                                       device=b.device),
+                           torch.zeros(p, dtype=torch.int32,
+                                       device=b.device)))
+        else:
+            perm, counts, _starts = partition_order(part, p)
+            orders.append((perm, counts))
+    matrix = count_matrix([c for _perm, c in orders])
+    if sum(map(sum, matrix)) != sum(b.num_rows for b in sources):
+        raise AssertionError(f"{what}: the count matrix lost rows")
+    calls, packs = 0, []
+    for s, (b, (perm, _c)) in enumerate(zip(sources, orders)):
+        buf, layout = ME.mesh_pack(b.columns, perm, matrix[s])
+        want = ME.mesh_pack_plain(b.columns, perm, matrix[s])
+        if not torch.equal(buf, want):
+            raise AssertionError(f"{what}: source {s}'s send buffer "
+                                 "differs from the plain version")
+        packs.append((buf, layout))
+        calls += 1
+    for d in range(p):
+        segs = []
+        for s, (buf, (sections, blocks)) in enumerate(packs):
+            segs.append(ME.section_columns(
+                buf[sections[d]:sections[d + 1]], sources[s].columns,
+                matrix[s][d], blocks[d], sections[d]))
+        counts = [matrix[s][d] for s in range(len(sources))]
+        _k15_bytes_same(torch, ME.mesh_unpack(segs, counts),
+                        ME.mesh_unpack_plain(segs, counts),
+                        f"{what}: destination {d}")
+        calls += 1
+    return calls
+
+
+def _k15_stress(torch, dev) -> int:
+    """K15a/K15b exactly against their plain versions on 2^24-row
+    exchanges: P 1, 2, 8 and 64; empty sources; every row to one
+    destination; a 0-row total."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    calls = 0
+    cases = (("P=1", 1, [_K15_ROWS], None),
+             ("P=2", 2, [_K15_ROWS // 4, 3 * _K15_ROWS // 4], None),
+             ("P=8, empty sources", 8,
+              [0, _K15_ROWS // 4, _K15_ROWS // 8, 0, _K15_ROWS // 8,
+               _K15_ROWS // 4, _K15_ROWS // 8, _K15_ROWS // 8], None),
+             ("P=8, every row to slot 5", 8, [_K15_ROWS // 8] * 8, 5),
+             ("P=64", 64, [_K15_ROWS // 64] * 64, None),
+             ("P=8, 0 rows", 8, [0] * 8, None))
+    for what, p, sizes, only in cases:
+        sources = [_k15_source(torch, gen, n, _K15_WIDTHS[s % 8], dev)
+                   for s, n in enumerate(sizes)]
+        ids = [torch.full((b.num_rows,), only, dtype=torch.int32,
+                          device=dev) if only is not None else
+               torch.randint(0, p, (b.num_rows,), generator=gen,
+                             device=dev, dtype=torch.int32)
+               for b in sources]
+        calls += _k15_check(torch, sources, ids, p, what)
+        del sources, ids
+        torch.cuda.empty_cache()
+    return calls
+
+
+class _K15Recorder:
+    """Keeps the arguments of the largest K15a and K15b calls of a path
+    (the first of equal size), for checks and times at its shapes; the
+    calls themselves run unchanged."""
+
+    def __init__(self):
+        self.pack = None
+        self.unpack = None
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.exec import mesh_exec as MX
+        from spark_rapids_tpu_torch.parallel import mesh_shuffle as MS
+        self._mods = (MS, MX)
+        self._orig = (MS.mesh_pack, MS.mesh_unpack, MX.mesh_unpack)
+        pack, unpack = MS.mesh_pack, MS.mesh_unpack
+
+        def rec_pack(cols, perm, counts):
+            if self.pack is None or perm.numel() > self.pack[1].numel():
+                self.pack = (list(cols), perm, list(counts))
+            return pack(cols, perm, counts)
+
+        def rec_unpack(segments, counts):
+            if self.unpack is None or sum(counts) > sum(self.unpack[1]):
+                self.unpack = ([list(s) for s in segments], list(counts))
+            return unpack(segments, counts)
+
+        MS.mesh_pack, MS.mesh_unpack, MX.mesh_unpack = \
+            rec_pack, rec_unpack, rec_unpack
+        return self
+
+    def __exit__(self, *exc):
+        MS, MX = self._mods
+        MS.mesh_pack, MS.mesh_unpack, MX.mesh_unpack = self._orig
+        return False
+
+
+def _k15_time(torch, label: str, rec) -> dict:
+    """K15a and K15b at a path's recorded shapes: exact against the plain
+    versions, then timed beside their bounds, plain versions and library
+    yardsticks (index_select of every leaf by the permutation; torch.cat
+    of every leaf of the sources)."""
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    cols, perm, counts = rec.pack
+    buf, _layout = ME.mesh_pack(cols, perm, counts)
+    if not torch.equal(buf, ME.mesh_pack_plain(cols, perm, counts)):
+        raise AssertionError(f"{label}: K15a differs from the plain version")
+    segs, ucounts = rec.unpack
+    _k15_bytes_same(torch, ME.mesh_unpack(segs, ucounts),
+                    ME.mesh_unpack_plain(segs, ucounts),
+                    f"{label}: K15b")
+    idx = perm.long()
+    leaves = _leaves(cols)
+    pack_bytes = _nbytes(leaves) + _nbytes([perm]) + buf.numel()
+    pack_ms = _time_ms(torch, lambda: ME.mesh_pack(cols, perm, counts),
+                       reps=20)
+    pack_plain = _time_ms(torch, lambda: ME.mesh_pack_plain(cols, perm,
+                                                            counts))
+    pack_lib = _time_ms(torch, lambda: [torch.index_select(t, 0, idx)
+                                        for t in leaves], reps=20)
+    out = ME.mesh_unpack(segs, ucounts)
+    seg_leaves = [t for s in segs for t in _leaves(s)]
+    unpack_bytes = _nbytes(seg_leaves) + _nbytes(_leaves(out))
+    unpack_ms = _time_ms(torch, lambda: ME.mesh_unpack(segs, ucounts),
+                         reps=20)
+    unpack_plain = _time_ms(torch, lambda: ME.mesh_unpack_plain(segs,
+                                                                ucounts))
+
+    def cat():
+        return [torch.cat([s[j].data for s in segs]) for j in
+                range(len(segs[0]))] + \
+            [torch.cat([s[j].validity for s in segs]) for j in
+             range(len(segs[0]))]
+    unpack_lib = _time_ms(torch, cat, reps=20)
+    n, total = perm.numel(), sum(ucounts)
+    print(f"[{label} K15a] one shard, {n} rows x {len(cols)} columns into "
+          f"{len(counts)} sections ({buf.numel()} bytes): ms={pack_ms:.4f} "
+          f"plain_ms={pack_plain:.4f} library_ms={pack_lib:.4f} "
+          f"(index_select of every leaf) bound_ms="
+          f"{_bound_ms(pack_bytes):.4f} ({pack_bytes} bytes)", flush=True)
+    print(f"[{label} K15b] one destination, {len(segs)} segments, {total} "
+          f"rows: ms={unpack_ms:.4f} plain_ms={unpack_plain:.4f} "
+          f"library_ms={unpack_lib:.4f} (torch.cat of every leaf) "
+          f"bound_ms={_bound_ms(unpack_bytes):.4f} ({unpack_bytes} bytes)",
+          flush=True)
+    return {
+        "mesh_pack": dict(
+            name="mesh_pack", route="cuda",
+            source="spark_rapids_tpu_torch/csrc/mesh_exchange.cu",
+            replaces="spark_rapids_tpu/parallel/mesh_shuffle.py:70",
+            max_abs_err=0.0, ms=pack_ms, plain_ms=pack_plain,
+            bound_ms=_bound_ms(pack_bytes), bound_by="bytes",
+            library_ms=pack_lib),
+        "mesh_unpack": dict(
+            name="mesh_unpack", route="cuda",
+            source="spark_rapids_tpu_torch/csrc/mesh_exchange.cu",
+            replaces="spark_rapids_tpu/parallel/mesh_shuffle.py:114",
+            max_abs_err=0.0, ms=unpack_ms, plain_ms=unpack_plain,
+            bound_ms=_bound_ms(unpack_bytes), bound_by="bytes",
+            library_ms=unpack_lib)}
+
+
+def run_mesh_phase(torch, dev, sf: float, warm: int):
+    """K15a/K15b exactly against their plain versions on the stress
+    exchanges, then top_customers_mesh, q6_mesh, q6_mesh_partitioned and
+    q22_mesh over 8 virtual slots on the card, each cold + warm against
+    numpy/pyarrow, K15 checked and timed at the paths' shapes; returns
+    ({kernel: entry}, {path: launches})."""
+    from spark_rapids_tpu_torch.bench.tpcds_queries import (TPCDS_QUERIES,
+                                                            top_customers)
+    from spark_rapids_tpu_torch.bench.tpch_queries import q22
+    from spark_rapids_tpu_torch.parallel.mesh import COUNTERS, reset_counters
+    os.environ["SRT_VIRTUAL_DEVICES"] = str(_MESH_SLOTS)
+    t0 = time.perf_counter()
+    calls = _k15_stress(torch, dev)
+    print(f"[mesh] K15a/K15b: {calls} stress calls over 2^24-row "
+          f"exchanges (P 1, 2, 8, 64; W {sorted(set(_K15_WIDTHS))} by "
+          f"source; empty sources, one destination, 0 rows) in "
+          f"{time.perf_counter() - t0:.1f} s: equal to the plain versions",
+          flush=True)
+    q6, _tables = TPCDS_QUERIES["q6"]
+    tpcds_dir = os.path.join(ROOT, ".bench_data",
+                             f"tpcds_sf{Q6_SF:g}_seed42_default")
+    tpch_dir = os.path.join(ROOT, ".bench_data", f"tpch_sf{sf:g}_seed7")
+    t0 = time.perf_counter()
+    want_top = reference_top_customers(tpcds_dir)
+    want_q6 = reference_q6(tpcds_dir)
+    want_q22, _gap = reference_q22(tpch_dir)
+    print(f"[mesh] numpy/pyarrow references in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mesh = _cuda_session(_MESH_CONF)
+    part = _cuda_session({**_MESH_CONF,
+                          "spark.rapids.tpu.mesh.join.buildThresholdBytes":
+                          0})
+    every = tuple(_counters())
+    base = _MESH_ENTRIES + ("sort_permutation", "gather_columns",
+                            "segment_aggregate")
+    joins = ("join_search", "join_indices_from_probe")
+    specs = (
+        ("top_customers_mesh", lambda: top_customers(mesh, tpcds_dir),
+         lambda r: _check_equal_rows("top_customers_mesh", r, want_top),
+         base + ("partition_ids_for_keys", "group_by_part"),
+         ["MeshSortExec", "MeshAggregateExec", "MeshExchangeExec"]),
+        ("q6_mesh", lambda: q6(mesh, tpcds_dir),
+         lambda r: _check_q6(r, want_q6),
+         base + joins + ("partition_ids_for_keys", "group_by_part"),
+         ["MeshSortExec", "MeshAggregateExec", "MeshJoinExec"]),
+        ("q6_mesh_partitioned", lambda: q6(part, tpcds_dir),
+         lambda r: _check_q6(r, want_q6),
+         base + joins + ("partition_ids_for_keys", "group_by_part"),
+         ["MeshSortExec", "MeshAggregateExec", "MeshJoinExec"]),
+        ("q22_mesh", lambda: q22(mesh, tpch_dir),
+         lambda r: _check_keyed_doubles("q22_mesh", r, want_q22, 2),
+         base + joins + ("partition_ids_for_keys", "group_by_part"),
+         ["MeshSortExec", "MeshAggregateExec", "MeshJoinExec"]))
+    paths, entries = {}, {}
+    for label, make_df, check, need, nodes in specs:
+        explain = make_df().explain()
+        print(explain, flush=True)
+        names = [ln.strip().lstrip("*").strip().split("[")[0]
+                 for ln in explain.splitlines()]
+        if any(n not in names for n in nodes):
+            raise AssertionError(f"{label} planned no {nodes}: {names}")
+        reset_counters()
+        with _K15Recorder() as rec:
+            paths[label] = _drive(
+                torch, label, make_df, check, every, warm,
+                _all_but(every, need), run=lambda m=make_df: m().collect())
+        counters = dict(COUNTERS)
+        print(f"[{label}] mesh counters over the cold and warm runs: "
+              f"{counters}", flush=True)
+        if counters["mesh_send_overflows"] != 0:
+            raise AssertionError(f"{label}: mesh_send_overflows "
+                                 f"{counters['mesh_send_overflows']}")
+        if label == "top_customers_mesh":
+            entries = _k15_time(torch, label, rec)
+        elif label == "q6_mesh_partitioned":
+            _k15_time(torch, label, rec)
+        del rec
+        torch.cuda.empty_cache()
+    return entries, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=5.0,
@@ -5197,9 +5556,10 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[ptxas {name}] {line.strip()}")
     dev = torch.device("cuda", 0)
-    # K14 runs on phase 13's paths only, K13e-h and K4s on phase 14's:
-    # their counters stay 0 until then
-    _reset_counters(_GENERATE_ENTRIES + _STRING_FUNC_ENTRIES)
+    # K14 runs on phase 13's paths only, K13e-h and K4s on phase 14's,
+    # K15 on phase 15's: their counters stay 0 until then
+    _reset_counters(_GENERATE_ENTRIES + _STRING_FUNC_ENTRIES
+                    + _MESH_ENTRIES)
     rng = np.random.default_rng(20261017)
     entries = {}
     entries["compact"] = check_compact(torch, dev, rng)
@@ -5276,6 +5636,18 @@ def main(argv=None) -> int:
     func_entries, func_paths = run_string_funcs_phase(torch, dev, args.warm)
     entries.update(func_entries)
     paths.update(func_paths)
+    earlier = {k: v for g in _MESH_ENTRIES
+               for k, v in _read_counters((g,), "phases 3-14",
+                                          _MESH_ENTRIES)[g].items()}
+    if any(earlier.values()):
+        raise AssertionError(f"K15 launched on an earlier path: {earlier}")
+    print(f"[mesh] K15a and K15b launches over phases 3-14: {earlier}",
+          flush=True)
+    torch.cuda.empty_cache()
+    mesh_entries, mesh_paths = run_mesh_phase(torch, dev, args.sf,
+                                              args.warm)
+    entries.update(mesh_entries)
+    paths.update(mesh_paths)
     kernels = []
     for name, e in entries.items():
         counters = list(_counters()[name])

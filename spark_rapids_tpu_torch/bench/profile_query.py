@@ -34,7 +34,14 @@ the default layout's store_sales), reused when present, then:
 * records one more warm run under ``torch.profiler`` and sums the device
   time of every CUDA kernel and copy, giving the device's busy share of
   the run, the kernels that take most of it, and K8's, K14's, K13e-h's,
-  K4s's and the copies' share.
+  K4s's, K15's and the copies' share.
+
+The mesh paths run through ``--conf spark.rapids.tpu.mesh.deviceCount=8``
+with ``SRT_VIRTUAL_DEVICES=8`` in the environment (8 slots on the card):
+``--query repartition --layout default`` is top_customers_mesh, ``--query
+q6 --layout default`` q6_mesh (add
+``--conf spark.rapids.tpu.mesh.join.buildThresholdBytes=0`` for
+q6_mesh_partitioned) and ``--query q22`` q22_mesh.
 
 The wire codec follows ``SRT_WIRE_CODEC`` (on unless ``0``), so an A/B of
 the codec runs this script with and without ``SRT_WIRE_CODEC=0``, in
@@ -274,6 +281,7 @@ def main(argv=None) -> int:
         "k13eh_ms": _ms_of(rows, "slice_kernel", "length_kernel",
                            "locate_kernel"),
         "k4s_ms": _ms_of(rows, "MinMaxS"),
+        "k15_ms": _ms_of(rows, "srt_mesh::"),
         "top_device_ops": [{"name": k[:80], "calls": c, "ms": us / 1e3}
                            for us, k, c in rows[:args.top]],
     }

@@ -2,9 +2,10 @@
 
 A copy of the part of ``spark_rapids_tpu/conf.py`` that the port reads:
 the registry machinery and the entries consulted by the scan, the
-coalesce planner, explain, the device budget and the shuffle exchange
+coalesce planner, explain, the device budget, the shuffle exchange
 (the reference keeps the adaptive entries in
-``spark_rapids_tpu/exec/exchange.py:42-56``).  Keys, defaults and parsing
+``spark_rapids_tpu/exec/exchange.py:42-56``) and the mesh
+(``spark_rapids_tpu/conf.py:207-253``).  Keys, defaults and parsing
 are the reference package's, so one settings dict configures both
 packages the same way.
 """
@@ -149,6 +150,55 @@ SHUFFLE_TRANSPORT_CLASS = register(ConfEntry(
     check_doc="must name a class of the spark_rapids_tpu_torch package"))
 
 
+MESH_DEVICE_COUNT = register(ConfEntry(
+    "spark.rapids.tpu.mesh.deviceCount", 0,
+    "Devices in the 1-D mesh used for collective shuffle/aggregation. "
+    "When > 1, grouped aggregations and hash repartitions lower to "
+    "all-to-all programs over the mesh (exec/mesh_exec.py) instead of the "
+    "in-process exchange. 0 disables. (ref: the UCX transport enable, "
+    "RapidsConf.scala:652)  The port's mesh is an ordered list of torch "
+    "devices (parallel/mesh.py); SRT_VIRTUAL_DEVICES=N lays N virtual "
+    "devices over the physical ones.", conv=int))
+
+MESH_REGIONS_ENABLED = register(ConfEntry(
+    "spark.rapids.tpu.mesh.regions.enabled", True,
+    "Form mesh REGIONS: a contiguous elementwise pipeline "
+    "(filter/project/fused stage) feeding a mesh collective operator "
+    "(aggregate, exchange, sort) runs INSIDE the per-device program. "
+    "Disable to run each mesh operator as an isolated island (the "
+    "pre-region plan shape).  The port plans islands whatever this says: "
+    "regions need the fused stages (ROADMAP.md Queue 1 items 8 and 10).",
+    conv=_bool))
+
+MESH_SEND_CAPACITY = register(ConfEntry(
+    "spark.rapids.tpu.mesh.exchange.sendCapacityRows", 0,
+    "Per-target row capacity C of the [P, C] all-to-all send buffers in "
+    "mesh exchanges. 0 (default) sizes C to the full shard capacity -- "
+    "the static worst case where every row targets one device. A smaller "
+    "C bounds that memory; if a skewed key distribution overflows it, the "
+    "exchange counts mesh_send_overflows and retries at worst-case "
+    "capacity.  The port sizes every send section to its exact rows, so "
+    "no row is ever dropped; the counter moves where the reference's "
+    "retry would.", conv=int))
+
+MESH_JOIN_BUILD_THRESHOLD = register(ConfEntry(
+    "spark.rapids.tpu.mesh.join.buildThresholdBytes", 128 << 20,
+    "Mesh joins replicate the build side to every device while it fits "
+    "under this many bytes (broadcast-style, GpuBroadcastHashJoinExec); "
+    "above it BOTH sides hash-exchange on the join keys over the mesh "
+    "and each device joins its co-partitioned shards locally "
+    "(GpuShuffledHashJoinExec.scala:162). 0 forces the partitioned "
+    "path.", conv=parse_bytes))
+
+MESH_WINDOW_ENABLED = register(ConfEntry(
+    "spark.rapids.tpu.mesh.window.enabled", True,
+    "Lower window functions to MeshWindowExec when a mesh is active. "
+    "Disable to gather window inputs to a single device (the pre-mesh "
+    "WindowExec path).  MeshWindowExec is not ported (ROADMAP.md Queue 1 "
+    "item 10): with this on, a window the reference would run on the "
+    "mesh raises NotImplementedError in the port.", conv=_bool))
+
+
 class TorchConf:
     """An immutable snapshot of settings, queried through typed entries."""
 
@@ -169,3 +219,7 @@ class TorchConf:
     @property
     def shuffle_partitions(self) -> int:
         return self.get(SHUFFLE_PARTITIONS)
+
+    @property
+    def mesh_device_count(self) -> int:
+        return self.get(MESH_DEVICE_COUNT)

@@ -2,8 +2,8 @@
 from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec  # noqa: F401
 from spark_rapids_tpu_torch.exec.basic import (FilterExec,  # noqa: F401
                                                GlobalLimitExec,
-                                               LocalLimitExec, ProjectExec,
-                                               UnionExec)
+                                               LocalLimitExec, LocalScanExec,
+                                               ProjectExec, UnionExec)
 from spark_rapids_tpu_torch.exec.core import (ExecCtx, PlanNode,  # noqa: F401
                                               collect_device)
 from spark_rapids_tpu_torch.exec.exchange import (  # noqa: F401

@@ -1,6 +1,7 @@
-"""Project, filter, union and limit execs (port of
-``spark_rapids_tpu/exec/basic.py`` :93 ProjectExec, :250 FilterExec, :357
-UnionExec, :408 LocalLimitExec, :428 GlobalLimitExec)."""
+"""Local scan, project, filter, union and limit execs (port of
+``spark_rapids_tpu/exec/basic.py`` :45 LocalScanExec, :93 ProjectExec,
+:250 FilterExec, :357 UnionExec, :408 LocalLimitExec, :428
+GlobalLimitExec)."""
 from __future__ import annotations
 
 from typing import Iterator, Sequence
@@ -14,12 +15,60 @@ from spark_rapids_tpu_torch.expr.core import (Alias, Expression,
                                               eval_device, output_name)
 from spark_rapids_tpu_torch.ops import kernels as dk
 
-__all__ = ["ProjectExec", "FilterExec", "UnionExec", "LocalLimitExec",
-           "GlobalLimitExec"]
+__all__ = ["LocalScanExec", "ProjectExec", "FilterExec", "UnionExec",
+           "LocalLimitExec", "GlobalLimitExec"]
+
+
+class LocalScanExec(PlanNode):
+    """Scan over in-memory Arrow record batches, split into partitions:
+    batch i goes to partition ``i % partitions``, and each is staged to
+    the device as a scan batch is (``ColumnBatch.from_arrow``)."""
+
+    def __init__(self, batches: Sequence, schema: T.Schema,
+                 partitions: int = 1):
+        super().__init__([])
+        self._batches = list(batches)
+        self._schema = schema
+        self._parts = max(partitions, 1)
+
+    @staticmethod
+    def from_pydict(data: dict, schema: T.Schema, partitions: int = 1,
+                    rows_per_batch: int | None = None) -> "LocalScanExec":
+        """Columns of ``data`` (lists or numpy arrays, None for null) in
+        ``schema``'s order, cut into batches of ``rows_per_batch`` rows
+        (one batch by default; an empty one for no rows)."""
+        import pyarrow as pa
+        arrow_schema = schema.to_arrow()
+        cols = [data[f.name] for f in schema]
+        n = len(cols[0]) if cols else 0
+        rpb = rows_per_batch or max(n, 1)
+        batches = []
+        for lo in range(0, max(n, 1), rpb):
+            arrays = [pa.array(list(c[lo:lo + rpb]), type=af.type)
+                      for c, af in zip(cols, arrow_schema)]
+            batches.append(pa.record_batch(arrays, schema=arrow_schema))
+        return LocalScanExec(batches, schema, partitions)
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def num_partitions(self, ctx: ExecCtx) -> int:
+        return self._parts
+
+    def partition_iter(self, ctx: ExecCtx, pid: int) -> Iterator:
+        for i, rb in enumerate(self._batches):
+            if i % self._parts == pid:
+                yield ColumnBatch.from_arrow(rb, ctx.device)
+
+    def node_desc(self) -> str:
+        return f"LocalScanExec[{self._schema.names}]"
 
 
 class ProjectExec(PlanNode):
     """Evaluate bound expressions per batch (GpuProjectExec.project)."""
+
+    combines_batches = False
 
     def __init__(self, exprs: Sequence[Expression], child: PlanNode):
         super().__init__([child])
@@ -73,6 +122,8 @@ class ProjectExec(PlanNode):
 
 class FilterExec(PlanNode):
     """Boolean condition -> compact kept rows (K2)."""
+
+    combines_batches = False
 
     def __init__(self, condition: Expression, child: PlanNode):
         super().__init__([child])
@@ -170,6 +221,8 @@ class LocalLimitExec(PlanNode):
 
 class GlobalLimitExec(PlanNode):
     """Whole-query limit: one output partition (GpuGlobalLimitExec)."""
+
+    combines_batches = False
 
     def __init__(self, limit: int, child: PlanNode):
         super().__init__([child])

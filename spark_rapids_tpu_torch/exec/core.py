@@ -82,6 +82,13 @@ class PlanNode:
     """Base physical operator: ``partition_iter`` yields the device batches
     of one partition; ``output_schema`` is the operator's output schema."""
 
+    #: True when the operator puts several input batches together (a
+    #: concat, a merge, a build side): the planner then hands it mesh
+    #: outputs on the session's device (``plan/overrides.py``
+    #: ``_align_mesh_outputs``).  Per-batch operators (project, filter,
+    #: the global limit) say False and keep their input's placement.
+    combines_batches: bool = True
+
     def __init__(self, children):
         self.children = tuple(children)
 

@@ -50,6 +50,7 @@ SOURCES = {
     "window_range": "window_range.cu",
     "generate": "generate.cu",
     "string_funcs": "string_funcs.cu",
+    "mesh_exchange": "mesh_exchange.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -159,6 +160,10 @@ _SIGNATURES = {
         "srt_char_length": [_P, _P, _P, _L, _I, _P, _P],
         "srt_locate": [_P, _P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                        _P],
+    },
+    "mesh_exchange": {
+        "srt_mesh_pack": [_P, _I, _I, _P, _L, _P, _L, _P],
+        "srt_mesh_unpack": [_P, _I, _I, _L, _L, _P],
     },
 }
 

@@ -4,8 +4,10 @@ rows by partition (K10).
 Port of ``spark_rapids_tpu/parallel/mesh_shuffle.py:50``
 ``partition_ids_for_keys`` (over ``expr/hashing.py`` ``murmur3_val``) and
 ``spark_rapids_tpu/exec/exchange.py:62`` ``_jit_group_by_part`` / ``:83``
-``_jit_slice_part``.  The mesh shuffle itself is Queue 1 item 10; the
-partition id lives here so that the local exchange needs nothing of it.
+``_jit_slice_part``.  The mesh shuffle (``parallel/mesh_shuffle.py``,
+K15) re-exports the partition id and takes K10's permutation and counts
+from :func:`partition_order`; the rest of the distributed plane
+(``cluster/*``, the TCP shuffle) is ROADMAP.md Queue 1 item 10.
 
 * K9, ``csrc/hash_partition.cu``: one thread per row folds every key
   column into the running uint32 murmur3 seed, in key order, and writes
@@ -38,7 +40,7 @@ from spark_rapids_tpu_torch.ops.kernels import (gather_columns, gather_plain,
 
 __all__ = ["partition_ids_for_keys", "partition_ids_plain",
            "murmur3_columns", "group_by_part", "group_by_part_plain",
-           "slice_part", "MAX_PARTS"]
+           "partition_order", "slice_part", "MAX_PARTS"]
 
 #: key kind codes of csrc/hash_partition.cu
 _I8, _I16, _I32, _I64, _F32, _F64, _BOOL, _STR = range(8)
@@ -195,25 +197,40 @@ def group_by_part_plain(batch: ColumnBatch, ids: torch.Tensor,
                         num_parts: int):
     """Plain PyTorch version of :func:`group_by_part` (any device): a
     stable argsort of the ids and a bincount."""
-    b = _buckets(ids, num_parts)
-    perm = torch.argsort(b, stable=True).to(torch.int32)
-    counts = torch.bincount(b, minlength=num_parts + 1)[:num_parts] \
-        .to(torch.int32)
-    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    perm, counts, starts = _order_plain(ids, num_parts)
     cols = gather_plain(batch.columns, perm)
     return (ColumnBatch(cols, batch.num_rows, batch.schema, batch.device),
             counts, starts)
 
 
-def _group_cuda(batch: ColumnBatch, ids: torch.Tensor, num_parts: int):
+def _order_plain(ids: torch.Tensor, num_parts: int):
+    b = _buckets(ids, num_parts)
+    perm = torch.argsort(b, stable=True).to(torch.int32)
+    counts = torch.bincount(b, minlength=num_parts + 1)[:num_parts] \
+        .to(torch.int32)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    return perm, counts, starts
+
+
+def partition_order(ids: torch.Tensor, num_parts: int):
+    """K10 without the gather: ``(perm, counts, starts)``, the stable
+    order of the rows by partition id and int32[num_parts] counts and
+    starts on the ids' device (the mesh shuffle packs the columns itself,
+    K15a).  Its launch counts in ``group_by_part.launches``."""
+    if ids.device.type == "cpu":
+        return _order_plain(ids, num_parts)
+    return _order_cuda(ids, num_parts)
+
+
+def _order_cuda(ids: torch.Tensor, num_parts: int):
     lib = native.lib("partition_group")
-    n = batch.num_rows
-    if ids.dtype != torch.int32 or ids.shape != (n,):
-        raise ValueError(f"ids must be int32[{n}], got {ids.dtype}"
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(f"ids must be int32[n], got {ids.dtype}"
                          f"{tuple(ids.shape)}")
     if not 1 <= num_parts <= MAX_PARTS:
         raise ValueError(f"num_parts must be in [1, {MAX_PARTS}], got "
                          f"{num_parts}")
+    n = ids.shape[0]
     ids = ids.contiguous()
     dev = ids.device
     nt = num_tiles(n)
@@ -228,6 +245,15 @@ def _group_cuda(batch: ColumnBatch, ids: torch.Tensor, num_parts: int):
         ptr(starts), ptr(perm), native.stream_ptr(dev)),
         "srt_partition_group")
     group_by_part.launches += 1
+    return perm, counts, starts
+
+
+def _group_cuda(batch: ColumnBatch, ids: torch.Tensor, num_parts: int):
+    n = batch.num_rows
+    if ids.shape != (n,):
+        raise ValueError(f"ids must be int32[{n}], got {ids.dtype}"
+                         f"{tuple(ids.shape)}")
+    perm, counts, starts = _order_cuda(ids, num_parts)
     cols = gather_columns(batch.columns, perm)
     return (ColumnBatch(cols, n, batch.schema, batch.device), counts,
             starts)

@@ -4,7 +4,7 @@
 ``TorchSession(conf, device="cpu")`` runs the kernels' plain PyTorch
 versions on the CPU (the tests do this).  The DataFrame methods are the
 ones the port's TPC-H, TPC-DS and mortgage query functions use --
-``read_parquet``, ``read_csv``, ``select``, ``where``, ``with_column``,
+``read_parquet``, ``read_csv``, ``from_pydict``, ``select``, ``where``, ``with_column``,
 ``join``, ``union``, ``group_by().agg()``, ``agg``, ``order_by``,
 ``limit``, ``collect``, ``explain`` -- and ``repartition``, ``explode``
 and ``explode_split``; ``select`` takes window
@@ -51,6 +51,16 @@ class TorchSession:
         takes them)."""
         from spark_rapids_tpu_torch.io import CsvScanExec
         return DataFrame(self, L.Scan(CsvScanExec(path, schema=schema, **kw)))
+
+    def from_pydict(self, data: dict, schema: T.Schema, partitions: int = 1,
+                    rows_per_batch: int | None = None) -> "DataFrame":
+        """An in-memory table (reference session.py:553): ``data``'s
+        columns in ``schema``, cut into batches of ``rows_per_batch`` rows
+        dealt round-robin to ``partitions`` partitions, staged through
+        Arrow as a scan batch is."""
+        from spark_rapids_tpu_torch.exec.basic import LocalScanExec
+        return DataFrame(self, L.Scan(LocalScanExec.from_pydict(
+            data, schema, partitions, rows_per_batch)))
 
 
 class DataFrame:

@@ -1288,3 +1288,72 @@ def test_generate_paths_on_cuda_match_cpu(dev, tmp_path):
             [1] * len(counters)
         want = build(TorchSession(device="cpu"), data_dir).collect()
         assert got == want and got
+
+
+def test_mesh_pack_and_unpack_match_their_plain_versions(dev):
+    """K15a and K15b on the card against their plain versions: sources of
+    uneven rows (one empty), string widths that differ by source."""
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    from spark_rapids_tpu_torch.ops.partition import partition_order
+    from spark_rapids_tpu_torch.parallel.mesh_shuffle import count_matrix
+    rng = np.random.default_rng(15)
+    p = 5
+    sources = [ColumnBatch.from_arrow(_record_batch(rng, n), dev)
+               for n in (3000, 0, 17, 40000)]
+    orders = []
+    for b in sources:
+        ids = torch.tensor(rng.integers(0, p, b.num_rows), dtype=torch.int32,
+                           device=dev)
+        orders.append(partition_order(ids, p)[:2] if b.num_rows else
+                      (torch.empty(0, dtype=torch.int32, device=dev),
+                       torch.zeros(p, dtype=torch.int32, device=dev)))
+    matrix = count_matrix([c for _p, c in orders])
+    packs = []
+    for s, (b, (perm, _c)) in enumerate(zip(sources, orders)):
+        buf, layout = ME.mesh_pack(b.columns, perm, matrix[s])
+        assert torch.equal(buf, ME.mesh_pack_plain(b.columns, perm,
+                                                   matrix[s]))
+        packs.append((buf, layout))
+    for d in range(p):
+        segs = [ME.section_columns(buf[sec[d]:sec[d + 1]],
+                                   sources[s].columns, matrix[s][d],
+                                   blocks[d], sec[d])
+                for s, (buf, (sec, blocks)) in enumerate(packs)]
+        counts = [matrix[s][d] for s in range(len(sources))]
+        got = ME.mesh_unpack(segs, counts)
+        want = ME.mesh_unpack_plain(segs, counts)
+        for g, w in zip(got, want):
+            assert torch.equal(g.data.contiguous().view(torch.uint8),
+                               w.data.contiguous().view(torch.uint8))
+            assert torch.equal(g.validity, w.validity)
+            if w.lengths is not None:
+                assert torch.equal(g.lengths, w.lengths)
+
+
+def test_mesh_queries_on_the_card_match_the_cpu(dev, monkeypatch):
+    """A grouped aggregate, a join and a TopN over 8 virtual slots on the
+    card return the CPU's rows."""
+    monkeypatch.setenv("SRT_VIRTUAL_DEVICES", "8")
+    from spark_rapids_tpu_torch.expr.aggregates import CountStar, Sum
+    from spark_rapids_tpu_torch.expr.core import col
+    rng = np.random.default_rng(8)
+    n = 50000
+    data = {"k": rng.integers(0, 300, n).astype(np.int32),
+            "v": rng.integers(-99, 99, n).astype(np.int64)}
+    schema = T.Schema([T.StructField("k", T.IntegerType()),
+                       T.StructField("v", T.LongType())])
+    dim = {"k": np.arange(0, 300, 3, dtype=np.int32),
+           "name": [f"n{i % 7}" for i in range(100)]}
+    dschema = T.Schema([T.StructField("k", T.IntegerType()),
+                        T.StructField("name", T.StringType())])
+    conf = {"spark.rapids.tpu.mesh.deviceCount": 8}
+    out = []
+    for device in (dev, "cpu"):
+        s = TorchSession(conf, device=device)
+        f = s.from_pydict(data, schema, partitions=4, rows_per_batch=8192)
+        d = s.from_pydict(dim, dschema)
+        out.append(f.join(d, on="k").group_by("name")
+                   .agg(Sum(col("v")).alias("sv"), CountStar().alias("c"))
+                   .order_by(("sv", False), ("name", True)).limit(5)
+                   .collect())
+    assert out[0] == out[1] and len(out[0]) == 5
