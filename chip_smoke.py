@@ -102,10 +102,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    rows): K8a must launch on every path, K8b on q1 and simple_agg;
 12. range and round-robin exchanges and bounded-frame min/max: K11
    (range-partition ids) held exactly against its plain version on 2^24
-   stress rows (int32, int64, doubles with NaN/+-0.0/+-inf, bools and
-   strings at W 4 to 64, alone and in 2-3-key mixes, both directions and
-   null orders, P of 2, 8, 200 and 1024; W 16 rows against W 64 bounds;
-   tied bounds; an empty batch) and at path 2's map batch, timed beside
+   stress rows (int8, int16, int32, int64, doubles with NaN/+-0.0/+-inf,
+   bools and strings at W 4 to 64, alone and in 2-3-key mixes, both
+   directions and null orders, P of 2, 8, 200 and 1024; W 16 rows against
+   W 64 bounds, three string keys too; ties on every key but the last; 40
+   keys, whose descriptors leave the kernel's parameters; P 1024 with the
+   bounds' fields in global memory; tied bounds; an empty batch) and at
+   path 2's map batch, timed at two keys and one, through the wrapper and
+   the kernel alone (torch.profiler: one kernel a call), beside
    torch.searchsorted over one packed limb; K12c (min/max over frames
    with a bounded lower edge) exactly against its plain version on the
    2^24-row window stress batch (min and max over int32, int64, f32, f64
@@ -167,8 +171,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    2^24-row exchanges (P 1, 2, 8 and 64; int8 to int64, dates, f32 and
    f64 with NaN, -0.0 and +-inf, bools, strings of W 4 to 256 differing
    between sources, nulls; empty sources, every row to one destination,
-   a 0-row total); then top_customers_mesh (MeshExchangeExec ->
-   MeshAggregateExec -> MeshSortExec(limit 100) over all 28.8M
+   a 0-row total; odd row counts a source, so unaligned heads and tails
+   and spans under 16 bytes; a narrower string source beside equal ones)
+   and K15b alone over all-gathers of shard slices (P 8 and 4096, whose
+   span table leaves the kernel's parameters); then top_customers_mesh
+   (MeshExchangeExec -> MeshAggregateExec -> MeshSortExec(limit 100)
+   over all 28.8M
    store_sales rows), q6_mesh (replicated MeshJoinExecs, two
    MeshAggregateExecs, a TopN), q6_mesh_partitioned (every join
    partitioned: spark.rapids.tpu.mesh.join.buildThresholdBytes=0) and
@@ -178,8 +186,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    mesh_send_overflows 0; K15a and K15b exact and timed at
    top_customers_mesh's and q6_mesh_partitioned's largest shard and
    destination, beside their bounds, plain versions and index_select /
-   torch.cat; K15a and K15b must launch on every mesh path and 0 times
-   over phases 3-14;
+   torch.cat (K15b also its C entry point alone, and the kernel alone
+   where torch.profiler sees device work; phase 12 profiles one K15b
+   call at top_customers_mesh's destination shape: one kernel, no
+   copy); K15a and K15b must launch on every mesh path and 0 times over
+   phases 3-14;
 16. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -240,6 +251,59 @@ def _nbytes(tensors) -> int:
 
 def _bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _device_ms(torch, fn, reps: int = 10):
+    """The device time a call of ``fn`` (ms) for a call that runs each of
+    its kernels and copies once: the sum of their mean times under
+    torch.profiler over ``reps`` warm calls (a mean, so a launch the
+    tracer misses at the window's start does not count); None where the
+    profiler saw no device work (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total / e.count
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count)
+    return total / 1e3 if total > 0 else None
+
+
+def _one_kernel_ms(torch, label: str, fn, needle: str, reps: int = 10):
+    """The device time of ``fn``'s one kernel a call (ms), from
+    torch.profiler over ``reps`` warm calls; raises if a call ran any other
+    device work (a copy, a memset, another kernel) or not exactly one
+    launch of the kernel whose name holds ``needle``.  None where the
+    profiler saw no device work at all (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # one call more than counted: the tracer may miss the window's first
+    # launch, so it must see reps or reps + 1 launches and nothing else
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 1):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        print(f"[{label}] torch.profiler saw no device work: the kernel "
+              "alone not measured", flush=True)
+        return None
+    if len(rows) != 1 or needle not in rows[0][0] \
+            or rows[0][1] not in (reps, reps + 1):
+        raise AssertionError(f"{label}: {reps + 1} calls ran {rows}, not "
+                             f"one {needle} launch each")
+    return rows[0][2] / rows[0][1] / 1e3
 
 
 def _assert_equal_cols(torch, got, want, what: str) -> None:
@@ -3623,6 +3687,11 @@ def _k11_fixed(torch, rng, n: int, kind: str, dev, null_p: float = 0.1):
         v, dt = rng.integers(0, 3, n).astype(np.int32), T.IntegerType()
     elif kind == "int64":
         v, dt = rng.integers(-2 ** 62, 2 ** 62, n), T.LongType()
+    elif kind == "int8":
+        v, dt = rng.integers(-128, 128, n).astype(np.int8), T.ByteType()
+    elif kind == "int16":
+        v, dt = rng.integers(-2 ** 15, 2 ** 15, n).astype(np.int16), \
+            T.ShortType()
     elif kind == "bool":
         v, dt = rng.random(n) < 0.5, T.BooleanType()
     else:
@@ -3660,15 +3729,67 @@ def _k11_same(torch, keys, bounds, what: str) -> None:
                              "version")
 
 
+def _k11_entry_ms(torch, keys, bounds) -> float:
+    """K11's C entry point alone, its descriptors and output prepared
+    once: the launch and the kernel without the wrapper's Python."""
+    from array import array
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import range_partition as RP
+    statics, nfields, fields = bounds.at(bounds.widths(keys))
+    host = array("q", RP.key_descriptors(keys, statics))
+    out = torch.empty(keys[0].capacity, dtype=torch.int32,
+                      device=keys[0].device)
+    lib = native.lib("range_partition")
+    stream = native.stream_ptr(out.device)
+    args = (host.buffer_info()[0], None, len(keys), nfields,
+            fields.data_ptr(), bounds.count, out.numel(), out.data_ptr(),
+            stream)
+    native.check(lib.srt_range_partition(*args), "srt_range_partition")
+    if not torch.equal(out, RP.range_partition_ids(keys, bounds)):
+        raise AssertionError("K11's C entry point alone gave other ids")
+    return _time_ms(torch, lambda: lib.srt_range_partition(*args), reps=50)
+
+
+def _k11_tied(torch, key, bound_col):
+    """Rows of the fixed-width ``key`` whose value equals some bound's
+    (null equals null): the rows for which K11 reads the lower keys."""
+    tie = key.validity & torch.isin(key.data,
+                                    bound_col.data[bound_col.validity])
+    if not bool(bound_col.validity.all()):
+        tie |= ~key.validity
+    return tie
+
+
+def _k11_bytes(torch, keys, bounds) -> tuple:
+    """(bytes, tied rows) K11 must move at ``keys`` against ``bounds``
+    (fixed-width top key): the top key's data and validity read once and
+    the ids written once; the lower keys' leaves only in the 32-byte
+    sectors that hold a row tied with a bound on the top key."""
+    n = keys[0].capacity
+    tied = _k11_tied(torch, keys[0], bounds.cols[0])
+    rows = torch.nonzero(tied).flatten()
+    nbytes = _nbytes(_leaves(keys[:1])) + 4 * n
+    for leaf in _leaves(keys[1:]):
+        row_bytes = leaf.element_size() * (leaf.shape[1] if leaf.dim() > 1
+                                           else 1)
+        nbytes += 32 * int(torch.unique(rows * row_bytes // 32).numel())
+    return nbytes, int(rows.numel())
+
+
 def check_range_partition(torch, dev, rng, data_dir: str) -> dict:
     """K11 exactly against its plain version: 2^24 stress rows of every
-    key type (int32, int64, doubles with NaN/+-0.0/+-inf, bools, strings
-    at W 4 to 64) alone and in 2-3-key mixes, both directions and null
-    orders, P of 2, 8, 200 and 1024; bounds from a wider string column
-    than the rows, tied bounds, an empty batch; and path 2's map batch
-    (one store_sales file's date and net paid, P = 8), where it is timed
-    beside its plain version and torch.searchsorted over one packed limb
-    of the date alone."""
+    key type (int8, int16, int32, int64, doubles with NaN/+-0.0/+-inf,
+    bools, strings at W 4 to 64) alone and in 2-3-key mixes, both
+    directions and null orders, P of 2, 8, 200 and 1024; bounds from a
+    wider string column than the rows (three W 64 string keys against W
+    16 rows too); rows that tie with the bounds on every key but the
+    last; 40 keys, whose descriptors leave the kernel's parameters for a
+    device copy; P 1024 with the bounds' fields in global memory; tied
+    bounds; an empty batch; and path 2's map batch (one store_sales
+    file's date and net paid, P = 8), where it is timed at two keys and
+    at one (the date), through the wrapper and the kernel alone
+    (torch.profiler, which must see one kernel a call), beside its plain
+    version and torch.searchsorted over the date's one packed limb."""
     import pyarrow.parquet as pq
     from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
     from spark_rapids_tpu_torch.ops import kernels as K
@@ -3676,12 +3797,17 @@ def check_range_partition(torch, dev, rng, data_dir: str) -> dict:
     from spark_rapids_tpu_torch.ops.sort import SortOrder, pack_keys
     n = PARTITION_STRESS_ROWS
     cols = {k: _k11_fixed(torch, rng, n, k, dev)
-            for k in ("int32", "int64", "double", "bool", "low")}
+            for k in ("int32", "int64", "double", "bool", "low", "int8",
+                      "int16")}
     for w in (4, 16, 64):
         cols[f"s{w}"] = _k11_string(torch, rng, n, w, dev)
-    cases = [[c] for c in cols] + [
+    extra = ("s16b", "s16c", "s64b", "s64c")
+    for name in extra:
+        cols[name] = _k11_string(torch, rng, n, int(name[1:3]), dev)
+    cases = [[c] for c in cols if c not in extra] + [
         ["double", "int32"], ["s16", "double"], ["bool", "s64", "int64"],
-        ["low", "s4", "double"], ["int64", "low"]]
+        ["low", "s4", "double"], ["int64", "low"], ["int8", "int16"],
+        ["int16", "s16", "int8"]]
     parts_cycle = (2, 8, 200, 1024)
     checked = 0
     for ci, names in enumerate(cases):
@@ -3696,15 +3822,52 @@ def check_range_partition(torch, dev, rng, data_dir: str) -> dict:
             _k11_same(torch, keys, bounds, f"{names} asc={asc} "
                       f"nulls_first={nf} P={parts}")
             checked += 1
-    # bounds from a wider batch: W 64 strings against rows at W 16
-    for names in (["s64"], ["s64", "int32"]):
-        orders = [SortOrder(j, True, True) for j in range(len(names))]
-        wide = [cols[c] for c in names]
-        bounds = _k11_bounds(torch, wide, orders, 200)
-        rows = [cols["s16"]] + [cols[c] for c in names[1:]]
-        _k11_same(torch, rows, bounds, f"W 16 rows against W 64 bounds "
+    # bounds from a wider batch: W 64 strings against rows at W 16, one
+    # key and three string keys
+    for names, rows_of in ((["s64"], ["s16"]),
+                           (["s64", "int32"], ["s16", "int32"]),
+                           (["s64", "s64b", "s64c"], ["s16", "s16b",
+                                                      "s16c"])):
+        for asc in (True, False):
+            orders = [SortOrder(j, asc, not asc) for j in range(len(names))]
+            bounds = _k11_bounds(torch, [cols[c] for c in names], orders,
+                                 200)
+            _k11_same(torch, [cols[c] for c in rows_of], bounds,
+                      f"W 16 rows {rows_of} against W 64 bounds {names} "
+                      f"asc={asc}")
+            checked += 1
+    # rows that tie with the bounds on every key but the last: the upper
+    # keys have 3 x 2 values, the last is (nearly) unique
+    for names in (["low", "bool", "int64"], ["bool", "low", "s64"],
+                  ["low", "int8", "double"]):
+        orders = [SortOrder(j, j % 2 == 0, True) for j in range(len(names))]
+        keys = [cols[c] for c in names]
+        bounds = _k11_bounds(torch, keys, orders, 8)
+        _k11_same(torch, keys, bounds, f"ties on every key but the last "
                   f"{names}")
         checked += 1
+    # 40 keys: the descriptor table leaves the kernel's parameters
+    many = ["low", "bool", "int8", "bool", "low"] * 7 + \
+        ["int16", "bool", "low", "s4", "int32"]
+    orders = [SortOrder(j, j % 3 != 0, j % 2 == 0) for j in range(40)]
+    keys = [cols[c] for c in many]
+    if len(keys) <= RP.PARAM_KEYS:
+        raise AssertionError("K11's device-copy case fits the parameters")
+    bounds = _k11_bounds(torch, keys, orders, 8)
+    _k11_same(torch, keys, bounds, f"{len(keys)} keys (the descriptors' "
+              "device copy)")
+    checked += 1
+    # P 1024 whose bound fields do not fit in 48 KB of shared memory
+    keys = [cols[c] for c in ("low", "s4", "double")]
+    orders = [SortOrder(0, True, True), SortOrder(1, False, True),
+              SortOrder(2, True, False)]
+    bounds = _k11_bounds(torch, keys, orders, 1024)
+    _k11_same(torch, keys, bounds, "P 1024, bounds in global memory")
+    fields = bounds.at(bounds.widths(keys))[2]
+    if fields.numel() * 8 <= RP.SHARED_BYTES:
+        raise AssertionError(f"K11's global-bounds case holds "
+                             f"{fields.numel() * 8} bytes of fields")
+    checked += 1
     # tied bounds (three values, P = 1024) and an empty batch
     keys = [cols["low"]]
     orders = [SortOrder(0, True, True)]
@@ -3716,7 +3879,7 @@ def check_range_partition(torch, dev, rng, data_dir: str) -> dict:
     if RP.range_partition_ids(empty, bounds).numel() != 0:
         raise AssertionError("K11 on an empty batch returned ids")
     checked += 2
-    del cols, keys, bounds, empty
+    del cols, keys, bounds, empty, fields
     torch.cuda.empty_cache()
     # path 2's map batch: the first store_sales file of the default layout
     f = sorted(x for x in os.listdir(os.path.join(data_dir, "store_sales"))
@@ -3729,41 +3892,123 @@ def check_range_partition(torch, dev, rng, data_dir: str) -> dict:
     bounds = _k11_bounds(torch, keys, orders, 8)
     _k11_same(torch, keys, bounds, "path 2's map batch")
     rows = b.num_rows
-    ms = _time_ms(torch, lambda: RP.range_partition_ids(keys, bounds),
-                  reps=20)
-    plain_ms = _time_ms(torch, lambda: RP.range_partition_ids_plain(
-        keys, bounds))
     one = [keys[0]]
     one_bounds = _k11_bounds(torch, one, orders[:1], 8)
-    one_ms = _time_ms(torch, lambda: RP.range_partition_ids(one, one_bounds),
-                      reps=20)
     limb = pack_keys(one, orders[:1])[0]
-    blimb = one_bounds.packed((None,))[:, 0].contiguous()
-    lib_ms = _time_ms(torch, lambda: torch.searchsorted(blimb, limb,
-                                                        side="left"),
-                      reps=20)
+    blimb = pack_keys(one_bounds.cols, orders[:1])[0].contiguous()
     if not torch.equal(torch.searchsorted(blimb, limb, side="left").int(),
                        RP.range_partition_ids(one, one_bounds)):
         raise AssertionError("K11 one-key ids differ from searchsorted over "
                              "the packed limb")
-    # the keys (data and validity) read once, the ids written once
-    nbytes = _nbytes(_leaves(keys)) + 4 * rows
+
+    def two():
+        return RP.range_partition_ids(keys, bounds)
+
+    def one_key():
+        return RP.range_partition_ids(one, one_bounds)
+
+    def library():
+        return torch.searchsorted(blimb, limb, side="left")
+
+    # in turns: two keys, one key, the library call, then again
+    ms, one_ms, lib_ms = [], [], []
+    for _ in range(2):
+        ms.append(_time_ms(torch, two, reps=50))
+        one_ms.append(_time_ms(torch, one_key, reps=50))
+        lib_ms.append(_time_ms(torch, library, reps=50))
+    ms, one_ms, lib_ms = min(ms), min(one_ms), min(lib_ms)
+    plain_ms = _time_ms(torch, lambda: RP.range_partition_ids_plain(
+        keys, bounds))
+    one_plain_ms = _time_ms(torch, lambda: RP.range_partition_ids_plain(
+        one, one_bounds))
+    c_ms = _k11_entry_ms(torch, keys, bounds)
+    one_c_ms = _k11_entry_ms(torch, one, one_bounds)
+    kernel_ms = _one_kernel_ms(torch, "K11 two keys", two,
+                               "range_ids_kernel")
+    one_kernel_ms = _one_kernel_ms(torch, "K11 one key", one_key,
+                                   "range_ids_kernel")
+    lib_device_ms = _device_ms(torch, library)
+    # the top key (data and validity) read once, the ids written once, the
+    # net paid only where a row ties a bound's date
+    nbytes, tied = _k11_bytes(torch, keys, bounds)
+    one_bytes, _ = _k11_bytes(torch, one, one_bounds)
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f}"
     print(f"[K11 range partition] checked {checked} cases exactly against "
           f"the plain version (2^24 stress rows; every key type alone and "
-          f"in 2-3-key mixes, both directions and null orders, P 2/8/200/"
-          f"1024; W 16 rows against W 64 bounds; tied bounds; an empty "
-          f"batch) and path 2's map batch; timed rows={rows} (date asc "
-          f"nulls first, net paid desc, P=8) ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} bound_ms={_bound_ms(nbytes):.4f}; one key (the "
-          f"date) ms={one_ms:.4f} library_ms={lib_ms:.4f} "
-          f"(torch.searchsorted over its one packed limb, the packing "
-          f"apart: same ids)", flush=True)
+          f"in 2-3-key mixes, int8 and int16 too, both directions and null "
+          f"orders, P 2/8/200/1024; W 16 rows against W 64 bounds, three "
+          f"string keys too; ties on every key but the last; 40 keys (the "
+          f"descriptors' device copy); P 1024 with the bounds in global "
+          f"memory; tied bounds; an empty batch) and path 2's map batch; "
+          f"timed rows={rows} (date asc nulls first, net paid desc, P=8) "
+          f"ms={ms:.4f} (the C entry point alone {c_ms:.4f}, the kernel "
+          f"alone {fmt(kernel_ms)}) plain_ms="
+          f"{plain_ms:.4f} bound_ms={_bound_ms(nbytes):.4f} ({nbytes} "
+          f"bytes: the date, its validity and the ids, the net paid's "
+          f"sectors for the {tied} rows tied with a bound's date) "
+          f"library_ms=none (the two keys pack into two limbs: no "
+          f"one PyTorch call searches them); one key (the date) ms="
+          f"{one_ms:.4f} (the C entry point alone {one_c_ms:.4f}, the "
+          f"kernel alone {fmt(one_kernel_ms)}) plain_ms="
+          f"{one_plain_ms:.4f} bound_ms={_bound_ms(one_bytes):.4f} "
+          f"library_ms={lib_ms:.4f} (torch.searchsorted over its one "
+          f"packed limb, the packing apart: same ids; its device time "
+          f"{fmt(lib_device_ms)}); the best of two rounds in turns, 50 "
+          f"calls each", flush=True)
     return dict(name="range_partition_ids", route="cuda",
                 source="spark_rapids_tpu_torch/csrc/range_partition.cu",
                 replaces="spark_rapids_tpu/exec/partitioning.py:258",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms)
+                library_ms=None, kernel_ms=kernel_ms, entry_ms=c_ms,
+                tied_rows=tied, one_key_ms=one_ms,
+                one_key_kernel_ms=one_kernel_ms, one_key_entry_ms=one_c_ms,
+                one_key_plain_ms=one_plain_ms,
+                one_key_bound_ms=_bound_ms(one_bytes),
+                one_key_library_ms=lib_ms,
+                one_key_library_kernel_ms=lib_device_ms)
+
+
+def profile_unpack(torch, dev) -> None:
+    """One K15b call under torch.profiler, here beside K11's (later in the
+    run the tracer has seen no device work): an all-gather's 8 shard
+    slices of 4,621,613 int32 rows, top_customers_mesh's destination
+    shape; it must run one kernel a call and no copy of its span table.
+    A check call: K15b's count is put back, so that phases 3-14 still
+    read 0 launches."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    n = 4_621_613
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    col = DeviceColumn(
+        torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen, device=dev,
+                      dtype=torch.int32),
+        torch.rand(n, generator=gen, device=dev) < 0.9, T.IntegerType())
+    cuts = [i * n // 8 + (i % 3) for i in range(8)] + [n]
+    segs = [[DeviceColumn(col.data[a:b], col.validity[a:b], col.dtype)]
+            for a, b in zip(cuts, cuts[1:])]
+    counts = [b - a for a, b in zip(cuts, cuts[1:])]
+    saved = ME.mesh_unpack.launches
+    _k15_bytes_same(torch, ME.mesh_unpack(segs, counts),
+                    ME.mesh_unpack_plain(segs, counts), "K15b probe")
+    ms = _one_kernel_ms(torch, "K15b probe", lambda: ME.mesh_unpack(
+        segs, counts), "unpack_kernel")
+    ME.mesh_unpack.launches = saved
+    cat_ms = _device_ms(torch, lambda: [
+        torch.cat([s[0].data for s in segs]),
+        torch.cat([s[0].validity for s in segs])])
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f}"
+    print(f"[K15b profile] 8 shard slices, {n} int32 rows, a "
+          f"{_k15_table_words(torch, segs, counts)}-word span table: one "
+          f"unpack_kernel a call and no copy, the kernel alone {fmt(ms)} "
+          f"ms; torch.cat of every leaf {fmt(cat_ms)} ms of device time",
+          flush=True)
 
 
 def _k12c_same(torch, W, op, col, lo, hi, what: str) -> None:
@@ -4093,6 +4338,8 @@ def run_partition_phase(torch, dev, warm: int):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     entries = {"range_partition_ids": check_range_partition(
         torch, dev, np.random.default_rng(11), data_dir)}
+    torch.cuda.empty_cache()
+    profile_unpack(torch, dev)
     torch.cuda.empty_cache()
     entries["frame_min_max"] = check_frame_min_max(
         torch, dev, np.random.default_rng(12))
@@ -5269,10 +5516,13 @@ def _k15_bytes_same(torch, got, want, what: str) -> None:
                                      "plain version")
 
 
-def _k15_check(torch, sources, ids, p: int, what: str) -> int:
+def _k15_check(torch, sources, ids, p: int, what: str,
+               branches=None) -> int:
     """K15a and K15b against their plain versions over one exchange of
     ``sources`` by ``ids`` into ``p`` destinations: every send buffer
-    byte for byte, every destination's columns; returns the calls."""
+    byte for byte, every destination's columns; returns the calls and
+    adds the K15b tables' branches (:func:`_table_branch`) to
+    ``branches``."""
     from spark_rapids_tpu_torch.ops import mesh_exchange as ME
     from spark_rapids_tpu_torch.ops.partition import partition_order
     from spark_rapids_tpu_torch.parallel.mesh_shuffle import count_matrix
@@ -5308,37 +5558,130 @@ def _k15_check(torch, sources, ids, p: int, what: str) -> int:
         _k15_bytes_same(torch, ME.mesh_unpack(segs, counts),
                         ME.mesh_unpack_plain(segs, counts),
                         f"{what}: destination {d}")
+        if branches is not None and sum(counts):
+            branches.add(_table_branch(_k15_table_words(torch, segs,
+                                                        counts)))
         calls += 1
     return calls
+
+
+def _k15_table_words(torch, segments, counts) -> int:
+    """Words of K15b's span table for one destination (host only)."""
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    out = ME.unpack_outputs(segments, counts, segments[0][0].data.device)
+    return len(ME.unpack_plan(segments, counts, out)[0])
+
+
+def _k15_gather_check(torch, shards, what: str) -> int:
+    """K15b over shard columns (an all-gather's segments, no K15a)
+    against its plain version; returns the table's words."""
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    segs = [b.columns for b in shards]
+    counts = [b.num_rows for b in shards]
+    _k15_bytes_same(torch, ME.mesh_unpack(segs, counts),
+                    ME.mesh_unpack_plain(segs, counts), what)
+    return _k15_table_words(torch, segs, counts)
 
 
 def _k15_stress(torch, dev) -> int:
     """K15a/K15b exactly against their plain versions on 2^24-row
     exchanges: P 1, 2, 8 and 64; empty sources; every row to one
-    destination; a 0-row total."""
+    destination; a 0-row total; odd row counts a source (unaligned heads
+    and tails of 1-, 2-, 4- and 8-byte columns, spans under 16 bytes,
+    0-row sources between non-empty ones); a narrower string source
+    beside sources of equal W; and K15b alone over shard columns (an
+    all-gather: slices at odd row offsets, P 8 and P 4096, whose span
+    table leaves the kernel's parameters).  The span tables of the cases
+    take all three of the kernel's table branches (small and large
+    parameters, a device copy)."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
     calls = 0
-    cases = (("P=1", 1, [_K15_ROWS], None),
-             ("P=2", 2, [_K15_ROWS // 4, 3 * _K15_ROWS // 4], None),
+    odd = [1_000_003, 7, 0, 2_000_001, 3, 999_999, 1, 1_048_577]
+    cases = (("P=1", 1, [_K15_ROWS], None, _K15_WIDTHS),
+             ("P=2", 2, [_K15_ROWS // 4, 3 * _K15_ROWS // 4], None,
+              _K15_WIDTHS),
              ("P=8, empty sources", 8,
               [0, _K15_ROWS // 4, _K15_ROWS // 8, 0, _K15_ROWS // 8,
-               _K15_ROWS // 4, _K15_ROWS // 8, _K15_ROWS // 8], None),
-             ("P=8, every row to slot 5", 8, [_K15_ROWS // 8] * 8, 5),
-             ("P=64", 64, [_K15_ROWS // 64] * 64, None),
-             ("P=8, 0 rows", 8, [0] * 8, None))
-    for what, p, sizes, only in cases:
-        sources = [_k15_source(torch, gen, n, _K15_WIDTHS[s % 8], dev)
+               _K15_ROWS // 4, _K15_ROWS // 8, _K15_ROWS // 8], None,
+              _K15_WIDTHS),
+             ("P=8, every row to slot 5", 8, [_K15_ROWS // 8] * 8, 5,
+              _K15_WIDTHS),
+             ("P=64", 64, [_K15_ROWS // 64] * 64, None, _K15_WIDTHS),
+             ("P=8, 0 rows", 8, [0] * 8, None, _K15_WIDTHS),
+             ("P=8, odd rows a source", 8, odd, None, _K15_WIDTHS),
+             ("P=4, a narrower string source", 4,
+              [_K15_ROWS // 8 + 5, _K15_ROWS // 8 + 1, _K15_ROWS // 8 + 3,
+               _K15_ROWS // 8], None, (64, 64, 16, 64)))
+    branches = set()
+    for what, p, sizes, only, widths in cases:
+        sources = [_k15_source(torch, gen, n, widths[s % len(widths)], dev)
                    for s, n in enumerate(sizes)]
         ids = [torch.full((b.num_rows,), only, dtype=torch.int32,
                           device=dev) if only is not None else
                torch.randint(0, p, (b.num_rows,), generator=gen,
                              device=dev, dtype=torch.int32)
                for b in sources]
-        calls += _k15_check(torch, sources, ids, p, what)
+        calls += _k15_check(torch, sources, ids, p, what, branches)
         del sources, ids
         torch.cuda.empty_cache()
+    # all-gathers of shard columns: slices at odd row offsets
+    src = _k15_source(torch, gen, 1 << 22, 32, dev)
+    cuts = [0, 3, 3, 1_000_004, 1_000_005, 2_500_001, 2_500_001, 4_000_000,
+            1 << 22]
+    shards = [K.slice_rows(src, lo, hi) for lo, hi in zip(cuts, cuts[1:])]
+    branches.add(_table_branch(_k15_gather_check(
+        torch, shards, "all-gather of 8 shard slices")))
+    cuts = [0] + sorted(int(x) for x in torch.randint(
+        0, 1 << 22, (4095,), generator=gen, device=dev).tolist()) + [1 << 22]
+    shards = [K.slice_rows(src, lo, hi) for lo, hi in zip(cuts, cuts[1:])]
+    words = _k15_gather_check(torch, shards, "all-gather of 4096 shard "
+                              "slices")
+    if words <= ME.UNPACK_PARAM_WORDS:
+        raise AssertionError(f"K15b's P 4096 table of {words} words fits "
+                             "the parameters")
+    branches.add(_table_branch(words))
+    calls += 2
+    if branches != {"small", "large", "device"}:
+        raise AssertionError(f"K15b's stress took table branches "
+                             f"{sorted(branches)}")
+    del src, shards
+    torch.cuda.empty_cache()
     return calls
+
+
+def _table_branch(words: int) -> str:
+    """Where K15b's kernel reads a table of ``words`` words
+    (csrc/mesh_exchange.cu srt_mesh_unpack)."""
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    if words <= ME.UNPACK_SMALL_WORDS:
+        return "small"
+    return "large" if words <= ME.UNPACK_PARAM_WORDS else "device"
+
+
+def _k15_entry_ms(torch, segments, counts) -> float:
+    """K15b's C entry point alone, its span table and outputs prepared
+    once (a table that fits the kernel's parameters): the launch and the
+    kernel without the wrapper's Python."""
+    from array import array
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    from spark_rapids_tpu_torch.ops import native
+    dev = segments[0][0].data.device
+    out = ME.unpack_outputs(segments, counts, dev)
+    words, nspans, ntiles = ME.unpack_plan(segments, counts, out)
+    if len(words) > ME.UNPACK_PARAM_WORDS:
+        raise AssertionError("K15b's timed table does not fit the "
+                             "parameters")
+    host = array("q", words)
+    lib = native.lib("mesh_exchange")
+    args = (host.buffer_info()[0], len(words), nspans, ntiles, None,
+            native.stream_ptr(dev))
+    native.check(lib.srt_mesh_unpack(*args), "srt_mesh_unpack")
+    _k15_bytes_same(torch, out, ME.mesh_unpack_plain(segments, counts),
+                    "K15b's C entry point alone")
+    return _time_ms(torch, lambda: lib.srt_mesh_unpack(*args), reps=20)
 
 
 class _K15Recorder:
@@ -5403,27 +5746,44 @@ def _k15_time(torch, label: str, rec) -> dict:
     out = ME.mesh_unpack(segs, ucounts)
     seg_leaves = [t for s in segs for t in _leaves(s)]
     unpack_bytes = _nbytes(seg_leaves) + _nbytes(_leaves(out))
-    unpack_ms = _time_ms(torch, lambda: ME.mesh_unpack(segs, ucounts),
-                         reps=20)
-    unpack_plain = _time_ms(torch, lambda: ME.mesh_unpack_plain(segs,
-                                                                ucounts))
+
+    def unpack():
+        return ME.mesh_unpack(segs, ucounts)
+
+    def unpack_plain():
+        return ME.mesh_unpack_plain(segs, ucounts)
 
     def cat():
         return [torch.cat([s[j].data for s in segs]) for j in
                 range(len(segs[0]))] + \
             [torch.cat([s[j].validity for s in segs]) for j in
              range(len(segs[0]))]
-    unpack_lib = _time_ms(torch, cat, reps=20)
+    # in turns: kernel, plain, library, then again; the best of two
+    times = {unpack: [], unpack_plain: [], cat: []}
+    for _ in range(2):
+        for fn in times:
+            times[fn].append(_time_ms(torch, fn, reps=20))
+    unpack_ms, unpack_plain, unpack_lib = (min(times[f]) for f in
+                                           (unpack, unpack_plain, cat))
+    unpack_kernel = _one_kernel_ms(torch, f"{label} K15b", unpack,
+                                   "unpack_kernel")
+    words = _k15_table_words(torch, segs, ucounts)
+    unpack_entry = _k15_entry_ms(torch, segs, ucounts)
     n, total = perm.numel(), sum(ucounts)
     print(f"[{label} K15a] one shard, {n} rows x {len(cols)} columns into "
           f"{len(counts)} sections ({buf.numel()} bytes): ms={pack_ms:.4f} "
           f"plain_ms={pack_plain:.4f} library_ms={pack_lib:.4f} "
           f"(index_select of every leaf) bound_ms="
           f"{_bound_ms(pack_bytes):.4f} ({pack_bytes} bytes)", flush=True)
+    alone = "not measured by torch.profiler" if unpack_kernel is None \
+        else f"{unpack_kernel:.4f}"
     print(f"[{label} K15b] one destination, {len(segs)} segments, {total} "
-          f"rows: ms={unpack_ms:.4f} plain_ms={unpack_plain:.4f} "
-          f"library_ms={unpack_lib:.4f} (torch.cat of every leaf) "
-          f"bound_ms={_bound_ms(unpack_bytes):.4f} ({unpack_bytes} bytes)",
+          f"rows, a {words}-word span table ({_table_branch(words)}): "
+          f"ms={unpack_ms:.4f} (the C entry point alone "
+          f"{unpack_entry:.4f}, the kernel alone {alone}) plain_ms="
+          f"{unpack_plain:.4f} library_ms={unpack_lib:.4f} (torch.cat of "
+          f"every leaf) bound_ms={_bound_ms(unpack_bytes):.4f} "
+          f"({unpack_bytes} bytes); the best of two rounds in turns",
           flush=True)
     return {
         "mesh_pack": dict(
@@ -5439,7 +5799,8 @@ def _k15_time(torch, label: str, rec) -> dict:
             replaces="spark_rapids_tpu/parallel/mesh_shuffle.py:114",
             max_abs_err=0.0, ms=unpack_ms, plain_ms=unpack_plain,
             bound_ms=_bound_ms(unpack_bytes), bound_by="bytes",
-            library_ms=unpack_lib)}
+            library_ms=unpack_lib, kernel_ms=unpack_kernel,
+            entry_ms=unpack_entry)}
 
 
 def run_mesh_phase(torch, dev, sf: float, warm: int):
@@ -5457,9 +5818,11 @@ def run_mesh_phase(torch, dev, sf: float, warm: int):
     calls = _k15_stress(torch, dev)
     print(f"[mesh] K15a/K15b: {calls} stress calls over 2^24-row "
           f"exchanges (P 1, 2, 8, 64; W {sorted(set(_K15_WIDTHS))} by "
-          f"source; empty sources, one destination, 0 rows) in "
-          f"{time.perf_counter() - t0:.1f} s: equal to the plain versions",
-          flush=True)
+          f"source; empty sources, one destination, 0 rows; odd rows a "
+          f"source; a narrower string source beside equal ones) and K15b "
+          f"over all-gathers of shard slices (P 8 and 4096) in "
+          f"{time.perf_counter() - t0:.1f} s: equal to the plain versions, "
+          f"every span-table branch taken", flush=True)
     q6, _tables = TPCDS_QUERIES["q6"]
     tpcds_dir = os.path.join(ROOT, ".bench_data",
                              f"tpcds_sf{Q6_SF:g}_seed42_default")
@@ -5657,6 +6020,8 @@ def main(argv=None) -> int:
         row = {k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        row.update({k: v for k, v in e.items() if k.startswith(
+            ("kernel_ms", "entry_ms", "one_key_"))})
         row["launches_by_path"] = {p: c[counters[0]]
                                    for p, c in by_path.items()}
         row["launches_by_counter"] = {

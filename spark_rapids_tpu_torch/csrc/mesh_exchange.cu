@@ -22,20 +22,40 @@
 // section of a K15a send buffer or a shard's own columns, so an all-gather
 // needs no K15a.
 //
-// Both kernels are one launch for all columns: blockIdx.y is the column,
-// and a device-side int64 table (written by the wrapper, ops/
-// mesh_exchange.py) holds the row prefix of the destinations (K15a) or of
-// the sources (K15b), each column's pointers and row widths, and (K15a) the
-// byte offsets of every (destination, column) block.  A thread moves one
-// `vec`-byte chunk of one row: 16 bytes where the row width and every base
-// address allow it; the row's validity and length go with its chunk 0.
-// Its row's section (K15a) or source (K15b) comes from a binary search of
-// the prefix, kept in shared memory.
+// K15a is one launch for all columns: blockIdx.y is the column, and a
+// device-side int64 table (written by the wrapper, ops/mesh_exchange.py)
+// holds the row prefix of the destinations, each column's pointers and row
+// widths, and the byte offsets of every (destination, column) block.  A
+// thread moves one `vec`-byte chunk of one row: 16 bytes where the row
+// width and every base address allow it; the row's validity and length go
+// with its chunk 0.  Its row's section comes from a binary search of the
+// prefix, kept in shared memory.
+//
+// K15b is a batched copy of spans, one launch for all columns.  For one
+// destination every (column, source) block -- data, lengths, validity --
+// whose row width equals the output's is one contiguous byte range, so the
+// host lists the spans (src, dst, rows, src_w, dst_w; ops/mesh_exchange.py
+// `unpack_plan`) and cuts each into tiles of kTileBytes output bytes (a
+// string or array source narrower than the output W is a row-padded span:
+// src_w bytes a row copied, the rest zeroed, whole rows a tile).  A block
+// takes one tile at a time; one thread finds its span by a binary search of
+// the tile prefix and the block copies it: 16-byte stores on the aligned
+// body of the destination (a destination at prefix[s] * row_bytes is in
+// general not 16-byte aligned), bytes on the unaligned head and tail, and
+// the source realigned with funnel shifts from two aligned 16-byte loads
+// where its misalignment differs from the destination's.  Those loads read
+// whole aligned 16-byte granules that hold at least one byte of the span,
+// so they stay inside the source's allocation.  The span table travels by
+// value in the kernel's parameters (__grid_constant__, two sizes; sm_90
+// with CUDA 12.1+ takes up to 32,764 bytes), or, where it is longer, as a
+// device copy the wrapper makes: no pinned copy per call.
 //
 // Bound on the H100: bytes.  Each input row is read once and each output
 // row written once (K15a reads its rows through the permutation, so its
 // reads are as scattered as K10's order of the rows; its writes and all of
 // K15b's reads and writes are sequential).
+#include <cstring>
+
 #include "common.cuh"
 
 namespace srt_mesh {
@@ -46,11 +66,6 @@ using namespace srt;
 // then per column kPackDesc words, then per (destination, column) three
 // byte offsets into the send buffer (data, lengths, validity).
 constexpr int kPackDesc = 5;  // data, validity, lengths, row_bytes, vec
-// K15b table: prefix[P + 1] (output rows of each source), then per column
-// kOutDesc words, then per (column, source) kSegDesc words.
-constexpr int kOutDesc = 5;  // out data, out validity, out lengths,
-                             // out row_bytes, vec
-constexpr int kSegDesc = 4;  // data, validity, lengths, row_bytes
 
 // Largest d in [0, P) with prefix[d] <= i: for i below prefix[P], the
 // segment that holds row i (empty segments share their start with the
@@ -77,16 +92,6 @@ __device__ __forceinline__ void copy_chunk(uint8_t* dst, const uint8_t* src,
     case 2: *reinterpret_cast<uint16_t*>(dst) =
         *reinterpret_cast<const uint16_t*>(src); break;
     default: *dst = *src; break;
-  }
-}
-
-__device__ __forceinline__ void zero_chunk(uint8_t* dst, int vec) {
-  switch (vec) {
-    case 16: *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0); break;
-    case 8: *reinterpret_cast<unsigned long long*>(dst) = 0ull; break;
-    case 4: *reinterpret_cast<uint32_t*>(dst) = 0u; break;
-    case 2: *reinterpret_cast<uint16_t*>(dst) = 0; break;
-    default: *dst = 0; break;
   }
 }
 
@@ -139,43 +144,133 @@ __global__ void pack_kernel(const long long* __restrict__ tab, int P,
   }
 }
 
-__global__ void unpack_kernel(const long long* __restrict__ tab, int P,
-                              int ncols, long long total) {
-  extern __shared__ long long prefix[];  // P + 1
-  for (int s = threadIdx.x; s <= P; s += blockDim.x) prefix[s] = tab[s];
-  __syncthreads();
-  const int j = blockIdx.y;
-  const long long* od = tab + (P + 1) + (long long)j * kOutDesc;
-  uint8_t* dst = reinterpret_cast<uint8_t*>(od[0]);
-  uint8_t* dst_valid = reinterpret_cast<uint8_t*>(od[1]);
-  int32_t* dst_len = reinterpret_cast<int32_t*>(od[2]);
-  const int rb = (int)od[3];
-  const int vec = (int)od[4];
-  const int chunks = rb / vec;
-  const long long* segs = tab + (P + 1) + (long long)ncols * kOutDesc
-      + (long long)j * P * kSegDesc;
-  const long long work = total * chunks;
-  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       w < work; w += (long long)gridDim.x * blockDim.x) {
-    const long long i = w / chunks;
-    const int k = (int)(w - i * chunks);
-    const int s = find_segment(prefix, P, i);
-    const long long r = i - prefix[s];
-    const long long* sd = segs + (long long)s * kSegDesc;
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(sd[0]);
-    const int src_rb = (int)sd[3];
-    uint8_t* to = dst + i * rb + (long long)k * vec;
-    if ((long long)k * vec < src_rb)
-      copy_chunk(to, src + r * src_rb + (long long)k * vec, vec);
-    else
-      zero_chunk(to, vec);
-    if (k == 0) {
-      dst_valid[i] =
-          reinterpret_cast<const uint8_t*>(sd[1])[r] != 0 ? 1 : 0;
-      if (dst_len != nullptr)
-        dst_len[i] = reinterpret_cast<const int32_t*>(sd[2])[r];
+// K15b: the span table holds kSpanWords words a span (src, dst, rows,
+// src_w, dst_w), then the first tile of each span and the tile count.
+constexpr int kSpanWords = 5;
+constexpr long long kTileBytes = 32 * 1024;
+constexpr int kUnpackSmallWords = 480;   // 3,840 bytes of parameters
+constexpr int kUnpackLargeWords = 4000;  // 32,000 bytes
+
+template <int kWords>
+struct UnpackParams {
+  const long long* dev;  // non-null: the table is here
+  long long ntiles;
+  int nspans;
+  long long w[kWords];
+};
+
+// Bytes [sh, sh + 16) of the 32 bytes a:b (little endian).
+__device__ __forceinline__ uint4 shift_bytes(const uint4 a, const uint4 b,
+                                             int sh) {
+  const unsigned r = 8u * (unsigned)(sh & 3);
+#define SRT_F(lo, hi) __funnelshift_r((lo), (hi), r)
+  switch (sh >> 2) {
+    case 0: return make_uint4(SRT_F(a.x, a.y), SRT_F(a.y, a.z),
+                              SRT_F(a.z, a.w), SRT_F(a.w, b.x));
+    case 1: return make_uint4(SRT_F(a.y, a.z), SRT_F(a.z, a.w),
+                              SRT_F(a.w, b.x), SRT_F(b.x, b.y));
+    case 2: return make_uint4(SRT_F(a.z, a.w), SRT_F(a.w, b.x),
+                              SRT_F(b.x, b.y), SRT_F(b.y, b.z));
+    default: return make_uint4(SRT_F(a.w, b.x), SRT_F(b.x, b.y),
+                               SRT_F(b.y, b.z), SRT_F(b.z, b.w));
+  }
+#undef SRT_F
+}
+
+// The block copies n bytes from src to dst.
+__device__ __forceinline__ void copy_range(uint8_t* dst, const uint8_t* src,
+                                           int n) {
+  int head = (int)((16 - ((uintptr_t)dst & 15)) & 15);
+  if (head > n) head = n;
+  const int body = (n - head) >> 4;  // 16-byte aligned destination chunks
+  const int tail = head + 16 * body;
+  const int t = threadIdx.x;
+  if (t < head) dst[t] = src[t];
+  if (tail + t < n) dst[tail + t] = src[tail + t];
+  uint4* d = reinterpret_cast<uint4*>(dst + head);
+  const uint8_t* s = src + head;
+  const int sh = (int)((uintptr_t)s & 15);
+  if (sh == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(s);
+#pragma unroll 4
+    for (int i = t; i < body; i += kThreads) d[i] = s4[i];
+  } else {
+    const uint4* s4 = reinterpret_cast<const uint4*>(s - sh);
+#pragma unroll 4
+    for (int i = t; i < body; i += kThreads)
+      d[i] = shift_bytes(s4[i], s4[i + 1], sh);
+  }
+}
+
+// The block copies nr rows of sw bytes into rows of dw bytes, zeroing the
+// dw - sw bytes past each.
+__device__ __forceinline__ void copy_padded(uint8_t* dst, const uint8_t* src,
+                                            int nr, int sw, int dw) {
+  const long long total = (long long)nr * dw;
+  int row = threadIdx.x / dw, col = threadIdx.x % dw;
+  const int q = kThreads / dw, rem = kThreads % dw;
+  for (long long o = threadIdx.x; o < total; o += kThreads) {
+    dst[o] = col < sw ? src[(long long)row * sw + col] : 0;
+    row += q;
+    col += rem;
+    if (col >= dw) {
+      col -= dw;
+      ++row;
     }
   }
+}
+
+template <int kWords>
+__global__ void __launch_bounds__(kThreads)
+unpack_kernel(const __grid_constant__ UnpackParams<kWords> p) {
+  __shared__ int s_span;
+  const long long* tab = p.dev != nullptr ? p.dev : p.w;
+  const long long* start = tab + (long long)p.nspans * kSpanWords;
+  for (long long t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+    if (threadIdx.x == 0) {  // the last span whose first tile is <= t
+      int lo = 0, hi = p.nspans - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (start[mid] <= t) lo = mid; else hi = mid - 1;
+      }
+      s_span = lo;
+    }
+    __syncthreads();
+    const int s = s_span;
+    const long long* sp = tab + (long long)s * kSpanWords;
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(sp[0]);
+    uint8_t* dst = reinterpret_cast<uint8_t*>(sp[1]);
+    const long long rows = sp[2], sw = sp[3], dw = sp[4];
+    const long long k = t - start[s];
+    if (sw == dw) {
+      const long long lo = k * kTileBytes;
+      const long long rest = rows * dw - lo;
+      copy_range(dst + lo, src + lo,
+                 (int)(rest < kTileBytes ? rest : kTileBytes));
+    } else {
+      const long long per = kTileBytes / dw > 0 ? kTileBytes / dw : 1;
+      const long long r0 = k * per;
+      const long long nr = rows - r0 < per ? rows - r0 : per;
+      copy_padded(dst + r0 * dw, src + r0 * sw, (int)nr, (int)sw, (int)dw);
+    }
+    __syncthreads();  // s_span is rewritten for the next tile
+  }
+}
+
+template <int kWords>
+int launch_unpack(const void* words, int64_t nwords, int nspans,
+                  int64_t ntiles, const void* words_dev,
+                  cudaStream_t stream) {
+  UnpackParams<kWords> p;
+  p.dev = static_cast<const long long*>(words_dev);
+  p.ntiles = ntiles;
+  p.nspans = nspans;
+  if (words_dev == nullptr)
+    std::memcpy(p.w, words, sizeof(long long) * (size_t)nwords);
+  const long long cap = 132 * 16;
+  const int grid = (int)(ntiles < cap ? ntiles : cap);
+  unpack_kernel<kWords><<<grid, kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 inline int grid_x(long long work, int ncols) {
@@ -205,18 +300,38 @@ int srt_mesh_pack(const void* tab, int P, int ncols, const void* perm,
   return (int)cudaGetLastError();
 }
 
-// K15b: tab is the device table described above; total the summed rows
-// of the P sources.
-int srt_mesh_unpack(const void* tab, int P, int ncols, int64_t total,
-                    int64_t max_chunks, void* stream) {
-  if (P < 1 || P > 4096 || ncols < 1 || ncols > 65535)
+// K15b: words is the host span table described above (nwords = 6 * nspans
+// + 1 words: ops/mesh_exchange.py `unpack_plan`), copied into the
+// kernel's parameters; words_dev, when not null, a device copy of it that
+// the kernel reads instead (the wrapper makes one where nwords exceeds
+// kUnpackLargeWords).
+int srt_mesh_unpack(const void* words, int64_t nwords, int nspans,
+                    int64_t ntiles, const void* words_dev, void* stream) {
+  if (nspans < 1 || ntiles < 1 || nwords != 6ll * nspans + 1 ||
+      (words == nullptr && words_dev == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (total == 0) return (int)cudaGetLastError();
-  dim3 grid(grid_x(total * max_chunks, ncols), ncols);
-  unpack_kernel<<<grid, kThreads, (P + 1) * sizeof(long long),
-                  (cudaStream_t)stream>>>(
-      (const long long*)tab, P, ncols, total);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (words_dev != nullptr)
+    return launch_unpack<1>(words, nwords, nspans, ntiles, words_dev, st);
+  if (nwords <= kUnpackSmallWords)
+    return launch_unpack<kUnpackSmallWords>(words, nwords, nspans, ntiles,
+                                            nullptr, st);
+  if (nwords <= kUnpackLargeWords)
+    return launch_unpack<kUnpackLargeWords>(words, nwords, nspans, ntiles,
+                                            nullptr, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The constants the Python wrapper shares with this file, in the order of
+// ops/mesh_exchange.py's ``native.share_limits`` call: words a span,
+// output bytes a tile, table words of the small and the large parameter
+// struct.  Writes the first n of them.
+int srt_mesh_exchange_limits(int64_t* out, int n) {
+  const int64_t v[] = {kSpanWords, kTileBytes, kUnpackSmallWords,
+                       kUnpackLargeWords};
+  for (int i = 0; i < n && i < (int)(sizeof(v) / sizeof(v[0])); ++i)
+    out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -6,26 +6,16 @@
 // and the encoded key words.
 //
 // Design:
-//   * encode_kernel maps each key column to order-preserving unsigned bit
-//     fields and packs all of them, most significant key first, into one
-//     wide integer per row, stored as 64-bit limbs (limb-major, limb 0
-//     least significant).  Per column, from most to least significant:
-//     the null indicator (1 bit), then
-//       ints/date/timestamp: value with the sign bit flipped (8*size bits);
-//       bool: 1 bit;
-//       floats: a NaN flag (1 bit), then the value with NaN and -0.0
-//         mapped to +0.0, negated when descending, in the usual
-//         sign-flip float encoding (32 or 64 bits);
-//       strings: the byte matrix as big-endian 32-bit words, then the
-//         length (bit_length(W) bits), at a packed width W that may exceed
-//         the matrix's (zero words past it), so that two batches of
-//         different widths pack comparably (K11 packs rows and range
-//         bounds at one width).
-//     Descending keys store the complement of each field (W - length for
-//     the string length).  The order of the packed integer is exactly the
-//     lexicographic order lax.sort applies to the reference's operands.
-//     Hopper has native 64-bit bitcasts, so none of the TPU workarounds
-//     of ops/sort.py:20-22 are needed.
+//   * encode_kernel packs each key column's order-preserving bit fields
+//     (sort_key.cuh key_field: the null indicator, then the value's
+//     fields; strings at a packed width W that may exceed the matrix's, so
+//     that two batches of different widths pack comparably), most
+//     significant key first, into one wide integer per row, stored as
+//     64-bit limbs (limb-major, limb 0 least significant).  The order of
+//     the packed integer is exactly the lexicographic order lax.sort
+//     applies to the reference's operands.  Hopper has native 64-bit
+//     bitcasts, so none of the TPU workarounds of ops/sort.py:20-22 are
+//     needed.
 //   * or_and_kernel reduces each limb to the OR and AND of all rows; the
 //     wrapper reads them once and sorts only the 8-bit digits whose bits
 //     vary (q1's two one-letter keys need four of the nine digits).
@@ -42,12 +32,11 @@
 // bytes a row (key and index) and the scatter is random within 256 runs; the
 // encode reads each key column once and writes 8 bytes a row per limb.
 #include "common.cuh"
+#include "sort_key.cuh"
 
 namespace srt_sort {
 
 using namespace srt;
-
-enum KeyKind { kInt = 0, kFloat = 1, kBool = 2, kString = 3 };
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = kThreads / 32;
@@ -63,81 +52,21 @@ __device__ __forceinline__ void put_bits(unsigned long long* limbs, int64_t n,
   if (sh + bits > 64) limbs[(int64_t)(l + 1) * n + row] |= v >> (64 - sh);
 }
 
-__device__ __forceinline__ int bit_length(int w) { return 32 - __clz(w); }
-
-__global__ void encode_kernel(const void* __restrict__ data,
-                              const uint8_t* __restrict__ valid,
-                              const int32_t* __restrict__ lens, int kind,
-                              int item, int width, int asc, int nulls_first,
-                              int pos0,
+// OR one key column's fields (sort_key.cuh key_field) into the limbs, the
+// least significant field at bit pos0.
+__global__ void encode_kernel(const SortKey k, int pos0,
                               unsigned long long* __restrict__ limbs,
                               int64_t n) {
+  const int nf = key_nfields((int)k.kind, (int)k.width);
   for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += (int64_t)gridDim.x * blockDim.x) {
     int pos = pos0;
-    if (kind == kString) {
-      const int lb = bit_length(width);
-      const int32_t len = lens[row];
-      put_bits(limbs, n, row, asc ? (unsigned long long)len
-                                  : (unsigned long long)(width - len), lb, pos);
-      pos += lb;
-      const uint32_t* wp = reinterpret_cast<const uint32_t*>(
-          static_cast<const uint8_t*>(data) + row * item);
-      for (int w = width / 4 - 1; w >= 0; --w) {
-        // big-endian word; zero past the matrix's width
-        uint32_t x = w < item / 4 ? __byte_perm(wp[w], 0, 0x0123) : 0u;
-        if (!asc) x = ~x;
-        put_bits(limbs, n, row, x, 32, pos);
-        pos += 32;
-      }
-    } else if (kind == kInt) {
-      long long v;
-      switch (item) {
-        case 1: v = static_cast<const int8_t*>(data)[row]; break;
-        case 2: v = static_cast<const int16_t*>(data)[row]; break;
-        case 4: v = static_cast<const int32_t*>(data)[row]; break;
-        default: v = static_cast<const long long*>(data)[row]; break;
-      }
-      const int bits = 8 * item;
-      unsigned long long u = (unsigned long long)v ^ (1ull << (bits - 1));
-      if (!asc) u = ~u;
-      put_bits(limbs, n, row, u, bits, pos);
+    for (int f = nf - 1; f >= 0; --f) {
+      int bits;
+      const unsigned long long v = key_field(k, row, f, &bits);
+      put_bits(limbs, n, row, v, bits, pos);
       pos += bits;
-    } else if (kind == kBool) {
-      unsigned long long b = static_cast<const uint8_t*>(data)[row] != 0;
-      if (!asc) b = 1ull - b;
-      put_bits(limbs, n, row, b, 1, pos);
-      pos += 1;
-    } else {  // kFloat
-      bool is_nan;
-      unsigned long long key;
-      if (item == 4) {
-        float x = static_cast<const float*>(data)[row];
-        is_nan = x != x;
-        if (is_nan || x == 0.0f) x = 0.0f;
-        if (!asc) x = -x;
-        if (x == 0.0f) x = 0.0f;
-        const uint32_t b = __float_as_uint(x);
-        key = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-      } else {
-        double x = static_cast<const double*>(data)[row];
-        is_nan = x != x;
-        if (is_nan || x == 0.0) x = 0.0;
-        if (!asc) x = -x;
-        if (x == 0.0) x = 0.0;
-        const unsigned long long b = (unsigned long long)__double_as_longlong(x);
-        key = (b & 0x8000000000000000ull) ? ~b : (b | 0x8000000000000000ull);
-      }
-      const int bits = 8 * item;
-      put_bits(limbs, n, row, key, bits, pos);
-      pos += bits;
-      put_bits(limbs, n, row, asc ? (is_nan ? 1ull : 0ull) : (is_nan ? 0ull : 1ull),
-               1, pos);
-      pos += 1;
     }
-    const bool v = valid[row] != 0;
-    put_bits(limbs, n, row, v ? (nulls_first ? 1ull : 0ull)
-                              : (nulls_first ? 0ull : 1ull), 1, pos);
   }
 }
 
@@ -283,8 +212,9 @@ int srt_sort_encode(const void* data, const void* valid, const void* lens,
     return (int)cudaErrorInvalidValue;
   if (n > 0)
     encode_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        data, (const uint8_t*)valid, (const int32_t*)lens, kind, item, width,
-        asc, nulls_first, pos0, (unsigned long long*)limbs, n);
+        SortKey{(long long)data, (long long)valid, (long long)lens, kind,
+                item, width, asc, nulls_first},
+        pos0, (unsigned long long*)limbs, n);
   return (int)cudaGetLastError();
 }
 

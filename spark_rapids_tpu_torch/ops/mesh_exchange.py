@@ -19,17 +19,22 @@ host once per exchange (``parallel/mesh_shuffle.py``):
 * K15b :func:`mesh_unpack`, ``srt_mesh_unpack``: P segments (sections of
   send buffers, :func:`section_columns`, or a shard's own columns for an
   all-gather) front-packed in source-major order, string rows zero-padded
-  to the widest W of the sources.
+  to the widest W of the sources.  Each (column, source) block whose row
+  width equals the output's is one contiguous byte range, so the kernel
+  is a batched copy of spans (:func:`unpack_plan`), tiled.
 
 Each has its plain PyTorch version beside it (:func:`mesh_pack_plain`,
 :func:`mesh_unpack_plain`).  A wrapper takes it only for tensors on the
 CPU; on CUDA tensors it launches its kernel or raises.  Each counts its
-launches in ``.launches``.  The wrapper hands the kernel a device-side
+launches in ``.launches``.  K15a's wrapper hands its kernel a device-side
 int64 table of the columns' pointers and widths, copied from pinned host
-memory on the launch's stream.
+memory on the launch's stream; K15b's passes its span table
+(:func:`unpack_plan`) by value in the kernel's parameters, or as a device
+copy where it is longer than they hold.
 """
 from __future__ import annotations
 
+from array import array
 from typing import Sequence
 
 import torch
@@ -39,7 +44,8 @@ from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops.kernels import ptr
 
 __all__ = ["pack_layout", "mesh_pack", "mesh_pack_plain", "section_columns",
-           "mesh_unpack", "mesh_unpack_plain", "MAX_MESH"]
+           "mesh_unpack", "mesh_unpack_plain", "unpack_outputs",
+           "unpack_plan", "MAX_MESH"]
 
 #: most sections K15a writes (and sources K15b reads): the row prefix
 #: lives in shared memory, (P + 1) int64
@@ -224,7 +230,7 @@ def mesh_unpack(segments: Sequence[Sequence[DeviceColumn]],
     source-major order; string and array rows are zero-padded to the
     widest W of the segments."""
     dev = segments[0][0].data.device
-    if dev.type == "cpu" or sum(int(c) for c in counts) == 0:
+    if dev.type == "cpu" or sum(counts) == 0:
         # no row to move launches nothing: the columns are empty
         return mesh_unpack_plain(segments, counts)
     return _unpack_cuda(segments, counts, dev)
@@ -253,52 +259,128 @@ def mesh_unpack_plain(segments: Sequence[Sequence[DeviceColumn]],
     return out
 
 
+#: output bytes of one K15b tile (csrc/mesh_exchange.cu ``kTileBytes``):
+#: one block copies one tile at a time
+UNPACK_TILE = 32 * 1024
+#: int64 words of one K15b span: source, destination, rows, source row
+#: bytes, destination row bytes
+SPAN_WORDS = 5
+#: most table words K15b's small parameter struct holds
+#: (csrc/mesh_exchange.cu ``kUnpackSmallWords``)
+UNPACK_SMALL_WORDS = 480
+#: most table words K15b's kernel parameters hold (csrc/mesh_exchange.cu
+#: ``kUnpackLargeWords``); a longer table is read from a device copy
+UNPACK_PARAM_WORDS = 4000
+# the kernel library must report the same constants when it is loaded
+native.share_limits("mesh_exchange", (SPAN_WORDS, UNPACK_TILE,
+                                      UNPACK_SMALL_WORDS, UNPACK_PARAM_WORDS))
+
+
+def unpack_outputs(segments: Sequence[Sequence[DeviceColumn]],
+                   counts: Sequence[int], dev) -> list[DeviceColumn]:
+    """Uninitialised output columns of :func:`mesh_unpack` on ``dev``:
+    ``sum(counts)`` rows each, string and array matrices at the widest W
+    of the segments."""
+    total = sum(counts)
+    out = []
+    for j, first in enumerate(segments[0]):
+        if first.lengths is not None:
+            w = max(seg[j].data.shape[1] for seg in segments)
+            out.append(DeviceColumn(
+                torch.empty((total, w), dtype=first.data.dtype, device=dev),
+                torch.empty(total, dtype=torch.bool, device=dev),
+                first.dtype,
+                torch.empty(total, dtype=torch.int32, device=dev)))
+        else:
+            out.append(DeviceColumn(
+                torch.empty(total, dtype=first.data.dtype, device=dev),
+                torch.empty(total, dtype=torch.bool, device=dev),
+                first.dtype))
+    return out
+
+
+def unpack_plan(segments: Sequence[Sequence[DeviceColumn]],
+                counts: Sequence[int], out: Sequence[DeviceColumn],
+                tile: int = UNPACK_TILE) -> tuple[list[int], int, int]:
+    """K15b's byte copies for one destination: ``(words, nspans,
+    ntiles)``.  ``words`` holds :data:`SPAN_WORDS` words a span, then the
+    first tile of each span and the tile count (``nspans + 1`` words).
+
+    A span is one block (data, lengths or validity) of one (column,
+    source) pair with rows: ``(src, dst, rows, src_w, dst_w)`` by
+    address.  Where ``src_w == dst_w`` it is one contiguous range of
+    ``rows * dst_w`` bytes, cut into tiles of ``tile`` bytes; else (a
+    string or array source narrower than the output) each row's ``src_w``
+    bytes are copied and the rest of its ``dst_w`` zeroed, in tiles of
+    ``max(1, tile // dst_w)`` rows.  Sources of 0 rows give no span.
+    Validity bytes are copied as they are: every source's are 0/1 (bool
+    shard columns, or K15a's sections, which write 0/1).  Reads only
+    shapes and addresses, so it runs on any device."""
+    spans, starts = [], [0]
+    ntiles = 0
+    i32, boolean = torch.int32, torch.bool
+    for j, oc in enumerate(out):
+        od, ov, ol = oc.data, oc.validity, oc.lengths
+        dt, gdev = od.dtype, od.get_device()
+        var = ol is not None
+        rb = od.element_size() * (od.shape[1] if var else 1)
+        d0, v0 = od.data_ptr(), ov.data_ptr()
+        l0 = ol.data_ptr() if var else 0
+        rows_per_tile = max(1, tile // rb) if rb else 1
+        at = 0
+        for seg, c in zip(segments, counts):
+            if not c:
+                continue
+            p = seg[j]
+            d, v, ln = p.data, p.validity, p.lengths
+            if d.dtype is not dt or v.dtype is not boolean \
+                    or d.shape[0] != c or v.shape[0] != c \
+                    or (ln is None) == var or not d.is_contiguous() \
+                    or not v.is_contiguous() or d.get_device() != gdev:
+                raise ValueError(f"segment column {j}: data {d.dtype}"
+                                 f"{tuple(d.shape)} on {d.device}, "
+                                 f"validity {v.dtype}{tuple(v.shape)}; "
+                                 f"{c} contiguous rows of {dt} on "
+                                 f"{od.device} expected")
+            if var:
+                if ln.dtype is not i32 or not ln.is_contiguous():
+                    raise ValueError(f"segment column {j}: lengths must "
+                                     "be contiguous int32")
+                if rb:
+                    sw = d.element_size() * d.shape[1]
+                    spans += (d.data_ptr(), d0 + at * rb, c, sw, rb)
+                    ntiles += -(-c * rb // tile) if sw == rb \
+                        else -(-c // rows_per_tile)
+                    starts.append(ntiles)
+                spans += (ln.data_ptr(), l0 + 4 * at, c, 4, 4)
+                ntiles += -(-4 * c // tile)
+                starts.append(ntiles)
+            elif rb:
+                spans += (d.data_ptr(), d0 + at * rb, c, rb, rb)
+                ntiles += -(-c * rb // tile)
+                starts.append(ntiles)
+            spans += (v.data_ptr(), v0 + at, c, 1, 1)
+            ntiles += -(-c // tile)
+            starts.append(ntiles)
+            at += c
+    return spans + starts, len(starts) - 1, ntiles
+
+
 def _unpack_cuda(segments, counts, dev) -> list[DeviceColumn]:
     lib = native.lib("mesh_exchange")
-    P, ncols = len(segments), len(segments[0])
+    P = len(segments)
     if not 1 <= P <= MAX_MESH:
         raise ValueError(f"{P} segments: must be in [1, {MAX_MESH}]")
     if len(counts) != P:
         raise ValueError(f"{len(counts)} counts for {P} segments")
-    prefix = _cumsum(counts)
-    total = prefix[-1]
-    out, keep = [], []
-    head, segs = [], []
-    max_chunks = 1
-    for j in range(ncols):
-        parts = [seg[j] for seg in segments]
-        first = parts[0]
-        var = first.lengths is not None
-        w = max(p.data.shape[1] for p in parts) if var else None
-        shape = (total, w) if var else (total,)
-        od = torch.empty(shape, dtype=first.data.dtype, device=dev)
-        ov = torch.empty(total, dtype=torch.bool, device=dev)
-        ol = torch.empty(total, dtype=torch.int32, device=dev) if var \
-            else None
-        out.append(DeviceColumn(od, ov, first.dtype, ol))
-        rb = od.element_size() * (w if var else 1)
-        vals = [ptr(od), rb]
-        for p, c in zip(parts, counts):
-            if p.data.device != dev:
-                raise ValueError(f"segment on {p.data.device}, expected "
-                                 f"{dev}")
-            d, v = p.data.contiguous(), p.validity.contiguous()
-            if d.shape[0] != c or v.shape != (c,) or d.dtype != od.dtype \
-                    or (p.lengths is None) == var:
-                raise ValueError(f"segment column {j}: data {d.dtype}"
-                                 f"{tuple(d.shape)}, validity "
-                                 f"{tuple(v.shape)}, {c} rows of "
-                                 f"{od.dtype} expected")
-            ln = None if not var else p.lengths.to(torch.int32).contiguous()
-            src_rb = d.element_size() * (d.shape[1] if var else 1)
-            vals += [ptr(d), src_rb]
-            segs += [ptr(d), ptr(v), 0 if ln is None else ptr(ln), src_rb]
-            keep += [d, v, ln]
-        vec = _vec_bytes(*vals)
-        max_chunks = max(max_chunks, rb // vec)
-        head += [ptr(od), ptr(ov), 0 if ol is None else ptr(ol), rb, vec]
-    tab = _upload_table(prefix + head + segs, dev)
-    native.check(lib.srt_mesh_unpack(ptr(tab), P, ncols, total, max_chunks,
+    out = unpack_outputs(segments, counts, dev)
+    words, nspans, ntiles = unpack_plan(segments, counts, out)
+    host = array("q", words)
+    tab = None
+    if len(words) > UNPACK_PARAM_WORDS:
+        tab = torch.tensor(words, dtype=torch.int64).to(dev)
+    native.check(lib.srt_mesh_unpack(host.buffer_info()[0], len(words),
+                                     nspans, ntiles, ptr(tab),
                                      native.stream_ptr(dev)),
                  "srt_mesh_unpack")
     mesh_unpack.launches += 1

@@ -21,7 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "lib", "stream_ptr", "check", "NVCC_FLAGS"]
+__all__ = ["SOURCES", "build", "lib", "share_limits", "stream_ptr", "check",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -62,7 +63,8 @@ _L = ctypes.c_int64
 _D = ctypes.c_double
 
 #: C entry points and their argument types (every one returns a
-#: cudaError_t as int and takes the stream last)
+#: cudaError_t as int and takes the stream last, but the ``_limits``
+#: entries, which report a library's constants)
 _SIGNATURES = {
     "compact": {
         "srt_compact_prepare": [_P, _L, _P, _P, _P],
@@ -140,7 +142,9 @@ _SIGNATURES = {
         "srt_decode_dict": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P],
     },
     "range_partition": {
-        "srt_range_partition": [_P, _L, _I, _P, _I, _P, _P],
+        "srt_range_bound_fields": [_P, _P, _I, _I, _L, _P, _P],
+        "srt_range_partition": [_P, _P, _I, _I, _P, _I, _L, _P, _P],
+        "srt_range_partition_limits": [_P, _I],
     },
     "window_range": {
         "srt_window_range_width": [_P, _P, _L, _P, _P],
@@ -163,12 +167,15 @@ _SIGNATURES = {
     },
     "mesh_exchange": {
         "srt_mesh_pack": [_P, _I, _I, _P, _L, _P, _L, _P],
-        "srt_mesh_unpack": [_P, _I, _I, _L, _L, _P],
+        "srt_mesh_unpack": [_P, _L, _I, _L, _P, _P],
+        "srt_mesh_exchange_limits": [_P, _I],
     },
 }
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: library name -> the constants its wrapper shares with it
+_LIMITS: dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -223,6 +230,13 @@ def build(names=None, verbose: bool = False) -> dict:
     return reports
 
 
+def share_limits(name: str, limits: tuple) -> None:
+    """Record the constants a Python wrapper shares with the library
+    ``name``: when it is loaded, its ``srt_<name>_limits`` must report
+    them in the same order, else :func:`lib` raises."""
+    _LIMITS[name] = tuple(limits)
+
+
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built on first use."""
     with _LOCK:
@@ -237,13 +251,28 @@ def lib(name: str) -> ctypes.CDLL:
             f = getattr(dll, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
+        want = _LIMITS.get(name)
+        if want:
+            got = (ctypes.c_int64 * len(want))()
+            getattr(dll, f"srt_{name}_limits")(got, len(want))
+            if tuple(got) != want:
+                raise RuntimeError(f"csrc/{SOURCES[name]} reports the "
+                                   f"limits {tuple(got)}, its wrapper "
+                                   f"expects {want}")
         _LOADED[name] = dll
         return dll
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a raw pointer."""
+    """PyTorch's current CUDA stream on ``device``, as a raw pointer
+    (read without building a ``torch.cuda.Stream`` where PyTorch offers
+    that: a wrapper's whole host cost is a few microseconds)."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        index = device if isinstance(device, int) \
+            else getattr(device, "index", None)
+        return raw(torch.cuda.current_device() if index is None else index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

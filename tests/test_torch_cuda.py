@@ -1357,3 +1357,76 @@ def test_mesh_queries_on_the_card_match_the_cpu(dev, monkeypatch):
                    .order_by(("sv", False), ("name", True)).limit(5)
                    .collect())
     assert out[0] == out[1] and len(out[0]) == 5
+
+
+def test_range_partition_many_keys_and_global_bounds(dev):
+    """K11 where its descriptors leave the kernel's parameters (40 keys)
+    and where the bounds' fields leave shared memory (P 1024 over three
+    keys, strings narrower in the rows than in the bounds), and rows that
+    tie with the bounds on every key but the last."""
+    from spark_rapids_tpu_torch.ops import range_partition as RP
+    from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_permutation
+    rng = np.random.default_rng(13)
+    wide = ColumnBatch.from_arrow(_record_batch(rng, 30_000), dev)
+    rb = _record_batch(rng, 20_003)
+    short = pa.array([None if v is None or len(v) > 4 else v
+                      for v in rb.column(0).to_pylist()], pa.string())
+    narrow = ColumnBatch.from_arrow(pa.RecordBatch.from_arrays(
+        [short] + list(rb.columns[1:]), names=rb.schema.names), dev)
+
+    def check(keys, orders, parts):
+        wk = [wide.columns[k] for k in keys]
+        perm = sort_permutation(ColumnBatch(wk, wide.num_rows, None, dev),
+                                orders)
+        pos = torch.clamp(torch.arange(1, parts, device=dev)
+                          * wide.num_rows // parts, 0, wide.num_rows - 1)
+        bounds = RP.RangeBounds(K.gather_columns(wk, perm[pos]), orders)
+        rows = [narrow.columns[k] for k in keys]
+        before = RP.range_partition_ids.launches
+        got = RP.range_partition_ids(rows, bounds)
+        assert RP.range_partition_ids.launches == before + 1
+        assert torch.equal(got, RP.range_partition_ids_plain(rows, bounds))
+        return bounds, rows
+
+    keys = [5, 1, 6, 4, 2] * 8
+    orders = [SortOrder(i, i % 3 != 0, i % 2 == 0) for i in range(40)]
+    assert len(keys) > RP.PARAM_KEYS
+    check(keys, orders, 8)
+    orders = [SortOrder(0, True, False), SortOrder(1, False, True),
+              SortOrder(2, True, True)]
+    bounds, rows = check([0, 3, 1], orders, 1024)
+    assert bounds.at(bounds.widths(rows))[2].numel() * 8 > RP.SHARED_BYTES
+    check([5, 1, 2], [SortOrder(i, i != 1, True) for i in range(3)], 8)
+
+
+def test_mesh_unpack_of_shard_slices_matches_plain(dev):
+    """K15b over an all-gather's shard columns: slices at odd row offsets
+    (unaligned sources and destinations), 0-row shards, one-row shards
+    (spans under 16 bytes), a source whose strings are narrower than the
+    others', and 4096 shards, whose span table leaves the kernel's
+    parameters."""
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    rng = np.random.default_rng(16)
+    wide = ColumnBatch.from_arrow(_record_batch(rng, 60_001), dev)
+    rb = _record_batch(rng, 999)
+    short = pa.array([None if v is None or len(v) > 3 else v
+                      for v in rb.column(0).to_pylist()], pa.string())
+    narrow = ColumnBatch.from_arrow(pa.RecordBatch.from_arrays(
+        [short] + list(rb.columns[1:]), names=rb.schema.names), dev)
+    assert narrow.columns[0].max_len < wide.columns[0].max_len
+    cuts = [0, 1, 1, 2, 7, 33_333, 33_334, 60_001]
+    shards = [K.slice_rows(wide, lo, hi) for lo, hi in zip(cuts, cuts[1:])]
+    shards.insert(3, narrow)
+    for group in (shards, [K.slice_rows(wide, i * 14, i * 14 + (i % 29))
+                           for i in range(4096)]):
+        segs = [b.columns for b in group]
+        counts = [b.num_rows for b in group]
+        before = ME.mesh_unpack.launches
+        got = ME.mesh_unpack(segs, counts)
+        assert ME.mesh_unpack.launches == before + 1
+        for g, w in zip(got, ME.mesh_unpack_plain(segs, counts)):
+            assert torch.equal(g.data.contiguous().view(torch.uint8),
+                               w.data.contiguous().view(torch.uint8))
+            assert torch.equal(g.validity, w.validity)
+            if w.lengths is not None:
+                assert torch.equal(g.lengths, w.lengths)
