@@ -19,12 +19,24 @@ Phases (any failure exits non-zero; no phase's error is caught):
    inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
-   version's, one PyTorch library call's and the memory-bound floor;
+   version's, one PyTorch library call's and the memory-bound floor; K1
+   at q1's keys (2^24 rows) and at mixed int64/f64/int32/W16-string keys
+   (2^22 rows, two orders) with the plan its wrapper derived (the varying
+   bits, words and digit passes), timed in turns beside its plain version
+   and torch.argsort(stable=True) of q1's packed key (the best of two
+   rounds), its C entry points alone and its kernels alone
+   (torch.profiler: one plan and one encode kernel, an upsweep and a scan
+   a word, a scatter a digit pass, one copy to the host and nothing else,
+   no memset), with the bytes the design moves; then the mesh kernels
+   alone under torch.profiler (later in a run it sees no device work):
+   K15b over 8 shard slices at top_customers_mesh's destination shape and
+   K15a at a 4,194,304-row shard of one and of three int32 columns into 8
+   sections, one kernel a call and no copy;
 4. generate TPC-H lineitem at the --sf scale (SF5 by default, a cut of
    depth that keeps the whole script within its time) into .bench_data/
    (reused when there),
    run q1 through TorchSession() on cuda -- one cold run with every launch
-   counter set to 0 just before it, then three warm runs -- and check the
+   counter set to 0 just before it, then two warm runs -- and check the
    rows against an independent numpy/pyarrow evaluation of q1;
 5. the same for TPC-DS q6 at SF10 (seed 42, one parquet file per table):
    every launch counter of K1-K7 (K4's boundary pass and K5's build-key
@@ -73,7 +85,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    (SF10, default layout, AQE on; store_returns and the demographics
    tables added) cold + warm against numpy/pyarrow: q84 must return 0
    rows and q24 at least 1; K13d must launch on q24, K13c on
-   q84_all_cities;
+   q84_all_cities; the plans of q24's 10-key K1 sorts (varying bits,
+   words, digit passes) beside the packed key's bits;
 10. the mortgage jobs: generate 1M loans (the generator's sf 1000, seed
    7; ~17.4M performance rows, ~1.7 GB of pipe-delimited text) into
    .bench_data/ (reused when there); K13i hex and K4p the percentile
@@ -185,12 +198,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
    evaluations of phases 6 and 8, each planning its Mesh nodes, with
    mesh_send_overflows 0; K15a and K15b exact and timed at
    top_customers_mesh's and q6_mesh_partitioned's largest shard and
-   destination, beside their bounds, plain versions and index_select /
-   torch.cat (K15b also its C entry point alone, and the kernel alone
-   where torch.profiler sees device work; phase 12 profiles one K15b
-   call at top_customers_mesh's destination shape: one kernel, no
-   copy); K15a and K15b must launch on every mesh path and 0 times over
-   phases 3-14;
+   destination, in turns beside their plain versions and index_select /
+   torch.cat (the best of two rounds), and their bounds, with each C
+   entry point alone (K15b also the kernel alone where torch.profiler
+   sees device work; phase 3 profiles one K15b call at
+   top_customers_mesh's destination shape and K15a at both shard shapes:
+   one kernel, no copy); K15a and K15b must launch on every mesh path
+   and 0 times over phases 3-14;
 16. print the kernel table as one JSON line (launches per path), the
    card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -431,40 +445,324 @@ def _mixed_batch(torch, rng, n: int, dev):
     return ColumnBatch(cols, n, schema, dev)
 
 
+class _K1Plans:
+    """Records the plan of every K1 sort while it is open (the wrapper's
+    ``sort_plan`` calls; ``pack_keys``' full plans are not recorded): a
+    list of (keys, plan)."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.ops import sort as S
+        self._mod, self._real = S, S.sort_plan
+        self.plans = []
+
+        def spy(field_bits, masks, wide=None):
+            plan = self._real(field_bits, masks, wide)
+            if wide is None:
+                self.plans.append((len(field_bits), plan))
+            return plan
+        S.sort_plan = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.sort_plan = self._real
+        return False
+
+
+def _kernels_ms(torch, label: str, fn, expect: dict, reps: int = 10):
+    """The device time of a call of ``fn`` by kernel (ms), from
+    torch.profiler over ``reps`` warm calls; raises unless each call ran
+    exactly the kernels of ``expect`` ({name needle: launches a call}),
+    at most one copy to the host (a wrapper's host read) and no other
+    device work (a memset, another kernel).  None where the profiler saw
+    no device work at all (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # one call more than counted: the tracer may miss the window's first
+    # launches, so it must see reps or reps + 1 calls' worth
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 1):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        print(f"[{label}] torch.profiler saw no device work: the kernels "
+              "alone not measured", flush=True)
+        return None
+    out, seen = {}, set()
+    for key, count, us in rows:
+        needle = next((k for k in expect if k in key), None)
+        if needle is None and "Memcpy DtoH" in key and count <= reps + 1:
+            out["host_read"] = us / count / 1e3
+            continue
+        if needle is None or not (expect[needle] * reps <= count
+                                  <= expect[needle] * (reps + 1)):
+            raise AssertionError(f"{label}: {reps + 1} calls ran {rows}, "
+                                 f"not {expect} a call")
+        out[needle] = out.get(needle, 0.0) + us / (count / expect[needle]) \
+            / 1e3
+        seen.add(needle)
+    if seen != set(expect):
+        raise AssertionError(f"{label}: no {set(expect) - seen} in {rows}")
+    return out
+
+
+def _k1_leaves(batch, orders, plan) -> tuple:
+    """(every key leaf's bytes, the bytes of the leaves the plan's
+    segments read): the plan kernel reads every field, the encode only
+    those that vary."""
+    from spark_rapids_tpu_torch.ops import sort as S
+    every = touched = 0
+    for k, o in enumerate(orders):
+        c = batch.columns[o.child_index]
+        leaves = {"valid": c.validity, "data": c.data, "lens": c.lengths}
+        kind = S.key_layout(c, S.packed_width(c) if c.is_string
+                            else None)[0]
+        nf = len(S.key_field_bits(kind, S.packed_width(c) if c.is_string
+                                  else 1))
+        used = set()
+        for kk, f, *_r in plan.segments:
+            if kk == k:
+                used.add("valid" if f == 0 else
+                         "lens" if c.is_string and f == nf - 1 else "data")
+        for name, t in leaves.items():
+            if t is not None:
+                b = t.numel() * t.element_size()
+                every += b
+                touched += b if name in used else 0
+    return every, touched
+
+
+def _k1_design_bytes(batch, orders, plan) -> int:
+    """The bytes K1's kernels move for one call with this plan: the key
+    leaves read by the plan kernel and (those that vary) by the encode,
+    the words written once and read by their upsweeps, the look-back
+    state zeroed, and each pass's keys and row indices read and written
+    (a later word's first pass reads its keys through the permutation)."""
+    from spark_rapids_tpu_torch.ops import sort as S
+    n = batch.num_rows
+    every, touched = _k1_leaves(batch, orders, plan)
+    kb = 8 if plan.wide else 4
+    total = every + touched + 2 * kb * n * len(plan.words)
+    ntiles = -(-n // S.SORT_TILE)
+    for w, passes in enumerate(plan.passes):
+        total += len(passes) * ntiles * 256 * 4
+        for i in range(len(passes)):
+            reads = kb * n + (4 * n if (w, i) != (0, 0) else 0)
+            writes = 4 * n + (kb * n if i + 1 < len(passes) else 0)
+            total += reads + writes
+    return total
+
+
+def _k1_entry_ms(torch, batch, orders) -> float:
+    """K1's C entry points alone on a batch: the plan kernel, the host
+    read of its partials, the encode and each word's sort, with the
+    descriptors, the plan and the scratch prepared once (the wrapper's
+    Python apart)."""
+    import ctypes
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import sort as S
+    lib = native.lib("sort")
+    dev, n = batch.device, batch.num_rows
+    stream = native.stream_ptr(dev)
+    cols = [batch.columns[o.child_index] for o in orders]
+    words, field_bits, keep = S._key_descriptors(cols, orders)
+    host, keys_dev = native.param_table(words, len(cols) > S.PARAM_KEYS,
+                                        dev)
+    nfields = sum(map(len, field_bits))
+    ntiles = -(-n // S.SORT_TILE)
+    grid = min(S.PLAN_BLOCKS, ntiles)
+    partials = torch.empty((2 * nfields, grid), dtype=torch.int64,
+                           device=dev)
+    plan_args = (host.buffer_info()[0], S.ptr(keys_dev), len(cols),
+                 nfields, n, partials.data_ptr(), grid, stream)
+    native.check(lib.srt_sort_plan(*plan_args), "srt_sort_plan")
+    plan = S.sort_plan(field_bits, S.varying_masks(
+        partials.cpu().numpy().view(np.uint64), field_bits))
+    segs = S.segment_words(plan)
+    from array import array
+    seg_host = array("q", segs)
+    if len(segs) > S.LARGE_SEGS or len(cols) > S.PARAM_KEYS:
+        raise AssertionError("K1's timed tables do not fit the parameters")
+    nw = len(plan.words)
+    kdt = torch.int64 if plan.wide else torch.int32
+    passes = max(len(p) for p in plan.passes)
+    hw = S.MAX_PASSES * 256
+    scratch = torch.empty(nw * hw + hw + S.MAX_PASSES
+                          + passes * ntiles * 256, dtype=torch.int32,
+                          device=dev)
+    enc = torch.empty((nw, n), dtype=kdt, device=dev)
+    keys_ab = torch.empty((2, n), dtype=kdt, device=dev)
+    vals = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+    base = scratch.data_ptr() + 4 * nw * hw
+    tickets = base + 4 * hw
+    status = tickets + 4 * S.MAX_PASSES
+    encode_args = (host.buffer_info()[0], None, len(cols),
+                   seg_host.buffer_info()[0], None, len(segs),
+                   int(plan.wide), n, enc.data_ptr(), scratch.data_ptr(),
+                   nw * hw, stream)
+    where = ctypes.c_int(-1)
+
+    def run():
+        lib.srt_sort_plan(*plan_args)
+        partials.cpu()
+        lib.srt_sort_encode(*encode_args)
+        cur = None
+        for w, bits in enumerate(plan.words):
+            a, b = [i for i in range(3) if i != cur][:2]
+            lib.srt_sort_word(
+                enc[w].data_ptr(), enc.element_size(), bits,
+                None if cur is None else vals[cur].data_ptr(), n,
+                keys_ab[0].data_ptr(), keys_ab[1].data_ptr(),
+                vals[a].data_ptr(), vals[b].data_ptr(),
+                scratch.data_ptr() + 4 * w * hw, base, status, tickets,
+                ctypes.byref(where), stream)
+            cur = a if where.value == 0 else b
+        return vals[cur]
+
+    if not torch.equal(run(), S.sort_permutation_plain(batch, orders)):
+        raise AssertionError("K1's C entry points alone differ from the "
+                             "plain version")
+    del keep
+    return _time_ms(torch, run, reps=20)
+
+
+def _k1_profile(torch, label: str, batch, orders, plan) -> dict:
+    """K1's kernels alone on a batch: the kernels one call must run (one
+    plan, one encode, an upsweep and a scan a word, a scatter a digit; no
+    memset) and their device ms."""
+    from spark_rapids_tpu_torch.ops import sort as S
+    expect = {"plan_kernel": 1, "encode_kernel": 1,
+              "upsweep_kernel": len(plan.words),
+              "scan_kernel": len(plan.words),
+              "scatter_kernel": sum(len(p) for p in plan.passes)}
+    saved = S.sort_permutation.launches
+    ms = _kernels_ms(torch, label, lambda: S.sort_permutation(batch, orders),
+                     expect)
+    S.sort_permutation.launches = saved
+    return ms
+
+
+def _fmt_kernels(ms) -> str:
+    if ms is None:
+        return "not measured by torch.profiler"
+    return ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + \
+        f"; kernels {sum(v for k, v in ms.items() if k != 'host_read'):.4f}"
+
+
+def _fmt_plan(plan) -> str:
+    return (f"{plan.bits} varying bits in {len(plan.words)} "
+            f"{'64' if plan.wide else '32'}-bit word(s) {list(plan.words)}, "
+            f"{sum(len(p) for p in plan.passes)} digit pass(es)")
+
+
 def check_sort(torch, dev, rng, q1_batch) -> dict:
+    """K1 exactly against its plain version at q1's keys (2^24 rows) and
+    at mixed 2^22-row keys (two orders); timed in turns beside the plain
+    version and torch.argsort of the packed key (best of two rounds),
+    its C entry points alone and its kernels alone (torch.profiler: the
+    kernels a call must run and nothing else), each with the plan the
+    wrapper derived."""
     from spark_rapids_tpu_torch.ops import sort as S
     orders = [S.SortOrder(0, True, True), S.SortOrder(1, True, True)]
     n = q1_batch.num_rows
-    got = S.sort_permutation(q1_batch, orders)
+    with _K1Plans() as rec:
+        got = S.sort_permutation(q1_batch, orders)
+    (_k, plan), = rec.plans
     want = S.sort_permutation_plain(q1_batch, orders)
     if not torch.equal(got, want):
         raise AssertionError("sort: permutation differs (q1 keys)")
     mixed = _mixed_batch(torch, rng, 1 << 22, dev)
-    for mo in ([S.SortOrder(1, True, None), S.SortOrder(3, False, None),
-                S.SortOrder(0, True, False)],
-               [S.SortOrder(3, True, False), S.SortOrder(2, False, True),
-                S.SortOrder(1, False, True)]):
-        if not torch.equal(S.sort_permutation(mixed, mo),
-                           S.sort_permutation_plain(mixed, mo)):
+    mixed_orders = ([S.SortOrder(1, True, None), S.SortOrder(3, False, None),
+                     S.SortOrder(0, True, False)],
+                    [S.SortOrder(3, True, False), S.SortOrder(2, False, True),
+                     S.SortOrder(1, False, True)])
+    mixed_plans = []
+    for mo in mixed_orders:
+        with _K1Plans() as mrec:
+            mgot = S.sort_permutation(mixed, mo)
+        mixed_plans.append(mrec.plans[0][1])
+        if not torch.equal(mgot, S.sort_permutation_plain(mixed, mo)):
             raise AssertionError(f"sort: permutation differs (mixed {mo})")
-    ms = _time_ms(torch, lambda: S.sort_permutation(q1_batch, orders))
-    plain_ms = _time_ms(torch,
-                        lambda: S.sort_permutation_plain(q1_batch, orders))
+    del mgot
     w1 = q1_batch.columns[0].data[:, 0].to(torch.int64)
     w2 = q1_batch.columns[1].data[:, 0].to(torch.int64)
     packed = (w1 << 8) | w2
-    lib_ms = _time_ms(torch, lambda: torch.argsort(packed, stable=True))
+
+    def kernel():
+        return S.sort_permutation(q1_batch, orders)
+
+    def plain():
+        return S.sort_permutation_plain(q1_batch, orders)
+
+    def library():
+        return torch.argsort(packed, stable=True)
+    # in turns: kernel, plain, library, then again; the best of two
+    times = {kernel: [], plain: [], library: []}
+    for _ in range(2):
+        for fn in times:
+            times[fn].append(_time_ms(torch, fn))
+    ms, plain_ms, lib_ms = (min(times[f]) for f in (kernel, plain, library))
+    entry_ms = _k1_entry_ms(torch, q1_batch, orders)
+    kern = _k1_profile(torch, "K1 q1 keys", q1_batch, orders, plan)
+    mixed_ms, mixed_plain, mixed_entry, mixed_kern = [], [], [], []
+    for mo, mp in zip(mixed_orders, mixed_plans):
+        t = {"k": [], "p": []}
+        for _ in range(2):
+            t["k"].append(_time_ms(torch, lambda: S.sort_permutation(mixed,
+                                                                     mo)))
+            t["p"].append(_time_ms(torch, lambda: S.sort_permutation_plain(
+                mixed, mo)))
+        mixed_ms.append(min(t["k"]))
+        mixed_plain.append(min(t["p"]))
+        mixed_entry.append(_k1_entry_ms(torch, mixed, mo))
+        mixed_kern.append(_k1_profile(torch, f"K1 mixed {len(mo)} keys",
+                                      mixed, mo, mp))
     nbytes = _nbytes(_leaves(q1_batch.columns[:2])) + 4 * n
-    print(f"[K1 sort] rows={n} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} bound_ms={_bound_ms(nbytes):.4f} "
-          "(mixed int64/f64/int32/string keys at 2^22 rows: equal)",
-          flush=True)
+    design = _k1_design_bytes(q1_batch, orders, plan)
+    kernels_ms = None if kern is None else \
+        sum(v for k, v in kern.items() if k != "host_read")
+    print(f"[K1 sort] rows={n} (q1's keys): {_fmt_plan(plan)}; ms={ms:.4f} "
+          f"(the C entry points alone {entry_ms:.4f}; kernels alone: "
+          f"{_fmt_kernels(kern)}) plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_ms:.4f} (argsort(stable=True) of the packed key) "
+          f"bound_ms={_bound_ms(nbytes):.4f} ({nbytes} bytes: the two keys' "
+          f"leaves and the permutation); the design moves {design} bytes "
+          f"({_bound_ms(design):.4f} ms at the card's rate); the best of "
+          f"two rounds in turns", flush=True)
+    for mo, mp, a, b, c, k in zip(mixed_orders, mixed_plans, mixed_ms,
+                                  mixed_plain, mixed_entry, mixed_kern):
+        md = _k1_design_bytes(mixed, mo, mp)
+        npass = sum(len(x) for x in mp.passes)
+        per_pass = "not measured" if k is None else \
+            f"{k['scatter_kernel'] / npass:.4f}"
+        print(f"[K1 sort] mixed int64/f64/int32/W16-string keys, "
+              f"{mixed.num_rows} rows, orders "
+              f"{[(o.child_index, o.ascending, o.nulls_first) for o in mo]}:"
+              f" {_fmt_plan(mp)}; ms={a:.4f} (C entry points {c:.4f}; "
+              f"kernels alone: {_fmt_kernels(k)}; a scatter pass "
+              f"{per_pass}) plain_ms={b:.4f}; the design moves {md} bytes "
+              f"({_bound_ms(md):.4f} ms); equal to the plain version",
+              flush=True)
     return dict(name="sort_permutation", route="cuda",
                 source="spark_rapids_tpu_torch/csrc/sort.cu",
                 replaces="spark_rapids_tpu/ops/sort.py:105",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms), got
+                library_ms=lib_ms, kernel_ms=kernels_ms, entry_ms=entry_ms,
+                k1_kernels_ms=kern, k1_varying_bits=plan.bits,
+                k1_digit_passes=sum(len(p) for p in plan.passes),
+                k1_design_bytes=design, k1_mixed_ms=mixed_ms,
+                k1_mixed_plain_ms=mixed_plain,
+                k1_mixed_entry_ms=mixed_entry,
+                k1_mixed_varying_bits=[p.bits for p in mixed_plans],
+                k1_mixed_digit_passes=[sum(len(x) for x in p.passes)
+                                       for p in mixed_plans]), got
 
 
 def check_gather(torch, dev, q1_batch, perm) -> dict:
@@ -2869,10 +3167,19 @@ def run_concat_case_phase(torch, dev, warm: int):
     not_run = ("partition_ids_for_keys", "murmur3_columns", "group_by_part",
                "substring", "string_match")
     paths = {}
-    paths["q24"] = _drive(
-        torch, "q24", lambda: q24(session, tpcds_dir),
-        lambda r: _check_keyed_doubles("q24", r, want24, 3), every, warm,
-        ("matched_build_rows",) + _MAY_DICT, zero=not_run + ("concat",))
+    with _K1Plans() as k1rec:
+        paths["q24"] = _drive(
+            torch, "q24", lambda: q24(session, tpcds_dir),
+            lambda r: _check_keyed_doubles("q24", r, want24, 3), every,
+            warm, ("matched_build_rows",) + _MAY_DICT,
+            zero=not_run + ("concat",))
+    keys10 = [p for k, p in k1rec.plans if k == 10]
+    if not keys10:
+        raise AssertionError("q24 ran no 10-key K1 sort")
+    print(f"[q24 K1] the 10-key group-by packs {bits} bits ({limbs} 64-bit "
+          f"limbs, PR 13's packing); on the card its K1 sorts kept "
+          f"{sorted(set(_fmt_plan(p) for p in keys10))} over "
+          f"{len(keys10)} calls (cold and warm runs)", flush=True)
 
     def check84(rows):
         if rows:
@@ -3972,8 +4279,8 @@ def check_range_partition(torch, dev, rng, data_dir: str) -> dict:
 
 
 def profile_unpack(torch, dev) -> None:
-    """One K15b call under torch.profiler, here beside K11's (later in the
-    run the tracer has seen no device work): an all-gather's 8 shard
+    """One K15b call under torch.profiler, in phase 3 (later in the run
+    the tracer has seen no device work): an all-gather's 8 shard
     slices of 4,621,613 int32 rows, top_customers_mesh's destination
     shape; it must run one kernel a call and no copy of its span table.
     A check call: K15b's count is put back, so that phases 3-14 still
@@ -4009,6 +4316,58 @@ def profile_unpack(torch, dev) -> None:
           f"unpack_kernel a call and no copy, the kernel alone {fmt(ms)} "
           f"ms; torch.cat of every leaf {fmt(cat_ms)} ms of device time",
           flush=True)
+
+
+#: K15a's kernel alone (ms) by column count, from phase 3's profile at
+#: the mesh paths' shard shapes (phase 15's profiler sees no device work)
+_PACK_PROFILE = {}
+
+
+def profile_pack(torch, dev) -> None:
+    """K15a's kernel alone under torch.profiler, beside K15b's in phase 3
+    (later in the run the tracer has seen no device work): a 4,194,304-row
+    shard
+    (top_customers_mesh's largest) of one int32 column and of three (q6_
+    mesh_partitioned's), in K10's order to 8 sections; each call must run
+    one pack_kernel and no copy of its table.  Check calls: K15a's and
+    K10's counts are put back, so that phases 3-14 still read 0 launches
+    of K15a."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    from spark_rapids_tpu_torch.ops import partition as PT
+    n = 4_194_304
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    saved = (ME.mesh_pack.launches, PT.group_by_part.launches)
+    ids = torch.randint(0, 8, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    perm, counts = PT.partition_order(ids, 8)[:2]
+    counts = [int(c) for c in counts.tolist()]
+    idx = perm.long()
+    for ncols in (1, 3):
+        cols = [DeviceColumn(
+            torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                          device=dev, dtype=torch.int32),
+            torch.rand(n, generator=gen, device=dev) < 0.9, T.IntegerType())
+            for _ in range(ncols)]
+        buf, _layout = ME.mesh_pack(cols, perm, counts)
+        if not torch.equal(buf, ME.mesh_pack_plain(cols, perm, counts)):
+            raise AssertionError("K15a probe differs from the plain version")
+        ms = _one_kernel_ms(torch, "K15a probe", lambda: ME.mesh_pack(
+            cols, perm, counts), "pack_kernel")
+        leaves = _leaves(cols)
+        lib_ms = _device_ms(torch, lambda: [torch.index_select(t, 0, idx)
+                                            for t in leaves])
+        _PACK_PROFILE[ncols] = ms
+
+        def fmt(x):
+            return "not measured" if x is None else f"{x:.4f}"
+        print(f"[K15a profile] {n} rows x {ncols} int32 column(s) into 8 "
+              f"sections: one pack_kernel a call and no copy, the kernel "
+              f"alone {fmt(ms)} ms; index_select of every leaf {fmt(lib_ms)} "
+              f"ms of device time", flush=True)
+    ME.mesh_pack.launches, PT.group_by_part.launches = saved
 
 
 def _k12c_same(torch, W, op, col, lo, hi, what: str) -> None:
@@ -4339,7 +4698,6 @@ def run_partition_phase(torch, dev, warm: int):
     entries = {"range_partition_ids": check_range_partition(
         torch, dev, np.random.default_rng(11), data_dir)}
     torch.cuda.empty_cache()
-    profile_unpack(torch, dev)
     torch.cuda.empty_cache()
     entries["frame_min_max"] = check_frame_min_max(
         torch, dev, np.random.default_rng(12))
@@ -5684,6 +6042,33 @@ def _k15_entry_ms(torch, segments, counts) -> float:
     return _time_ms(torch, lambda: lib.srt_mesh_unpack(*args), reps=20)
 
 
+def _k15a_entry_ms(torch, cols, perm, counts) -> float:
+    """K15a's C entry point alone, its table, its column operands and
+    its output prepared once (a table that fits the kernel's
+    parameters): the launch and the kernel without the wrapper's
+    Python."""
+    from array import array
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    from spark_rapids_tpu_torch.ops import native
+    dev = perm.device
+    layout = ME.pack_layout(cols, counts)
+    words, ntiles = ME.pack_plan(cols, counts, layout)
+    if len(words) > ME.UNPACK_PARAM_WORDS:
+        raise AssertionError("K15a's timed table does not fit the "
+                             "parameters")
+    host = array("q", words)
+    out = torch.empty(layout[0][-1], dtype=torch.uint8, device=dev)
+    lib = native.lib("mesh_exchange")
+    args = (host.buffer_info()[0], len(words), len(counts), len(cols),
+            ntiles, None, perm.data_ptr(), out.data_ptr(),
+            native.stream_ptr(dev))
+    native.check(lib.srt_mesh_pack(*args), "srt_mesh_pack")
+    if not torch.equal(out, ME.mesh_pack_plain(cols, perm, counts)):
+        raise AssertionError("K15a's C entry point alone differs from the "
+                             "plain version")
+    return _time_ms(torch, lambda: lib.srt_mesh_pack(*args), reps=20)
+
+
 class _K15Recorder:
     """Keeps the arguments of the largest K15a and K15b calls of a path
     (the first of equal size), for checks and times at its shapes; the
@@ -5737,12 +6122,23 @@ def _k15_time(torch, label: str, rec) -> dict:
     idx = perm.long()
     leaves = _leaves(cols)
     pack_bytes = _nbytes(leaves) + _nbytes([perm]) + buf.numel()
-    pack_ms = _time_ms(torch, lambda: ME.mesh_pack(cols, perm, counts),
-                       reps=20)
-    pack_plain = _time_ms(torch, lambda: ME.mesh_pack_plain(cols, perm,
-                                                            counts))
-    pack_lib = _time_ms(torch, lambda: [torch.index_select(t, 0, idx)
-                                        for t in leaves], reps=20)
+
+    def pack():
+        return ME.mesh_pack(cols, perm, counts)
+
+    def pack_plain_fn():
+        return ME.mesh_pack_plain(cols, perm, counts)
+
+    def index_select():
+        return [torch.index_select(t, 0, idx) for t in leaves]
+    # in turns: kernel, plain, library, then again; the best of two
+    ptimes = {pack: [], pack_plain_fn: [], index_select: []}
+    for _ in range(2):
+        for fn in ptimes:
+            ptimes[fn].append(_time_ms(torch, fn, reps=20))
+    pack_ms, pack_plain, pack_lib = (min(ptimes[f]) for f in
+                                     (pack, pack_plain_fn, index_select))
+    pack_entry = _k15a_entry_ms(torch, cols, perm, counts)
     out = ME.mesh_unpack(segs, ucounts)
     seg_leaves = [t for s in segs for t in _leaves(s)]
     unpack_bytes = _nbytes(seg_leaves) + _nbytes(_leaves(out))
@@ -5772,9 +6168,11 @@ def _k15_time(torch, label: str, rec) -> dict:
     n, total = perm.numel(), sum(ucounts)
     print(f"[{label} K15a] one shard, {n} rows x {len(cols)} columns into "
           f"{len(counts)} sections ({buf.numel()} bytes): ms={pack_ms:.4f} "
-          f"plain_ms={pack_plain:.4f} library_ms={pack_lib:.4f} "
-          f"(index_select of every leaf) bound_ms="
-          f"{_bound_ms(pack_bytes):.4f} ({pack_bytes} bytes)", flush=True)
+          f"(the C entry point alone {pack_entry:.4f}; the kernel alone: "
+          f"phase 3's profile) plain_ms={pack_plain:.4f} library_ms="
+          f"{pack_lib:.4f} (index_select of every leaf) bound_ms="
+          f"{_bound_ms(pack_bytes):.4f} ({pack_bytes} bytes); the best of "
+          f"two rounds in turns", flush=True)
     alone = "not measured by torch.profiler" if unpack_kernel is None \
         else f"{unpack_kernel:.4f}"
     print(f"[{label} K15b] one destination, {len(segs)} segments, {total} "
@@ -5792,7 +6190,8 @@ def _k15_time(torch, label: str, rec) -> dict:
             replaces="spark_rapids_tpu/parallel/mesh_shuffle.py:70",
             max_abs_err=0.0, ms=pack_ms, plain_ms=pack_plain,
             bound_ms=_bound_ms(pack_bytes), bound_by="bytes",
-            library_ms=pack_lib),
+            library_ms=pack_lib, entry_ms=pack_entry,
+            kernel_ms=_PACK_PROFILE.get(len(cols))),
         "mesh_unpack": dict(
             name="mesh_unpack", route="cuda",
             source="spark_rapids_tpu_torch/csrc/mesh_exchange.cu",
@@ -5891,7 +6290,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=5.0,
                     help="TPC-H scale factor of q1, q14 and q22 (the "
                     "TPC-DS queries run at SF10 always)")
-    ap.add_argument("--warm", type=int, default=3,
+    # two warm runs: the peak-memory check compares the first with the
+    # last, and a third cost ~85 s of a run near its 1200 s limit on a slow
+    # host
+    ap.add_argument("--warm", type=int, default=2,
                     help="warm runs of each query")
     args = ap.parse_args(argv)
     # blocks split to the bytes asked for, so a path's allocated peak does
@@ -5928,6 +6330,10 @@ def main(argv=None) -> int:
     entries["compact"] = check_compact(torch, dev, rng)
     q1_batch = _batch(torch, _q1_host_columns(rng, 1 << 24), dev)
     entries["sort_permutation"], perm = check_sort(torch, dev, rng, q1_batch)
+    # the mesh kernels alone, while torch.profiler still sees the device
+    # (later in a run it has seen no device work)
+    profile_unpack(torch, dev)
+    profile_pack(torch, dev)
     entries["gather_columns"], sorted_cols = check_gather(torch, dev,
                                                           q1_batch, perm)
     entries["segment_aggregate"] = check_segmented(torch, dev, q1_batch,
@@ -6021,7 +6427,7 @@ def main(argv=None) -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         row.update({k: v for k, v in e.items() if k.startswith(
-            ("kernel_ms", "entry_ms", "one_key_"))})
+            ("kernel_ms", "entry_ms", "one_key_", "k1_"))})
         row["launches_by_path"] = {p: c[counters[0]]
                                    for p, c in by_path.items()}
         row["launches_by_counter"] = {

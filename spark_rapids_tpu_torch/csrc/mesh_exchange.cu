@@ -22,14 +22,21 @@
 // section of a K15a send buffer or a shard's own columns, so an all-gather
 // needs no K15a.
 //
-// K15a is one launch for all columns: blockIdx.y is the column, and a
-// device-side int64 table (written by the wrapper, ops/mesh_exchange.py)
-// holds the row prefix of the destinations, each column's pointers and row
-// widths, and the byte offsets of every (destination, column) block.  A
-// thread moves one `vec`-byte chunk of one row: 16 bytes where the row
-// width and every base address allow it; the row's validity and length go
-// with its chunk 0.  Its row's section comes from a binary search of the
-// prefix, kept in shared memory.
+// K15a is one launch for all columns, in tiles: a tile is up to
+// kPackTileRows rows of one (destination, column) block, so a block finds
+// its section, column and rows once a tile, not once a row; the tiles of all
+// destinations that read the same stretch of source rows run together, so
+// the source is read from memory about once.  The table travels by value in
+// the kernel's parameters (__grid_constant__, the two sizes K15b uses), or,
+// where it is longer, as a device copy the wrapper makes: no pinned copy per
+// call.  The tile's permutation entries are staged in shared memory; then
+// each thread builds 16-byte output chunks, each from the rows it covers
+// gathered through the permutation (four int32 rows, sixteen validity bytes
+// or four lengths a chunk; a string row 16 bytes at a time where W and the
+// matrix's address allow), all of a chunk's loads in flight together, and
+// stores them as one uint4.  The tile that ends a block writes its pad bytes
+// as zeros in its last chunks, so every byte of the send buffer is written
+// once and the buffer is byte-identical to the plain version's.
 //
 // K15b is a batched copy of spans, one launch for all columns.  For one
 // destination every (column, source) block -- data, lengths, validity --
@@ -61,88 +68,6 @@
 namespace srt_mesh {
 
 using namespace srt;
-
-// K15a table: prefix[P + 1] (sorted positions of each destination's rows),
-// then per column kPackDesc words, then per (destination, column) three
-// byte offsets into the send buffer (data, lengths, validity).
-constexpr int kPackDesc = 5;  // data, validity, lengths, row_bytes, vec
-
-// Largest d in [0, P) with prefix[d] <= i: for i below prefix[P], the
-// segment that holds row i (empty segments share their start with the
-// next one and are skipped).
-__device__ __forceinline__ int find_segment(const long long* prefix, int P,
-                                            long long i) {
-  int lo = 0, hi = P - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (prefix[mid] <= i) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ void copy_chunk(uint8_t* dst, const uint8_t* src,
-                                           int vec) {
-  switch (vec) {
-    case 16: *reinterpret_cast<uint4*>(dst) =
-        *reinterpret_cast<const uint4*>(src); break;
-    case 8: *reinterpret_cast<unsigned long long*>(dst) =
-        *reinterpret_cast<const unsigned long long*>(src); break;
-    case 4: *reinterpret_cast<uint32_t*>(dst) =
-        *reinterpret_cast<const uint32_t*>(src); break;
-    case 2: *reinterpret_cast<uint16_t*>(dst) =
-        *reinterpret_cast<const uint16_t*>(src); break;
-    default: *dst = *src; break;
-  }
-}
-
-__device__ __forceinline__ long long align16(long long x) {
-  return (x + 15) & ~15ll;
-}
-
-__device__ __forceinline__ void zero_tail(uint8_t* p, long long used) {
-  const long long end = align16(used);
-  for (long long b = used; b < end; ++b) p[b] = 0;
-}
-
-__global__ void pack_kernel(const long long* __restrict__ tab, int P,
-                            int ncols, const int32_t* __restrict__ perm,
-                            long long n, uint8_t* __restrict__ out) {
-  extern __shared__ long long prefix[];  // P + 1
-  for (int d = threadIdx.x; d <= P; d += blockDim.x) prefix[d] = tab[d];
-  __syncthreads();
-  const int j = blockIdx.y;
-  const long long* desc = tab + (P + 1) + (long long)j * kPackDesc;
-  const uint8_t* src = reinterpret_cast<const uint8_t*>(desc[0]);
-  const uint8_t* src_valid = reinterpret_cast<const uint8_t*>(desc[1]);
-  const int32_t* src_len = reinterpret_cast<const int32_t*>(desc[2]);
-  const int rb = (int)desc[3];
-  const int vec = (int)desc[4];
-  const int chunks = rb / vec;
-  const long long* offs = tab + (P + 1) + (long long)ncols * kPackDesc;
-  const long long work = n * chunks;
-  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       w < work; w += (long long)gridDim.x * blockDim.x) {
-    const long long i = w / chunks;
-    const int k = (int)(w - i * chunks);
-    const int d = find_segment(prefix, P, i);
-    const long long r = i - prefix[d];
-    const long long s = perm[i];
-    const long long* o = offs + ((long long)d * ncols + j) * 3;
-    copy_chunk(out + o[0] + r * rb + (long long)k * vec,
-               src + s * rb + (long long)k * vec, vec);
-    if (k == 0) {
-      out[o[2] + r] = src_valid[s] != 0 ? 1 : 0;
-      if (src_len != nullptr)
-        reinterpret_cast<int32_t*>(out + o[1])[r] = src_len[s];
-      const long long c = prefix[d + 1] - prefix[d];
-      if (r == c - 1) {
-        zero_tail(out + o[0], c * rb);
-        if (src_len != nullptr) zero_tail(out + o[1], c * 4);
-        zero_tail(out + o[2], c);
-      }
-    }
-  }
-}
 
 // K15b: the span table holds kSpanWords words a span (src, dst, rows,
 // src_w, dst_w), then the first tile of each span and the tile count.
@@ -273,10 +198,155 @@ int launch_unpack(const void* words, int64_t nwords, int nspans,
   return (int)cudaGetLastError();
 }
 
-inline int grid_x(long long work, int ncols) {
-  // spread a launch's ~16 waves over its columns
-  long long waves = 16 / (ncols > 0 ? ncols : 1);
-  return grid_for(work, waves > 1 ? waves : 1);
+// K15a: the table holds kPackColWords words a column (data, validity,
+// lengths or 0, row bytes | vec << 32, vec the widest power-of-two load,
+// at most 16 bytes, that divides the row bytes and the data's address),
+// then prefix[P + 1] (where each destination's rows start in the
+// permutation), then the data offset of each (destination, column) block
+// in the send buffer (destination-major).  Tile t is chunk t / (P * ncols)
+// (kPackTileRows rows) of destination (t / ncols) % P, column t % ncols:
+// the tiles that run together read the same stretch of the source rows
+// (K10's order keeps each destination's rows in row order), so the
+// source stays in L2 while every destination takes its rows from it.  A
+// tile past its destination's rows does nothing.
+constexpr int kPackColWords = 4;
+constexpr int kPackTileRows = 2048;
+
+template <int kWords>
+struct PackParams {
+  const long long* dev;  // non-null: the table is here
+  const int32_t* perm;
+  uint8_t* out;
+  long long ntiles;
+  int P, ncols;
+  long long w[kWords];
+};
+
+__device__ __forceinline__ long long align16(long long x) {
+  return (x + 15) & ~15ll;
+}
+
+template <int E> struct Elem;
+template <> struct Elem<1> { typedef uint8_t T; };
+template <> struct Elem<2> { typedef uint16_t T; };
+template <> struct Elem<4> { typedef uint32_t T; };
+template <> struct Elem<8> { typedef unsigned long long T; };
+template <> struct Elem<16> { typedef uint4 T; };
+
+// The block writes the 16-byte chunks of dst[0, nbytes): byte b of it is
+// byte b % rb of the tile's row b / rb (of nr rows, their source rows in
+// rows[]), zero past the last row; E-byte loads (E divides rb and 16).
+template <int E>
+__device__ __forceinline__ void pack_rows(uint8_t* dst, int nbytes,
+                                          const uint8_t* src, int rb,
+                                          const int32_t* rows, int nr) {
+  typedef typename Elem<E>::T T;
+  const int nch = nbytes >> 4;
+  for (int q = threadIdx.x; q < nch; q += kThreads) {
+    union {
+      uint4 v;
+      T e[16 / E];
+    } chunk;
+#pragma unroll
+    for (int k = 0; k < 16 / E; ++k) {
+      const int b = 16 * q + E * k;
+      const int r = rb == E ? b / E : b / rb;
+      if (r < nr)
+        chunk.e[k] = *reinterpret_cast<const T*>(
+            src + (long long)rows[r] * rb + (b - r * rb));
+      else
+        chunk.e[k] = T();
+    }
+    *reinterpret_cast<uint4*>(dst + 16 * q) = chunk.v;
+  }
+}
+
+// Validity bytes (0/1) of the tile's rows, sixteen a chunk.
+__device__ __forceinline__ void pack_valid(uint8_t* dst, int nbytes,
+                                           const uint8_t* src,
+                                           const int32_t* rows, int nr) {
+  const int nch = nbytes >> 4;
+  for (int q = threadIdx.x; q < nch; q += kThreads) {
+    union {
+      uint4 v;
+      uint8_t b[16];
+    } chunk;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int r = 16 * q + k;
+      chunk.b[k] = r < nr && src[rows[r]] != 0 ? 1 : 0;
+    }
+    *reinterpret_cast<uint4*>(dst + 16 * q) = chunk.v;
+  }
+}
+
+template <int kWords>
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const __grid_constant__ PackParams<kWords> p) {
+  __shared__ int32_t s_rows[kPackTileRows];
+  const long long* cols = p.dev != nullptr ? p.dev : p.w;
+  const long long* prefix = cols + (long long)p.ncols * kPackColWords;
+  const long long* offs = prefix + p.P + 1;
+  for (long long t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+    const int j = (int)(t % p.ncols);
+    const long long dk = t / p.ncols;
+    const int d = (int)(dk % p.P);
+    const long long rows = prefix[d + 1] - prefix[d];
+    const long long r0 = dk / p.P * kPackTileRows;
+    if (r0 >= rows) continue;  // the whole block: no barrier skipped
+    const long long* c = cols + (long long)j * kPackColWords;
+    const int nr = (int)(rows - r0 < kPackTileRows ? rows - r0
+                                                   : kPackTileRows);
+    const bool last = r0 + nr == rows;
+    const int32_t* perm = p.perm + prefix[d] + r0;
+    for (int i = threadIdx.x; i < nr; i += kThreads) s_rows[i] = perm[i];
+    __syncthreads();
+    const int rb = (int)(c[3] & 0xffffffffll);
+    const int vec = (int)(c[3] >> 32);
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(c[0]);
+    uint8_t* blk = p.out + offs[(long long)d * p.ncols + j];
+    // data: bytes [r0 * rb, ...) of the block, its pad with the last tile
+    const long long dbytes = align16(rows * rb);
+    const int nd = (int)(last ? dbytes - r0 * rb : (long long)nr * rb);
+    uint8_t* dd = blk + r0 * rb;
+    switch (vec) {
+      case 16: pack_rows<16>(dd, nd, src, rb, s_rows, nr); break;
+      case 8: pack_rows<8>(dd, nd, src, rb, s_rows, nr); break;
+      case 4: pack_rows<4>(dd, nd, src, rb, s_rows, nr); break;
+      case 2: pack_rows<2>(dd, nd, src, rb, s_rows, nr); break;
+      default: pack_rows<1>(dd, nd, src, rb, s_rows, nr); break;
+    }
+    uint8_t* after = blk + dbytes;
+    if (c[2] != 0) {  // the int32 lengths
+      const long long lbytes = align16(4 * rows);
+      pack_rows<4>(after + 4 * r0,
+                   (int)(last ? lbytes - 4 * r0 : 4ll * nr),
+                   reinterpret_cast<const uint8_t*>(c[2]), 4, s_rows, nr);
+      after += lbytes;
+    }
+    pack_valid(after + r0, (int)(last ? align16(rows) - r0 : nr),
+               reinterpret_cast<const uint8_t*>(c[1]), s_rows, nr);
+    __syncthreads();  // s_rows is rewritten for the next tile
+  }
+}
+
+template <int kWords>
+int launch_pack(const void* words, int64_t nwords, int P, int ncols,
+                int64_t ntiles, const void* words_dev, const void* perm,
+                void* out, cudaStream_t stream) {
+  PackParams<kWords> p;
+  p.dev = static_cast<const long long*>(words_dev);
+  p.perm = static_cast<const int32_t*>(perm);
+  p.out = static_cast<uint8_t*>(out);
+  p.ntiles = ntiles;
+  p.P = P;
+  p.ncols = ncols;
+  if (words_dev == nullptr)
+    std::memcpy(p.w, words, sizeof(long long) * (size_t)nwords);
+  const long long cap = 132 * 16;
+  const int grid = (int)(ntiles < cap ? ntiles : cap);
+  pack_kernel<kWords><<<grid, kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace srt_mesh
@@ -285,19 +355,33 @@ using namespace srt_mesh;
 
 extern "C" {
 
-// K15a: tab is the device table described above; perm the n sorted row
-// indices (K10); out the send buffer of the table's summed section bytes.
-int srt_mesh_pack(const void* tab, int P, int ncols, const void* perm,
-                  int64_t n, void* out, int64_t max_chunks, void* stream) {
-  if (P < 1 || P > 4096 || ncols < 1 || ncols > 65535)
+// K15a: words is the host table described above (nwords = kPackColWords
+// * ncols + P * ncols + P + 1 words: ops/mesh_exchange.py `pack_plan`),
+// copied into the kernel's parameters; ntiles: P * ncols times the most
+// tiles a destination needs; words_dev, when not
+// null, a device copy of it that the kernel reads instead (the wrapper
+// makes one where nwords exceeds kUnpackLargeWords).  perm: the sorted
+// row indices (K10); out: the send buffer (ops/mesh_exchange.py
+// `pack_layout`).
+int srt_mesh_pack(const void* words, int64_t nwords, int P, int ncols,
+                  int64_t ntiles, const void* words_dev, const void* perm,
+                  void* out, void* stream) {
+  if (P < 1 || P > 4096 || ncols < 1 || ncols > 65535 || ntiles < 1 ||
+      ntiles % ((int64_t)P * ncols) != 0 ||
+      nwords != (int64_t)kPackColWords * ncols + (int64_t)P * ncols + P + 1 ||
+      (words == nullptr && words_dev == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaGetLastError();
-  dim3 grid(grid_x(n * max_chunks, ncols), ncols);
-  pack_kernel<<<grid, kThreads, (P + 1) * sizeof(long long),
-                (cudaStream_t)stream>>>(
-      (const long long*)tab, P, ncols, (const int32_t*)perm, n,
-      (uint8_t*)out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (words_dev != nullptr)
+    return launch_pack<1>(words, nwords, P, ncols, ntiles, words_dev, perm,
+                          out, st);
+  if (nwords <= kUnpackSmallWords)
+    return launch_pack<kUnpackSmallWords>(words, nwords, P, ncols, ntiles,
+                                          nullptr, perm, out, st);
+  if (nwords <= kUnpackLargeWords)
+    return launch_pack<kUnpackLargeWords>(words, nwords, P, ncols, ntiles,
+                                          nullptr, perm, out, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K15b: words is the host span table described above (nwords = 6 * nspans
@@ -325,10 +409,11 @@ int srt_mesh_unpack(const void* words, int64_t nwords, int nspans,
 // The constants the Python wrapper shares with this file, in the order of
 // ops/mesh_exchange.py's ``native.share_limits`` call: words a span,
 // output bytes a tile, table words of the small and the large parameter
-// struct.  Writes the first n of them.
+// struct (K15a's table takes the same two sizes), K15a's words a column
+// and rows a tile.  Writes the first n of them.
 int srt_mesh_exchange_limits(int64_t* out, int n) {
   const int64_t v[] = {kSpanWords, kTileBytes, kUnpackSmallWords,
-                       kUnpackLargeWords};
+                       kUnpackLargeWords, kPackColWords, kPackTileRows};
   for (int i = 0; i < n && i < (int)(sizeof(v) / sizeof(v[0])); ++i)
     out[i] = v[i];
   return 0;

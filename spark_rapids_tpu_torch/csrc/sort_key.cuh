@@ -17,10 +17,11 @@
 //                  the length (bit_length(W) bits).
 //
 // Descending keys store the complement of each field (W - length for the
-// length).  Both K1's packing (sort.cu encode_kernel, which ORs the fields
-// into wide limbs) and K11's comparison of rows with range bounds
-// (range_partition.cu, which compares field by field) read the fields from
-// key_field() below, so the two orders cannot drift apart.
+// length).  K1 (sort.cu: its plan kernel reduces each field's OR and AND,
+// its encode kernel packs the bits that vary into words) and K11's
+// comparison of rows with range bounds (range_partition.cu, which compares
+// field by field) read the fields from key_field() below, so the two
+// orders cannot drift apart.
 #pragma once
 
 #include <cstdint>
@@ -59,17 +60,32 @@ __device__ __forceinline__ unsigned long long low_bits(unsigned long long v,
   return bits < 64 ? v & ((1ull << bits) - 1ull) : v;
 }
 
+// The ways string_word reads a matrix: decided on each call (kWordsAny),
+// or fixed by a caller that checked once for a whole loop: a 4-byte
+// aligned matrix of a width divisible by 4 a word at a time
+// (kWordsAligned), any other one a byte at a time (kWordsBytes).
+enum WordPath { kWordsAny = 0, kWordsAligned = 1, kWordsBytes = 2 };
+
+__device__ __forceinline__ bool words_aligned(const void* data, int item) {
+  return (item & 3) == 0 && (reinterpret_cast<uintptr_t>(data) & 3) == 0;
+}
+
 // Big-endian 32-bit word w of string row `row` (bytes past `item` read as
 // zero).  A 4-byte aligned matrix of a width divisible by 4 is read a word
-// at a time, any other one a byte at a time.
+// at a time (a load under a predicate, so that a caller's loop over rows
+// keeps its loads in flight together), any other one a byte at a time.
+template <int kWords = kWordsAny>
 __device__ __forceinline__ uint32_t string_word(const uint8_t* data,
                                                 int64_t row, int item,
                                                 int w) {
   const int col = 4 * w;
-  if (col >= item) return 0u;
   const uint8_t* p = data + row * item + col;
-  if ((item & 3) == 0 && (reinterpret_cast<uintptr_t>(data) & 3) == 0)
-    return __byte_perm(*reinterpret_cast<const uint32_t*>(p), 0, 0x0123);
+  if (kWords == kWordsAligned ||
+      (kWords == kWordsAny && words_aligned(data, item)))
+    return col < item
+               ? __byte_perm(*reinterpret_cast<const uint32_t*>(p), 0, 0x0123)
+               : 0u;
+  if (col >= item) return 0u;
   uint32_t x = 0;
 #pragma unroll
   for (int b = 0; b < 4; ++b)
@@ -77,14 +93,22 @@ __device__ __forceinline__ uint32_t string_word(const uint8_t* data,
   return x;
 }
 
+// Which field of a string key a caller asks for, where it knows: any
+// (decided from f), a word (f >= 1, a string key), or the length.
+enum StringField { kStrAny = 0, kStrWord = 1, kStrLength = 2 };
+
 // Field f (0 = most significant) of key `k` at row `row`, masked to its
-// width, which is stored in *bits.
+// width, which is stored in *bits.  kWords: how a string key's matrix is
+// read (string_word); kStr: a string field known at compile time, so that
+// a loop over rows runs no branch between the word and the length.  The
+// value is the same every way.
+template <int kWords = kWordsAny, int kStr = kStrAny>
 __device__ __forceinline__ unsigned long long key_field(const SortKey& k,
                                                         int64_t row, int f,
                                                         int* bits) {
-  const int kind = (int)k.kind;
+  const int kind = kStr != kStrAny ? (int)kString : (int)k.kind;
   const bool asc = k.asc != 0;
-  if (f == 0) {
+  if (kStr == kStrAny && f == 0) {
     *bits = 1;
     const bool v = reinterpret_cast<const uint8_t*>(k.valid)[row] != 0;
     return v == (k.nulls_first != 0) ? 1ull : 0ull;
@@ -93,13 +117,13 @@ __device__ __forceinline__ unsigned long long key_field(const SortKey& k,
   const void* data = reinterpret_cast<const void*>(k.data);
   if (kind == kString) {
     const int width = (int)k.width;
-    if (f <= width / 4) {
+    if (kStr == kStrWord || (kStr == kStrAny && f <= width / 4)) {
       *bits = 32;
-      uint32_t x = string_word(static_cast<const uint8_t*>(data), row, item,
-                               f - 1);
+      uint32_t x = string_word<kWords>(static_cast<const uint8_t*>(data),
+                                       row, item, f - 1);
       return asc ? x : (uint32_t)~x;
     }
-    const int lb = key_bit_length(width);
+    const int lb = width > 0 ? 32 - __clz(width) : 0;  // key_bit_length
     *bits = lb;
     const int32_t len = reinterpret_cast<const int32_t*>(k.lens)[row];
     return (unsigned long long)(asc ? len : width - len);

@@ -15,7 +15,9 @@ host once per exchange (``parallel/mesh_shuffle.py``):
   column of a shard into ONE uint8 send buffer of P sections.  Section d
   holds each column's rows for d, 16-byte aligned: the data, the int32
   lengths (strings and arrays) and the validity bytes (:func:`pack_layout`);
-  the pad bytes are zero.
+  the pad bytes are zero.  The kernel works in tiles of up to
+  :data:`PACK_TILE_ROWS` rows of one (destination, column) block
+  (:func:`pack_plan`) and writes 16-byte chunks.
 * K15b :func:`mesh_unpack`, ``srt_mesh_unpack``: P segments (sections of
   send buffers, :func:`section_columns`, or a shard's own columns for an
   all-gather) front-packed in source-major order, string rows zero-padded
@@ -26,15 +28,14 @@ host once per exchange (``parallel/mesh_shuffle.py``):
 Each has its plain PyTorch version beside it (:func:`mesh_pack_plain`,
 :func:`mesh_unpack_plain`).  A wrapper takes it only for tensors on the
 CPU; on CUDA tensors it launches its kernel or raises.  Each counts its
-launches in ``.launches``.  K15a's wrapper hands its kernel a device-side
-int64 table of the columns' pointers and widths, copied from pinned host
-memory on the launch's stream; K15b's passes its span table
-(:func:`unpack_plan`) by value in the kernel's parameters, or as a device
-copy where it is longer than they hold.
+launches in ``.launches``.  Both pass their tables by value in the
+kernel's parameters, or as a device copy where they are longer than the
+parameters hold: K15a's (:func:`pack_plan`) names each column's pointers
+and row width, the destinations' row prefix and each (destination,
+column) block's offset; K15b's (:func:`unpack_plan`) lists byte spans.
 """
 from __future__ import annotations
 
-from array import array
 from typing import Sequence
 
 import torch
@@ -45,7 +46,7 @@ from spark_rapids_tpu_torch.ops.kernels import ptr
 
 __all__ = ["pack_layout", "mesh_pack", "mesh_pack_plain", "section_columns",
            "mesh_unpack", "mesh_unpack_plain", "unpack_outputs",
-           "unpack_plan", "MAX_MESH"]
+           "unpack_plan", "pack_plan", "MAX_MESH"]
 
 #: most sections K15a writes (and sources K15b reads): the row prefix
 #: lives in shared memory, (P + 1) int64
@@ -145,14 +146,46 @@ def mesh_pack_plain(cols: Sequence[DeviceColumn], perm: torch.Tensor,
     return out
 
 
-def _upload_table(words: list[int], dev) -> torch.Tensor:
-    host = torch.tensor(words, dtype=torch.int64).pin_memory()
-    return host.to(dev, non_blocking=True)
+#: int64 words of one column in K15a's table (csrc/mesh_exchange.cu
+#: ``kPackColWords``): data, validity, lengths, row bytes | vec << 32
+PACK_COL_WORDS = 4
+#: rows of one K15a tile (``kPackTileRows``): a tile lies inside one
+#: (destination, column) block
+PACK_TILE_ROWS = 2048
+
+
+def pack_plan(cols: Sequence[DeviceColumn], counts: Sequence[int], layout,
+              tile_rows: int = PACK_TILE_ROWS) -> tuple[list[int], int]:
+    """K15a's table for one send buffer: ``(words, ntiles)``.  ``words``
+    holds :data:`PACK_COL_WORDS` words a column (data, validity and
+    lengths addresses, the lengths 0 for a fixed-width column, and the row
+    bytes | vec << 32, vec the widest power-of-two load of at most 16 bytes
+    dividing the row bytes and the data's address), the destinations' row
+    prefix (``P + 1`` words), then the data offset of each (destination,
+    column) block in the buffer (``layout``'s, destination-major).  Tile
+    t is chunk ``t // (P * ncols)`` (``tile_rows`` rows) of destination
+    ``t // ncols % P``, column ``t % ncols``; ``ntiles`` covers the
+    largest destination, and a tile past its destination's rows does
+    nothing.  Reads only shapes and addresses, so it runs on any
+    device."""
+    _sections, blocks = layout
+    words = []
+    for col in cols:
+        d = col.data
+        rb = col.row_bytes
+        words += (d.data_ptr(), col.validity.data_ptr(),
+                  0 if col.lengths is None else col.lengths.data_ptr(),
+                  rb | _vec_bytes(d.data_ptr(), rb) << 32)
+    words += _cumsum(counts)
+    for row in blocks:
+        words += (data for data, _lens, _valid in row)
+    chunks = max(-(-int(c) // tile_rows) for c in counts)
+    return words, chunks * len(counts) * len(cols)
 
 
 def _pack_cuda(cols, perm, counts, layout) -> torch.Tensor:
     lib = native.lib("mesh_exchange")
-    sections, blocks = layout
+    sections, _blocks = layout
     P, ncols = len(counts), len(cols)
     n = perm.numel()
     if not 1 <= P <= MAX_MESH:
@@ -166,31 +199,25 @@ def _pack_cuda(cols, perm, counts, layout) -> torch.Tensor:
         raise ValueError(f"counts sum to {sum(counts)}, perm has {n} rows")
     dev = perm.device
     perm = perm.contiguous()
-    out = torch.empty(sections[-1], dtype=torch.uint8, device=dev)
-    keep, words = [], _cumsum(counts)
-    max_chunks = 1
+    ready = []
     for col in cols:
-        if col.data.device != dev:
-            raise ValueError(f"column on {col.data.device}, perm on {dev}")
         d, v = col.data.contiguous(), col.validity.contiguous()
-        if d.shape[0] != n or v.shape != (n,) or v.dtype != torch.bool:
-            raise ValueError(f"column of {n} rows expected, got data "
-                             f"{tuple(d.shape)}, validity {v.dtype}"
-                             f"{tuple(v.shape)}")
+        if d.device != dev or d.shape[0] != n or v.shape != (n,) \
+                or v.dtype != torch.bool:
+            raise ValueError(f"column of {n} rows on {dev} expected, got "
+                             f"data {tuple(d.shape)} on {d.device}, "
+                             f"validity {v.dtype}{tuple(v.shape)}")
         ln = None if col.lengths is None else \
             col.lengths.to(torch.int32).contiguous()
-        rb = col.row_bytes
-        vec = _vec_bytes(ptr(d), rb)
-        max_chunks = max(max_chunks, rb // vec)
-        words += [ptr(d), ptr(v), 0 if ln is None else ptr(ln), rb, vec]
-        keep += [d, v, ln]
-    for row in blocks:
-        for data, lens, valid in row:
-            words += [data, max(lens, 0), valid]
-    tab = _upload_table(words, dev)
-    native.check(lib.srt_mesh_pack(ptr(tab), P, ncols, ptr(perm), n,
-                                   ptr(out), max_chunks,
-                                   native.stream_ptr(dev)), "srt_mesh_pack")
+        ready.append(DeviceColumn(d, v, col.dtype, ln))
+    words, ntiles = pack_plan(ready, counts, layout)
+    host, tab = native.param_table(words, len(words) > UNPACK_PARAM_WORDS,
+                                   dev)
+    out = torch.empty(sections[-1], dtype=torch.uint8, device=dev)
+    native.check(lib.srt_mesh_pack(host.buffer_info()[0], len(words), P,
+                                   ncols, ntiles, ptr(tab), ptr(perm),
+                                   ptr(out), native.stream_ptr(dev)),
+                 "srt_mesh_pack")
     mesh_pack.launches += 1
     return out
 
@@ -273,7 +300,8 @@ UNPACK_SMALL_WORDS = 480
 UNPACK_PARAM_WORDS = 4000
 # the kernel library must report the same constants when it is loaded
 native.share_limits("mesh_exchange", (SPAN_WORDS, UNPACK_TILE,
-                                      UNPACK_SMALL_WORDS, UNPACK_PARAM_WORDS))
+                                      UNPACK_SMALL_WORDS, UNPACK_PARAM_WORDS,
+                                      PACK_COL_WORDS, PACK_TILE_ROWS))
 
 
 def unpack_outputs(segments: Sequence[Sequence[DeviceColumn]],
@@ -375,10 +403,8 @@ def _unpack_cuda(segments, counts, dev) -> list[DeviceColumn]:
         raise ValueError(f"{len(counts)} counts for {P} segments")
     out = unpack_outputs(segments, counts, dev)
     words, nspans, ntiles = unpack_plan(segments, counts, out)
-    host = array("q", words)
-    tab = None
-    if len(words) > UNPACK_PARAM_WORDS:
-        tab = torch.tensor(words, dtype=torch.int64).to(dev)
+    host, tab = native.param_table(words, len(words) > UNPACK_PARAM_WORDS,
+                                   dev)
     native.check(lib.srt_mesh_unpack(host.buffer_info()[0], len(words),
                                      nspans, ntiles, ptr(tab),
                                      native.stream_ptr(dev)),

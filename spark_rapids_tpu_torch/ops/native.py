@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "build", "lib", "share_limits", "stream_ptr", "check",
-           "NVCC_FLAGS"]
+           "param_table", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -74,10 +74,11 @@ _SIGNATURES = {
         "srt_gather_column": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "sort": {
-        "srt_sort_encode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _P],
-        "srt_sort_or_and": [_P, _L, _I, _P, _P],
-        "srt_sort_limb": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
-                          ctypes.POINTER(ctypes.c_int), _P],
+        "srt_sort_plan": [_P, _P, _I, _I, _L, _P, _I, _P],
+        "srt_sort_encode": [_P, _P, _I, _P, _P, _I, _I, _L, _P, _P, _L, _P],
+        "srt_sort_word": [_P, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                          _P, ctypes.POINTER(ctypes.c_int), _P],
+        "srt_sort_limits": [_P, _I],
     },
     "segmented": {
         "srt_seg_flags": [_P, _P, _P, _I, _I, _P, _L, _P],
@@ -166,7 +167,7 @@ _SIGNATURES = {
                        _P],
     },
     "mesh_exchange": {
-        "srt_mesh_pack": [_P, _I, _I, _P, _L, _P, _L, _P],
+        "srt_mesh_pack": [_P, _L, _I, _I, _L, _P, _P, _P, _P],
         "srt_mesh_unpack": [_P, _L, _I, _L, _P, _P],
         "srt_mesh_exchange_limits": [_P, _I],
     },
@@ -274,6 +275,18 @@ def stream_ptr(device) -> int:
             else getattr(device, "index", None)
         return raw(torch.cuda.current_device() if index is None else index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def param_table(words, copy: bool, device):
+    """A kernel's table of int64 ``words``: a host array, which the C entry
+    point copies into the kernel's parameters, and, where ``copy`` (the
+    table is longer than the parameters hold), a device copy the kernel
+    reads instead (else None)."""
+    import array
+    import torch
+    host = array.array("q", words)
+    return host, (torch.tensor(words, dtype=torch.int64).to(device)
+                  if copy else None)
 
 
 def check(rc: int, what: str) -> None:

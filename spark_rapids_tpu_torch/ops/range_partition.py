@@ -31,8 +31,6 @@ it launches its kernel or raises, and counts each launch in
 """
 from __future__ import annotations
 
-from array import array
-
 import torch
 
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
@@ -161,9 +159,9 @@ class RangeBounds:
             fields = torch.empty((self.count, TOP_WORDS + nfields),
                                  dtype=torch.int64, device=dev)
             if self.count:
-                host, keys_dev = _descriptor_table(
-                    key_descriptors(self.cols, statics), len(self.cols),
-                    dev)
+                host, keys_dev = native.param_table(
+                    key_descriptors(self.cols, statics),
+                    len(self.cols) > PARAM_KEYS, dev)
                 native.check(lib.srt_range_bound_fields(
                     host.buffer_info()[0], ptr(keys_dev), len(self.cols),
                     nfields, self.count, ptr(fields),
@@ -171,17 +169,6 @@ class RangeBounds:
             got = (statics, nfields, fields)
             self._layouts[widths] = got
         return got
-
-
-def _descriptor_table(words: list[int], nkeys: int, dev):
-    """The descriptor words as a host array for the kernel's parameters,
-    and their device copy where there are more than :data:`PARAM_KEYS`
-    keys (else None)."""
-    host = array("q", words)
-    keys_dev = None
-    if nkeys > PARAM_KEYS:
-        keys_dev = torch.tensor(words, dtype=torch.int64).to(dev)
-    return host, keys_dev
 
 
 def range_partition_ids(keys: list[DeviceColumn],
@@ -210,8 +197,8 @@ def _range_partition_cuda(keys: list[DeviceColumn],
     statics, nfields, fields = bounds.at(bounds.widths(keys))
     if fields.get_device() != keys[0].data.get_device():
         raise ValueError(f"bounds on {fields.device}, keys on {dev}")
-    host, keys_dev = _descriptor_table(key_descriptors(keys, statics),
-                                       len(keys), dev)
+    host, keys_dev = native.param_table(key_descriptors(keys, statics),
+                                        len(keys) > PARAM_KEYS, dev)
     native.check(lib.srt_range_partition(
         host.buffer_info()[0], ptr(keys_dev), len(keys), nfields,
         fields.data_ptr(), bounds.count, n, out.data_ptr(),

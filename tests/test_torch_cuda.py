@@ -1430,3 +1430,176 @@ def test_mesh_unpack_of_shard_slices_matches_plain(dev):
             assert torch.equal(g.validity, w.validity)
             if w.lengths is not None:
                 assert torch.equal(g.lengths, w.lengths)
+
+
+def _int_key(x, valid, dt):
+    """A key column of ``x`` on the card, null rows zeroed."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    return DeviceColumn(torch.where(valid, x, torch.zeros_like(x)), valid, dt)
+
+
+def _sorted_like_plain(monkeypatch, batch, orders):
+    """K1 against its plain version; returns the plan the wrapper used."""
+    plans = []
+    real = S.sort_plan
+
+    def spy(*args, **kw):
+        plans.append(real(*args, **kw))
+        return plans[-1]
+    monkeypatch.setattr(S, "sort_plan", spy)
+    before = S.sort_permutation.launches
+    got = S.sort_permutation(batch, orders)
+    assert S.sort_permutation.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, S.sort_permutation_plain(batch, orders))
+    assert len(plans) == 1
+    return plans[0]
+
+
+@pytest.mark.parametrize("n", [4095, 4096, 4097, (1 << 24) + 7])
+def test_radix_sort_tile_edges_match_plain(dev, monkeypatch, n):
+    """K1's tiles of 4096 rows: one short of a tile, one tile, one over,
+    and a partial last tile after 4096 full ones; nulls last in both
+    directions."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    valid = torch.rand(n, generator=g, device=dev) < 0.9
+    cols = [_int_key(torch.randint(-1000, 1000, (n,), generator=g,
+                                   device=dev, dtype=torch.int32), valid,
+                     T.IntegerType()),
+            _int_key(torch.randint(0, 4, (n,), generator=g, device=dev),
+                     torch.ones(n, dtype=torch.bool, device=dev),
+                     T.LongType())]
+    batch = ColumnBatch(cols, n, None, dev)
+    plan = _sorted_like_plain(monkeypatch, batch,
+                              [S.SortOrder(1, False), S.SortOrder(0, True,
+                                                                  False)])
+    # every bit of the int (negative and positive values), its null
+    # indicator and two bits of the long: one 64-bit word, five passes
+    assert plan.words == (35,) and plan.wide
+
+
+@pytest.mark.parametrize("digits", range(1, 10))
+def test_radix_sort_digit_counts_match_plain(dev, monkeypatch, digits):
+    """One to nine varying 8-bit digits: a long below 2^(8d - 1) (one
+    word, d passes, the last one 7 bits wide), and at nine a full-range
+    long under a bool, 65 bits: two 64-bit words."""
+    n = 300_007
+    g = torch.Generator(device=dev)
+    g.manual_seed(digits)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    if digits < 9:
+        hi = 1 << (8 * digits - 1)
+        x = torch.randint(0, hi // 2, (n,), generator=g, device=dev) * 2 \
+            + torch.randint(0, 2, (n,), generator=g, device=dev)
+        x[0], x[1] = 0, hi - 1  # every bit varies
+        cols = [_int_key(x, ones, T.LongType())]
+        orders = [S.SortOrder(0, digits % 2 == 0)]
+    else:
+        x = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                          device=dev) * 2 + torch.randint(
+                              0, 2, (n,), generator=g, device=dev)
+        b = torch.rand(n, generator=g, device=dev) < 0.5
+        cols = [_int_key(b, ones, T.BooleanType()),
+                _int_key(x, ones, T.LongType())]
+        orders = [S.SortOrder(0, False), S.SortOrder(1, True)]
+    plan = _sorted_like_plain(monkeypatch, ColumnBatch(cols, n, None, dev),
+                              orders)
+    assert sum(len(p) for p in plan.passes) == digits
+    if digits == 9:
+        assert plan.wide and plan.words == (64, 1)
+
+
+def test_radix_sort_wide_mixed_keys_match_plain(dev, monkeypatch):
+    """A double with NaN, -0.0 and nulls, a W 13 string and a long over
+    100 varying bits: three words, later words read through the
+    permutation so far."""
+    rng = np.random.default_rng(41)
+    pb = ColumnBatch.from_arrow(_record_batch(rng, 200_000), dev)
+    orders = [S.SortOrder(3, False, None), S.SortOrder(0, True, False),
+              S.SortOrder(2, True, None), S.SortOrder(6, False, True)]
+    plan = _sorted_like_plain(monkeypatch, pb, orders)
+    assert plan.wide and len(plan.words) >= 2
+
+
+def test_radix_sort_keeps_ties_stable(dev, monkeypatch):
+    """2^22 rows of one key among 100,000 others: equal keys keep their
+    input order."""
+    n = (1 << 22) + 100_000
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    x = torch.full((n,), 5, dtype=torch.int32, device=dev)
+    other = torch.randperm(n, generator=g, device=dev)[:100_000]
+    x[other] = torch.randint(-50, 50, (100_000,), generator=g, device=dev,
+                             dtype=torch.int32)
+    cols = [_int_key(x, torch.ones(n, dtype=torch.bool, device=dev),
+                     T.IntegerType())]
+    _sorted_like_plain(monkeypatch, ColumnBatch(cols, n, None, dev),
+                       [S.SortOrder(0, False)])
+
+
+def test_sort_batch_on_cuda_matches_cpu(dev):
+    """sort_batch end to end: K1 then K3's gather, every column."""
+    rng = np.random.default_rng(44)
+    rb = _record_batch(rng, 70_001)
+    orders = [S.SortOrder(0, False, None), S.SortOrder(4, True, False),
+              S.SortOrder(3, True, True)]
+    got = S.sort_batch(ColumnBatch.from_arrow(rb, dev), orders)
+    want = S.sort_batch(ColumnBatch.from_arrow(rb, torch.device("cpu")),
+                        orders)
+    for a, b in zip(got.to(torch.device("cpu")).columns, want.columns):
+        _same(a, b)
+
+
+def test_pack_keys_limbs_on_cuda(dev):
+    """pack_keys keeps every bit: an int32 key ascending with nulls first
+    packs as (valid << 32) | (x ^ 2^31) in one limb."""
+    n = 10_001
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    valid = torch.rand(n, generator=g, device=dev) < 0.8
+    col = _int_key(torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g,
+                                 device=dev, dtype=torch.int32), valid,
+                   T.IntegerType())
+    limbs = S.pack_keys([col], [S.SortOrder(0, True, True)])
+    want = (valid.to(torch.int64) << 32) | \
+        ((col.data.to(torch.int64) & 0xFFFFFFFF) ^ (1 << 31))
+    assert limbs.shape == (1, n) and torch.equal(limbs[0], want)
+
+
+@pytest.mark.parametrize("p", [1, 8, 4096])
+def test_mesh_pack_matches_plain_at_mesh_sizes(dev, p):
+    """K15a at P 1, 8 and 4096 (whose table leaves the kernel's
+    parameters) over an int64 column, a W 16 and a W 13 string, nulls,
+    K10's order; a 4-byte offset slice so that the data is not 16-byte
+    aligned."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import mesh_exchange as ME
+    from spark_rapids_tpu_torch.ops.partition import partition_order
+    n = 300_001
+    g = torch.Generator(device=dev)
+    g.manual_seed(p)
+
+    def string(w):
+        lens = torch.randint(0, w + 1, (n + 1,), generator=g, device=dev,
+                             dtype=torch.int32)
+        data = torch.randint(1, 256, (n + 1, w), generator=g, device=dev,
+                             dtype=torch.uint8)
+        data[torch.arange(w, device=dev)[None, :] >= lens[:, None]] = 0
+        return DeviceColumn(data[1:], torch.ones(n, dtype=torch.bool,
+                                                 device=dev),
+                            T.StringType(), lens[1:])
+
+    valid = torch.rand(n + 1, generator=g, device=dev) < 0.9
+    longs = torch.randint(-2 ** 62, 2 ** 62, (n + 1,), generator=g,
+                          device=dev)
+    cols = [DeviceColumn(torch.where(valid, longs, 0)[1:], valid[1:],
+                         T.LongType()), string(16), string(13)]
+    ids = torch.randint(0, p, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    perm, counts = partition_order(ids, p)[:2]
+    counts = [int(c) for c in counts.tolist()]
+    before = ME.mesh_pack.launches
+    buf, _layout = ME.mesh_pack(cols, perm, counts)
+    assert ME.mesh_pack.launches == before + 1
+    assert torch.equal(buf, ME.mesh_pack_plain(cols, perm, counts))

@@ -27,6 +27,7 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops import mesh_exchange as ME
 from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops import range_partition as RP
+from spark_rapids_tpu_torch.ops import sort as S
 from spark_rapids_tpu_torch.ops.sort import (SortOrder, key_layout,
                                              packed_width)
 
@@ -479,7 +480,9 @@ def _cuda_int(src: str, name: str) -> int:
     ("range_partition", ["sizeof(SortKey)", "kParamKeys", "kTopWords",
                          "kSharedBytes"]),
     ("mesh_exchange", ["kSpanWords", "kTileBytes", "kUnpackSmallWords",
-                       "kUnpackLargeWords"])])
+                       "kUnpackLargeWords", "kPackColWords", "kPackTileRows"]),
+    ("sort", ["sizeof(SortKey)", "kParamKeys", "kLargeSegs", "kSortTile",
+              "kPlanBlocks", "kMaxPasses", "kMaxRows"])])
 def test_shared_limits_match_the_cuda_source(name, consts):
     """The constants a wrapper registers with ``native.share_limits`` are
     the ones its ``srt_<name>_limits`` reports, in the same order: here
@@ -500,4 +503,8 @@ def test_shared_limits_match_the_cuda_source(name, consts):
     assert (RP.KEY_WORDS, RP.PARAM_KEYS, RP.TOP_WORDS, RP.SHARED_BYTES) \
         == native._LIMITS["range_partition"]
     assert (ME.SPAN_WORDS, ME.UNPACK_TILE, ME.UNPACK_SMALL_WORDS,
-            ME.UNPACK_PARAM_WORDS) == native._LIMITS["mesh_exchange"]
+            ME.UNPACK_PARAM_WORDS, ME.PACK_COL_WORDS, ME.PACK_TILE_ROWS) \
+        == native._LIMITS["mesh_exchange"]
+    assert (S.KEY_WORDS, S.PARAM_KEYS, S.LARGE_SEGS, S.SORT_TILE,
+            S.PLAN_BLOCKS, S.MAX_PASSES, S.MAX_ROWS) \
+        == native._LIMITS["sort"]
