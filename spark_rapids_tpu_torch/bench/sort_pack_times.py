@@ -1,9 +1,14 @@
-"""Time K1 (``sort_permutation``) and K15a (``mesh_pack``) of whichever
+"""Time K1 (``sort_permutation``), K3 (``gather_columns``), K6
+(``join._key_ids``) and K15a (``mesh_pack``) of whichever
 ``spark_rapids_tpu_torch`` is importable, at the shapes ``chip_smoke.py``
 checks them: q1's two one-letter keys at 2^24 rows, the mixed
 int64/f64/int32/W16-string keys at 2^22 rows in two orders, q6's rank
 join (K6 over 56,920 item rows of a W 16 category key, and K1 alone on
-that key), and a
+that key), K6 over 2^22 rows of one int64 key (3 x 2^20 left, 2^20
+right), K3 at 2^24 rows x q1's six columns under q1's sort permutation
+(q1's four key groups as its generator draws them, and six equally likely
+ones) and at 14,524 of 2^20 rows x six int32 columns (a q6 join output),
+and a
 4,194,304-row shard of one and of three int32 columns packed into 8
 sections in K10's order (top_customers_mesh's and q6_mesh_partitioned's
 largest).  Each result is first held against the package's plain version.
@@ -11,10 +16,13 @@ largest).  Each result is first held against the package's plain version.
 Prints one JSON line: the card (``nvidia-smi`` name and power limit), the
 package's directory and each time in ms (CUDA events, the mean of 20 calls
 after a warm-up, the best of two rounds), beside torch.argsort(stable=True)
-of q1's packed key and index_select of every leaf, timed in the same
-rounds.  Needs a CUDA card.  Two trees compare on one card, one process
-each, in turns (the parent unpacked with ``git archive`` into a git-ignored
-directory):
+of q1's packed key, torch.unique for K6 and index_select of every leaf
+for K3 and K15a, timed in the same rounds; for K3 also its C entry points
+alone (the package's own: one ``srt_gather`` a call, or one
+``srt_gather_column`` a column) and its kernels' device time a call
+(torch.profiler, where it sees device work).  Needs a CUDA card.  Two
+trees compare on one card, one process each, in turns (the parent
+unpacked with ``git archive`` into a git-ignored directory):
 
     for t in PARENT . . PARENT; do
         PYTHONPATH=$t python3 spark_rapids_tpu_torch/bench/sort_pack_times.py
@@ -99,6 +107,138 @@ def _mixed_keys(torch, dev, n: int):
     return ColumnBatch(cols, n, None, dev)
 
 
+def _q1_gather_cols(torch, dev, n: int):
+    """q1's six gathered columns as its generator draws them (the return
+    flag R or A where the receipt date is at most 1995-03-17, else N; the
+    status F where the ship date is at most that day, else O; quantity,
+    price, discount and tax as doubles), all valid, and q1's sort
+    permutation of them (by flag, then status: four groups)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import sort as S
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+    ship = ints(8036, 10591)
+    receipt = ship + ints(1, 31)
+    flag = torch.where(receipt <= 9204, ints(0, 2), 2)
+    status = (ship > 9204).long()
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    cols = []
+    for codes, letters in ((flag, b"RAN"), (status, b"FO")):
+        m = torch.zeros((n, 4), dtype=torch.uint8, device=dev)
+        m[:, 0] = torch.tensor(list(letters), dtype=torch.uint8,
+                               device=dev)[codes]
+        cols.append(DeviceColumn(m, ones, T.StringType(),
+                                 torch.ones(n, dtype=torch.int32,
+                                            device=dev)))
+    qty = ints(1, 51).double()
+    for x in (qty, torch.rand(n, generator=g, device=dev,
+                              dtype=torch.float64) * 1200 * qty,
+              ints(0, 11).double() * 0.01, ints(0, 9).double() * 0.01):
+        cols.append(DeviceColumn(x, ones, T.DoubleType()))
+    perm = S.sort_permutation(ColumnBatch(cols, n, None, dev),
+                              [S.SortOrder(0), S.SortOrder(1)])
+    return cols, perm
+
+
+def _q6_join_output(torch, dev):
+    """14,524 of 2^20 stream rows (sorted) x six nullable int32 columns."""
+    import numpy as np
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    rng = np.random.default_rng(6)
+    ns = 1 << 20
+    cols = []
+    for _ in range(6):
+        v = rng.random(ns) >= 0.02
+        x = np.where(v, rng.integers(0, ns, ns), 0).astype(np.int32)
+        cols.append(DeviceColumn(torch.from_numpy(x).to(dev),
+                                 torch.from_numpy(v).to(dev),
+                                 T.IntegerType()))
+    rows = np.sort(rng.choice(ns, 14_524, replace=False)).astype(np.int32)
+    return cols, torch.from_numpy(rows).to(dev)
+
+
+def _gather_entry(torch, cols, perm):
+    """K3's C entry points alone, outputs allocated once: one
+    ``srt_gather`` over every column, or (an older tree) one
+    ``srt_gather_column`` a column."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import native
+    lib = native.lib("gather")
+    m = perm.numel()
+    stream = native.stream_ptr(perm.device)
+    srcs = [K._contig(c) for c in cols]
+    outs = [K._empty_like_rows(c, m) for c in cols]
+    if "srt_gather" in native._SIGNATURES["gather"]:
+        words = K.gather_table(srcs, outs)
+        host, tab = native.param_table(
+            words, len(words) > K.GATHER_PARAM_WORDS, perm.device)
+        args = (host.buffer_info()[0], len(words), len(cols), K.ptr(tab),
+                perm.data_ptr(), m, stream)
+
+        # the table and the tensors it points to live as long as the call
+        def one(_keep=(host, tab, srcs, outs)):
+            lib.srt_gather(*args)
+        return one
+    calls = [(perm.data_ptr(), m, c.data.data_ptr(), o.data.data_ptr(),
+              c.validity.data_ptr(), o.validity.data_ptr(),
+              K.ptr(c.lengths), K.ptr(o.lengths), c.row_bytes, stream)
+             for c, o in zip(srcs, outs)]
+
+    def each(_keep=(srcs, outs)):
+        for a in calls:
+            lib.srt_gather_column(*a)
+    return each
+
+
+def _device_ms(torch, fn, reps: int = 10):
+    """The device time of a call (ms): its kernels' and copies' mean
+    times under torch.profiler over ``reps`` warm calls; None where the
+    profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / reps / 1e3 if total > 0 else None
+
+
+def _time_gather(torch, out: dict, name: str, cols, perm) -> None:
+    from spark_rapids_tpu_torch.ops import kernels as K
+    got = K.gather_columns(cols, perm)
+    for a, b in zip(got, K.gather_plain(cols, perm)):
+        for x, y in ((a.data, b.data), (a.validity, b.validity),
+                     (a.lengths, b.lengths)):
+            if (x is None) != (y is None) or (x is not None and not
+                                              torch.equal(x, y)):
+                raise AssertionError(f"K3 differs from its plain version "
+                                     f"({name})")
+    idx = perm.long()
+    leaves = [t for c in cols for t in (c.data, c.validity, c.lengths)
+              if t is not None]
+    entry = _gather_entry(torch, cols, perm)
+    t = _best(torch, {
+        "k3": lambda: K.gather_columns(cols, perm),
+        "entry": entry,
+        "index_select": lambda: [x.index_select(0, idx) for x in leaves]})
+    out[f"k3_{name}_ms"] = t["k3"]
+    out[f"k3_{name}_entry_ms"] = t["entry"]
+    out[f"k3_{name}_index_select_ms"] = t["index_select"]
+    out[f"k3_{name}_device_ms"] = _device_ms(
+        torch, lambda: K.gather_columns(cols, perm))
+
+
 def _category_keys(torch, dev, n: int):
     """q6's rank join: n item rows of a nullable W 16 string key (10
     category names) against the 11 category groups (the first null)."""
@@ -125,6 +265,23 @@ def _category_keys(torch, dev, n: int):
     return item, cats
 
 
+def _int64_sides(torch, dev, nl: int, nr: int):
+    """Two join sides of one int64 key: 1,000 values 2^33 apart, 3%
+    null."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    out = []
+    for n in (nl, nr):
+        v = torch.rand(n, generator=g, device=dev) >= 0.03
+        x = torch.randint(-500, 500, (n,), generator=g, device=dev) << 33
+        out.append(ColumnBatch([DeviceColumn(torch.where(v, x, 0), v,
+                                             T.LongType())], n, None, dev))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -142,7 +299,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    native.build(["sort", "mesh_exchange", "partition_group"])
+    native.build(["sort", "mesh_exchange", "partition_group", "gather",
+                  "join_ids"])
     dev = torch.device("cuda", 0)
     out = {"card": card, "package": os.path.dirname(pkg.__file__)}
     q1 = _q1_keys(torch, dev, 1 << 24)
@@ -156,7 +314,21 @@ def main() -> int:
         "k1_q1_ms": lambda: S.sort_permutation(q1, orders),
         "argsort_ms": lambda: torch.argsort(packed, stable=True)})
     out.update(t)
-    del q1, packed
+    # K3 under q1's six equally likely key pairs, then q1's own groups
+    ones = torch.ones(q1.num_rows, dtype=torch.bool, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    _time_gather(torch, out, "q1even", list(q1.columns) + [
+        DeviceColumn(torch.rand(q1.num_rows, generator=g, device=dev,
+                                dtype=torch.float64), ones, T.DoubleType())
+        for _ in range(4)], S.sort_permutation(q1, orders))
+    del q1, packed, ones
+    cols, perm = _q1_gather_cols(torch, dev, 1 << 24)
+    _time_gather(torch, out, "q1", cols, perm)
+    del cols, perm
+    cols, rows = _q6_join_output(torch, dev)
+    _time_gather(torch, out, "q6", cols, rows)
+    del cols, rows
     mixed = _mixed_keys(torch, dev, 1 << 22)
     out["k1_mixed_ms"] = []
     for mo in ([S.SortOrder(1, True, None), S.SortOrder(3, False, None),
@@ -177,10 +349,27 @@ def main() -> int:
                        S.sort_permutation_plain(item, one)):
         raise AssertionError("K1 differs from its plain version (q6's "
                              "category key)")
+    mat = torch.cat([item.columns[0].data, cats.columns[0].data])
     t = _best(torch, {
         "k1_category_ms": lambda: S.sort_permutation(item, one),
-        "k6_q6_ms": lambda: J._key_ids(item, cats, [0], [0])})
+        "k6_q6_ms": lambda: J._key_ids(item, cats, [0], [0]),
+        "unique_q6_ms": lambda: torch.unique(mat, dim=0, sorted=True,
+                                             return_inverse=True)})
     out.update(t)
+    left, right = _int64_sides(torch, dev, 3 << 20, 1 << 20)
+    if any(not torch.equal(a, b) for a, b in zip(
+            J._key_ids(left, right, [0], [0]),
+            J.key_ids_plain(left, right, [0], [0]))):
+        raise AssertionError("K6 differs from its plain version (one "
+                             "int64 key)")
+    both = torch.cat([left.columns[0].data, right.columns[0].data])
+    t = _best(torch, {
+        "k6": lambda: J._key_ids(left, right, [0], [0]),
+        "unique": lambda: torch.unique(both, sorted=True,
+                                       return_inverse=True)})
+    out["k6_int64_2p22_ms"] = t["k6"]
+    out["unique_int64_2p22_ms"] = t["unique"]
+    del left, right, both
     n = 4_194_304
     g = torch.Generator(device=dev)
     g.manual_seed(3)

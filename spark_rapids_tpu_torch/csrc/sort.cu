@@ -584,7 +584,7 @@ template <typename K>
 int sort_word(const void* word, int nbits, const void* perm_in, int64_t n,
               void* keys_a, void* keys_b, void* vals_a, void* vals_b,
               void* hist, void* base, void* status, void* tickets,
-              int* where_out, cudaStream_t st) {
+              void* keys_last, int* where_out, cudaStream_t st) {
   const int npasses = (nbits + 7) / 8;
   const long long ntiles = (n + kSortTile - 1) / kSortTile;
   const long long nstatus = (long long)npasses * ntiles * kRadix;
@@ -602,7 +602,7 @@ int sort_word(const void* word, int nbits, const void* perm_in, int64_t n,
   for (int p = 0; p < npasses; ++p) {
     a.shift = 8 * p;
     a.bits = nbits - 8 * p < 8 ? nbits - 8 * p : 8;
-    a.keys_out = p + 1 < npasses ? kout : nullptr;
+    a.keys_out = p + 1 < npasses ? kout : (K*)keys_last;
     a.vals_out = vout;
     a.base = (const u32*)base + p * kRadix;
     a.status = (u32*)status + p * ntiles * kRadix;
@@ -674,29 +674,33 @@ int srt_sort_encode(const void* keys, const void* keys_dev, int nkeys,
 
 // Sort one word (nbits of it, key_bytes 4 or 8; word: n keys in row
 // order) stably on top of perm_in (null: the rows in input order), one
-// upsweep, one scan and one scatter a digit.  keys_a/keys_b: n keys each;
+// upsweep, one scan and one scatter a digit.  keys_a/keys_b: n keys each
+// (read only where the word takes more than one pass);
 // vals_a/vals_b: n int32 each, distinct from perm_in; hist: kMaxPasses *
 // 256 uint32, zero on entry (srt_sort_encode zeroes them); base:
 // kMaxPasses * 256 uint32; status: ceil(nbits / 8) * ceil(n / kSortTile)
-// * 256 uint32; tickets: kMaxPasses uint32.  *where_out: 0 = the
-// permutation is in vals_a, 1 = in vals_b.
+// * 256 uint32; tickets: kMaxPasses uint32; keys_last: null, or n keys
+// that the last pass writes the word into in sorted order (K6 reads the
+// most significant word so, in order).  *where_out: 0 = the permutation
+// is in vals_a, 1 = in vals_b.
 int srt_sort_word(const void* word, int key_bytes, int nbits,
                   const void* perm_in, int64_t n, void* keys_a, void* keys_b,
                   void* vals_a, void* vals_b, void* hist, void* base,
-                  void* status, void* tickets, int* where_out,
-                  void* stream) {
+                  void* status, void* tickets, void* keys_last,
+                  int* where_out, void* stream) {
   if (n < 1 || n > kMaxRows || nbits < 1 || nbits > 8 * key_bytes ||
       (key_bytes != 4 && key_bytes != 8) || vals_a == perm_in ||
-      vals_b == perm_in)
+      vals_b == perm_in || keys_last == word ||
+      (nbits > 8 && (keys_last == keys_a || keys_last == keys_b)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return key_bytes == 8
              ? sort_word<u64>(word, nbits, perm_in, n, keys_a, keys_b, vals_a,
-                              vals_b, hist, base, status, tickets, where_out,
-                              st)
+                              vals_b, hist, base, status, tickets, keys_last,
+                              where_out, st)
              : sort_word<u32>(word, nbits, perm_in, n, keys_a, keys_b, vals_a,
-                              vals_b, hist, base, status, tickets, where_out,
-                              st);
+                              vals_b, hist, base, status, tickets, keys_last,
+                              where_out, st);
 }
 
 // The constants the Python wrapper shares with this file, in the order of

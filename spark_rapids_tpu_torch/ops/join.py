@@ -15,11 +15,12 @@ The reference joins sort-merge style, from XLA primitives:
    (stream row, build row); full outer appends the unmatched build rows;
    ``gather_join_output`` gathers both sides (K3).
 
-On CUDA the sorts are K1 (``sort_permutation``), the gathers K3 and the
-boundary flags K4's ``srt_seg_flags``; the new kernels are
-``csrc/join_probe.cu`` (K5: build-key rewrite, the binary-search probe
-with per-join-type counts and the batch total), ``csrc/join_ids.cu``
-(K6: flags -> dense ids, scattered back to the rows) and
+On CUDA the sorts are K1 (``sort_permutation``; K6's through
+``sort_words``, which keeps K1's packed key words) and the gathers K3; the
+new kernels are ``csrc/join_probe.cu`` (K5: build-key rewrite, the
+binary-search probe with per-join-type counts and the batch total),
+``csrc/join_ids.cu`` (K6: flags between neighbouring sorted rows' words ->
+dense ids, scattered back to the rows) and
 ``csrc/join_expand.cu`` (K7: exclusive scan of the counts, one binary
 search per output slot, the full-outer tail, the matched-build bitmap).
 Beside each is its plain PyTorch version; a wrapper takes it only for a
@@ -49,12 +50,12 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops.kernels import (gather_columns, gather_plain,
                                                 num_tiles, ptr)
-from spark_rapids_tpu_torch.ops.segmented import (_cols_differ,
-                                                  _segment_flags)
+from spark_rapids_tpu_torch.ops.segmented import _cols_differ
 from spark_rapids_tpu_torch.ops.sort import (SortOrder, chain_sort,
                                              encode_key_operands,
                                              sort_permutation,
-                                             sort_permutation_plain)
+                                             sort_permutation_plain,
+                                             sort_words)
 
 __all__ = ["JOIN_TYPES", "I32MAX", "build_prepare_fast",
            "build_prepare_fast_plain", "probe_fast", "probe_fast_plain",
@@ -93,8 +94,9 @@ def _combined_key_column(lc: DeviceColumn, rc: DeviceColumn) -> DeviceColumn:
     validity = torch.cat([lc.validity, rc.validity])
     if lc.is_var_width:
         w = max(lc.max_len, rc.max_len)
-        ld = torch.nn.functional.pad(lc.data, (0, w - lc.max_len))
-        rd = torch.nn.functional.pad(rc.data, (0, w - rc.max_len))
+        ld, rd = (c.data if c.max_len == w else
+                  torch.nn.functional.pad(c.data, (0, w - c.max_len))
+                  for c in (lc, rc))
         return DeviceColumn(torch.cat([ld, rd]), validity, lc.dtype,
                             torch.cat([lc.lengths, rc.lengths]))
     return DeviceColumn(torch.cat([lc.data, rc.data]), validity, lc.dtype)
@@ -266,9 +268,11 @@ def _combined(lbatch, rbatch, lkeys, rkeys):
     key is non-null."""
     cols = [_combined_key_column(lbatch.columns[a], rbatch.columns[b])
             for a, b in zip(lkeys, rkeys)]
-    valid = torch.ones(lbatch.num_rows + rbatch.num_rows, dtype=torch.bool,
-                       device=lbatch.device)
-    for c in cols:
+    if not cols:
+        return cols, torch.ones(lbatch.num_rows + rbatch.num_rows,
+                                dtype=torch.bool, device=lbatch.device)
+    valid = cols[0].validity
+    for c in cols[1:]:
         valid = valid & c.validity
     return cols, valid
 
@@ -296,26 +300,50 @@ def key_ids_plain(lbatch: ColumnBatch, rbatch: ColumnBatch,
     return lid.to(torch.int32), rid.to(torch.int32)
 
 
+#: sorted rows a tile of the ids kernel (csrc/join_ids.cu ``kIdsTile``)
+IDS_TILE = 4096
+native.share_limits("join_ids", (IDS_TILE,))
+
+
+def ids_sort_keys(cols, valid):
+    """K6's K1 sort: ``(keys, orders, drop)``.  The leading key is the
+    rows' validity, nulls last, of which only the null indicator is kept
+    (set where a key is null), so rows with a null key sort last; every
+    key's own null indicator is dropped from the words, as it is the same
+    in every valid row."""
+    keys = [DeviceColumn(valid, valid, T.BooleanType())] + list(cols)
+    orders = [SortOrder(0, True, False)] + \
+        [SortOrder(i, True, True) for i in range(1, len(keys))]
+    drop = [(0, 1)] + [(k, 0) for k in range(1, len(keys))]
+    return keys, orders, drop
+
+
+def ids_valid_bit(plan) -> int:
+    """The bit of K1's top word that is set where a row has a null key
+    (the validity key's null indicator, the highest kept bit), or -1
+    where it does not vary."""
+    return next((dst for k, f, _s, _n, _w, dst in plan.segments
+                 if (k, f) == (0, 0)), -1)
+
+
 def _ids_cuda(cols, valid, cl: int):
+    """K6 on the card: K1 over :func:`ids_sort_keys` keeping its packed
+    words, then one ids kernel over them (csrc/join_ids.cu)."""
     dev = valid.device
     cc = valid.numel()
-    inv = DeviceColumn(~valid, torch.ones_like(valid), T.BooleanType())
-    batch = ColumnBatch([inv] + cols, cc, T.Schema(
-        [T.StructField(f"k{i}", c.dtype) for i, c in
-         enumerate([inv] + cols)]), dev)
-    order = sort_permutation(batch, [SortOrder(i, True, True)
-                                     for i in range(len(cols) + 1)])  # K1
-    sorted_cols = gather_columns(cols, order)                          # K3
-    stream = native.stream_ptr(dev)
-    flags = torch.zeros(cc, dtype=torch.uint8, device=dev)
-    _segment_flags(sorted_cols, flags)                                 # K4
-    nt = num_tiles(cc)
-    counts = torch.empty(nt, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nt + 1, dtype=torch.int32, device=dev)
+    keys, orders, drop = ids_sort_keys(cols, valid)
+    nt = -(-cc // IDS_TILE)
+    sw = sort_words(keys, orders, drop=drop, extra=1 + nt,
+                    keep_top=True)                                    # K1
     ids = torch.empty(cc, dtype=torch.int32, device=dev)
+    words = sw.words
     native.check(native.lib("join_ids").srt_join_key_ids(
-        ptr(flags), ptr(order), ptr(valid), cc, cl,
-        ptr(counts), ptr(offsets), ptr(ids), stream), "srt_join_key_ids")
+        ptr(sw.top), ptr(words),
+        0 if words is None else words.element_size(),
+        0 if words is None else words.shape[0], ptr(sw.perm),
+        ids_valid_bit(sw.plan), int(sw.ors[0][0] == 0), cc, cl,
+        ptr(sw.extra), ptr(ids), native.stream_ptr(dev)),
+        "srt_join_key_ids")
     _key_ids.launches += 1
     return ids[:cl], ids[cl:]
 

@@ -21,7 +21,8 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops import native
 
 __all__ = ["compact", "compact_plain", "gather_columns", "gather_plain",
-           "take", "concat_batches", "slice_batch", "slice_rows", "TILE"]
+           "gather_table", "vec_bytes", "take", "concat_batches",
+           "slice_batch", "slice_rows", "TILE"]
 
 #: rows per tile of the flag-scan kernels (csrc/common.cuh kTile)
 TILE = 4096
@@ -156,6 +157,56 @@ def _gather_column_plain(col: DeviceColumn, perm: torch.Tensor
                         col.dtype)
 
 
+#: table words a column of the gather kernel (csrc/gather.cu
+#: ``kGatherColWords``): source and destination data, validity and
+#: lengths, then row bytes | vec << 32 | empty << 40
+GATHER_COL_WORDS = 7
+#: output rows a tile and rows a thread, 32 apart (``kGatherTile``,
+#: ``kRun``)
+GATHER_TILE = 2048
+GATHER_RUN = 8
+#: table words of the kernel's small and large parameter struct
+#: (``kGatherSmallWords``, ``kGatherLargeWords``); a longer table is read
+#: from a device copy
+GATHER_SMALL_WORDS = 480
+GATHER_PARAM_WORDS = 4000
+native.share_limits("gather", (GATHER_COL_WORDS, GATHER_TILE, GATHER_RUN,
+                               GATHER_SMALL_WORDS, GATHER_PARAM_WORDS))
+
+
+def vec_bytes(row_bytes: int, *addresses: int) -> int:
+    """The widest power-of-two load, at most 16 bytes, that divides the
+    row bytes and every address (csrc/common.cuh ``pick_vec_bytes``)."""
+    bits = row_bytes
+    for a in addresses:
+        bits |= a
+    v = 16
+    while v > 1 and bits & (v - 1):
+        v >>= 1
+    return v
+
+
+def gather_table(srcs: Sequence[DeviceColumn],
+                 outs: Sequence[DeviceColumn]) -> list[int]:
+    """The gather kernel's table (:data:`GATHER_COL_WORDS` int64 words a
+    column): the addresses of each source's and output's data, validity
+    and lengths (0 for a fixed-width column), then its row bytes, the
+    widest load that divides them and both data addresses (a row is one
+    load where the two are equal) and whether the source has no rows (its
+    every output row is null).  Sources and outputs must be contiguous
+    (the wrapper's ``_contig`` and fresh allocations)."""
+    words = []
+    for c, o in zip(srcs, outs):
+        rb = c.row_bytes
+        src, dst = c.data.data_ptr(), o.data.data_ptr()
+        words += (src, dst, c.validity.data_ptr(), o.validity.data_ptr(),
+                  0 if c.lengths is None else c.lengths.data_ptr(),
+                  0 if o.lengths is None else o.lengths.data_ptr(),
+                  rb | vec_bytes(rb, src, dst) << 32
+                  | int(c.capacity == 0) << 40)
+    return words
+
+
 def _gather_cuda(cols: Sequence[DeviceColumn],
                  perm: torch.Tensor) -> list[DeviceColumn]:
     lib = native.lib("gather")
@@ -164,21 +215,23 @@ def _gather_cuda(cols: Sequence[DeviceColumn],
                          f"{tuple(perm.shape)}")
     perm = perm.contiguous()
     m = perm.numel()
-    stream = native.stream_ptr(perm.device)
-    out = []
+    srcs, outs = [], []
     for c in cols:
         if c.data.device != perm.device:
             raise ValueError(f"column on {c.data.device}, perm on "
                              f"{perm.device}")
-        c = _contig(c)
-        o = _empty_like_rows(c, m)
-        native.check(lib.srt_gather_column(
-            ptr(perm), m, ptr(c.data), ptr(o.data), ptr(c.validity),
-            ptr(o.validity), ptr(c.lengths), ptr(o.lengths), c.row_bytes,
-            stream), "srt_gather_column")
-        out.append(o)
+        srcs.append(_contig(c))
+        outs.append(_empty_like_rows(c, m))
+    if m == 0 or not outs:
+        return outs
+    words = gather_table(srcs, outs)
+    host, dev_tab = native.param_table(words, len(words) > GATHER_PARAM_WORDS,
+                                       perm.device)
+    native.check(lib.srt_gather(
+        host.buffer_info()[0], len(words), len(outs), ptr(dev_tab),
+        ptr(perm), m, native.stream_ptr(perm.device)), "srt_gather")
     gather_columns.launches += 1
-    return out
+    return outs
 
 
 def take(batch: ColumnBatch, indices: torch.Tensor) -> ColumnBatch:

@@ -71,13 +71,14 @@ _SIGNATURES = {
         "srt_compact_column": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "gather": {
-        "srt_gather_column": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _P],
+        "srt_gather": [_P, _L, _I, _P, _P, _L, _P],
+        "srt_gather_limits": [_P, _I],
     },
     "sort": {
         "srt_sort_plan": [_P, _P, _I, _I, _L, _P, _I, _P],
         "srt_sort_encode": [_P, _P, _I, _P, _P, _I, _I, _L, _P, _P, _L, _P],
         "srt_sort_word": [_P, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                          _P, ctypes.POINTER(ctypes.c_int), _P],
+                          _P, _P, ctypes.POINTER(ctypes.c_int), _P],
         "srt_sort_limits": [_P, _I],
     },
     "segmented": {
@@ -96,7 +97,9 @@ _SIGNATURES = {
                             _P],
     },
     "join_ids": {
-        "srt_join_key_ids": [_P, _P, _P, _L, _L, _P, _P, _P, _P],
+        "srt_join_key_ids": [_P, _P, _I, _I, _P, _I, _I, _L, _L, _P, _P,
+                             _P],
+        "srt_join_ids_limits": [_P, _I],
     },
     "join_expand": {
         "srt_join_offsets": [_P, _L, _P, _P, _P, _P],

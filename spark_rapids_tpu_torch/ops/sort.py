@@ -17,7 +17,10 @@ kernel reduces each order-preserving key field's OR and AND over the rows
 (the call's one host read), :func:`sort_plan` keeps the bits where they
 differ, a second kernel packs them into one 32-bit word or a few 64-bit
 words, and an onesweep pass sorts each 8-bit digit (an upsweep and a scan
-a word, one scatter a digit).  On the CPU its plain version chains stable
+a word, one scatter a digit).  :func:`sort_words` is the same sort for a
+caller that also needs what it builds (the join's key ids, K6: the words,
+the plan, the top word in sorted order).  On the CPU its plain version
+chains stable
 ``torch.sort`` calls from the least significant operand up, in int64 and
 float64 (torch on the CPU has no uint32 shifts or adds).
 
@@ -42,7 +45,8 @@ __all__ = ["SortOrder", "sort_batch", "sort_permutation",
            "sort_permutation_plain", "encode_key_operands",
            "normalize_floats", "chain_sort", "pack_keys", "packed_width",
            "key_layout", "key_field_bits", "SortPlan", "sort_plan",
-           "segment_words", "digit_passes", "varying_masks"]
+           "segment_words", "digit_passes", "varying_masks", "field_ors",
+           "sort_words", "SortedWords"]
 
 
 @dataclass(frozen=True)
@@ -229,6 +233,24 @@ def digit_passes(bits: int) -> tuple:
     return tuple((s, min(8, bits - s)) for s in range(0, bits, 8))
 
 
+def _by_key(flat: list, field_bits: list[list[int]]) -> list[list[int]]:
+    out, at = [], 0
+    for fb in field_bits:
+        out.append(flat[at:at + len(fb)])
+        at += len(fb)
+    return out
+
+
+def field_ors(partials, field_bits: list[list[int]]) -> list[list[int]]:
+    """Each field's OR over every row, per key, from the plan kernel's
+    per-block results (:func:`varying_masks`): where a field does not
+    vary, its value in every row."""
+    nfields = sum(map(len, field_bits))
+    part = np.asarray(partials, dtype=np.uint64).reshape(2 * nfields, -1)
+    return _by_key(np.bitwise_or.reduce(part[0::2], axis=1).tolist(),
+                   field_bits)
+
+
 def varying_masks(partials, field_bits: list[list[int]]) -> list[list[int]]:
     """Fold the plan kernel's per-block results (uint64 ``[2 * nfields,
     blocks]``: row 2g the OR of field g over each block's rows, row 2g + 1
@@ -240,12 +262,7 @@ def varying_masks(partials, field_bits: list[list[int]]) -> list[list[int]]:
     part = np.asarray(partials, dtype=np.uint64).reshape(2 * nfields, -1)
     ors = np.bitwise_or.reduce(part[0::2], axis=1)
     ands = np.bitwise_and.reduce(part[1::2], axis=1)
-    flat = (ors & ~ands).tolist()
-    out, at = [], 0
-    for fb in field_bits:
-        out.append(flat[at:at + len(fb)])
-        at += len(fb)
-    return out
+    return _by_key((ors & ~ands).tolist(), field_bits)
 
 
 def sort_plan(field_bits: list[list[int]], masks: list[list[int]],
@@ -377,17 +394,57 @@ def pack_keys(cols: list[DeviceColumn], orders: list[SortOrder],
     return limbs
 
 
-def _sort_permutation_cuda(batch: ColumnBatch,
-                           orders: list[SortOrder]) -> torch.Tensor:
+@dataclass(frozen=True)
+class SortedWords:
+    """What :func:`sort_words` leaves: ``perm`` the stable permutation
+    (int32, None where no kept bit varies: the rows in input order);
+    ``words`` the packed words in row order (int32 ``[1, n]`` or int64
+    ``[nwords, n]``, word 0 least significant) and ``top`` the most
+    significant one in sorted order (None without a kept bit, or where
+    not asked for); ``plan`` K1's :class:`SortPlan`; ``ors`` each field's
+    OR over the rows, per key (:func:`field_ors`: a field that does not
+    vary has that value in every row); ``extra`` the caller's int32
+    scratch, zeroed by the encode kernel (None without a kept bit)."""
+    perm: torch.Tensor | None
+    words: torch.Tensor | None
+    top: torch.Tensor | None
+    plan: SortPlan
+    ors: list
+    extra: torch.Tensor | None
+
+
+def sort_words(cols: list[DeviceColumn], orders: list[SortOrder],
+               drop=(), extra: int = 0, keep_top: bool = False
+               ) -> SortedWords:
+    """K1 over the key columns ``cols`` (``orders[i]`` gives the direction
+    and null order of ``cols[i]``; its ``child_index`` is not read) on
+    their CUDA device, keeping what the sort builds: the permutation, the
+    encoded words and the plan; with ``keep_top`` also the most
+    significant word in sorted order (written by its last pass).  The
+    bits of the fields ``(key, field)`` in ``drop`` are not kept, though
+    they vary: a caller that knows they decide no order it needs (the
+    join's key ids: every key's null indicator under a leading validity
+    key).  ``extra`` int32 of scratch
+    are zeroed by the encode launch.  One plan launch (counted in
+    ``sort_permutation.launches``), the call's one host read, the encode
+    and one upsweep, one scan and a scatter a digit pass a word; no
+    memset, no gather."""
+    return _sort(cols, orders, drop, extra, keep_top, keep=True)
+
+
+def _sort(cols: list[DeviceColumn], orders: list[SortOrder], drop=(),
+          extra: int = 0, keep_top: bool = False, keep: bool = False):
+    """:func:`sort_words`; unless ``keep``, only the permutation (None
+    where no kept bit varies), with no view of the words built and no OR
+    folded: K1's own calls pay for nothing that only K6 reads."""
     lib = native.lib("sort")
-    n = batch.num_rows
-    if n > MAX_ROWS:
-        raise ValueError(f"K1 sorts at most {MAX_ROWS} rows, got {n}")
-    dev = batch.device
+    n = cols[0].capacity
+    if not 0 < n <= MAX_ROWS:
+        raise ValueError(f"K1 sorts 1 to {MAX_ROWS} rows, got {n}")
+    dev = cols[0].device
     stream = native.stream_ptr(dev)
     nkeys = len(orders)
-    words, field_bits, _keep = _key_descriptors(
-        [batch.columns[o.child_index] for o in orders], orders)
+    words, field_bits, _keep = _key_descriptors(cols, orders)
     keys = native.param_table(words, nkeys > PARAM_KEYS, dev)
     nfields = sum(map(len, field_bits))
     ntiles = -(-n // SORT_TILE)
@@ -401,29 +458,36 @@ def _sort_permutation_cuda(batch: ColumnBatch,
     # the permutation's buffers, allocated while the plan kernel runs
     vals = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
     # the call's one host read: which bits of the key vary
-    plan = sort_plan(field_bits, varying_masks(
-        partials.cpu().numpy().view(np.uint64), field_bits))
+    part = partials.cpu().numpy().view(np.uint64)
+    masks = varying_masks(part, field_bits)
+    for k, f in drop:
+        masks[k][f] = 0
+    plan = sort_plan(field_bits, masks)
     if not plan.bits:
-        return torch.arange(n, dtype=torch.int32, device=dev)
+        return SortedWords(None, None, None, plan,
+                           field_ors(part, field_bits), None) \
+            if keep else None
     nw = len(plan.words)
     kb = 8 if plan.wide else 4
     passes = max(len(p) for p in plan.passes)
     hist_words = MAX_PASSES * _RADIX
     # one scratch buffer: the encoded words, two key buffers where a word
-    # takes more than one pass, then uint32 histograms (a set a word),
-    # digit offsets, tickets and the look-back state
+    # takes more than one pass, the top word in sorted order where asked
+    # for (16-byte aligned), then uint32 histograms (a set a word), the
+    # caller's scratch, digit offsets, tickets and the look-back state
     wbytes = kb * n
-    ints_at = (nw + (2 if passes > 1 else 0)) * wbytes
-    nints = (nw + 1) * hist_words + MAX_PASSES + passes * ntiles * _RADIX
+    top_at = -(-(nw + (2 if passes > 1 else 0)) * wbytes // 16) * 16
+    ints_at = top_at + (wbytes if keep_top else 0)
+    nzero = nw * hist_words + extra
+    nints = nzero + hist_words + MAX_PASSES + passes * ntiles * _RADIX
     work = torch.empty(ints_at + 4 * nints, dtype=torch.uint8, device=dev)
     at = work.data_ptr()
     keys_a = at + nw * wbytes
     hist = at + ints_at
-    base = hist + 4 * nw * hist_words
+    base = hist + 4 * nzero
     tickets = base + 4 * hist_words
     status = tickets + 4 * MAX_PASSES
-    _encode(lib, keys, nkeys, plan, n, at, hist, nw * hist_words, dev,
-            stream)
+    _encode(lib, keys, nkeys, plan, n, at, hist, nzero, dev, stream)
     if nw > 1:  # a later word's first pass reads the permutation so far
         vals.append(torch.empty(n, dtype=torch.int32, device=dev))
     cur = None
@@ -435,9 +499,27 @@ def _sort_permutation_cuda(batch: ColumnBatch,
             None if cur is None else vals[cur].data_ptr(), n, keys_a,
             keys_a + wbytes, vals[a].data_ptr(), vals[b].data_ptr(),
             hist + 4 * w * hist_words, base, status, tickets,
+            at + top_at if keep_top and w + 1 == nw else None,
             ctypes.byref(where), stream), "srt_sort_word")
         cur = a if where.value == 0 else b
-    return vals[cur]
+    if not keep:
+        return vals[cur]
+    kdt = torch.int64 if plan.wide else torch.int32
+    packed = work[:nw * wbytes].view(kdt).view(nw, n)
+    top = work[top_at:ints_at].view(kdt) if keep_top else None
+    scratch = work[ints_at + 4 * nw * hist_words:
+                   ints_at + 4 * nzero].view(torch.int32)
+    return SortedWords(vals[cur], packed, top, plan,
+                       field_ors(part, field_bits), scratch)
+
+
+def _sort_permutation_cuda(batch: ColumnBatch,
+                           orders: list[SortOrder]) -> torch.Tensor:
+    perm = _sort([batch.columns[o.child_index] for o in orders], orders)
+    if perm is None:
+        return torch.arange(batch.num_rows, dtype=torch.int32,
+                            device=batch.device)
+    return perm
 
 
 def sort_permutation(batch: ColumnBatch,

@@ -85,9 +85,99 @@ def test_gather_matches_plain(dev):
     pb = ColumnBatch.from_arrow(_record_batch(rng, 10_000), dev)
     perm = torch.from_numpy(rng.integers(-1, 10_000, 5000)
                             .astype(np.int32)).to(dev)
+    before = K.gather_columns.launches
     for a, b in zip(K.gather_columns(pb.columns, perm),
                     K.gather_plain(pb.columns, perm)):
         _same(a, b)
+    assert K.gather_columns.launches == before + 1
+
+
+def _gather_cols(g, n: int, dev, offset: int = 0):
+    """Every fixed width (int8..int64, f32, f64, bool), strings at W 1-64
+    (NUL tails, nulls; row-offset slices misalign them by ``offset``
+    rows), an int64 array column; null slots zeroed."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    n1 = n + offset
+    cols = []
+    for dt, tt in ((torch.int8, T.ByteType()), (torch.int16, T.ShortType()),
+                   (torch.int32, T.IntegerType()), (torch.int64, T.LongType()),
+                   (torch.float32, T.FloatType()),
+                   (torch.float64, T.DoubleType())):
+        v = torch.rand(n, generator=g, device=dev) < 0.9
+        x = torch.randint(-100, 100, (n,), generator=g, device=dev).to(dt)
+        cols.append(_int_key(x, v, tt))
+    v = torch.rand(n, generator=g, device=dev) < 0.9
+    cols.append(_int_key(torch.rand(n, generator=g, device=dev) < 0.5, v,
+                         T.BooleanType()))
+    for w in (1, 3, 4, 8, 12, 13, 16, 17, 32, 33, 64):
+        v = torch.rand(n1, generator=g, device=dev) < 0.9
+        lens = torch.randint(0, w + 1, (n1,), generator=g, device=dev,
+                             dtype=torch.int32)
+        mat = torch.randint(0, 256, (n1, w), generator=g, device=dev,
+                            dtype=torch.uint8)
+        mat[torch.arange(w, device=dev)[None, :] >= lens[:, None]] = 0
+        mat[~v] = 0
+        lens = torch.where(v, lens, 0)
+        cols.append(DeviceColumn(mat[offset:], v[offset:], T.StringType(),
+                                 lens[offset:]))
+    v = torch.rand(n, generator=g, device=dev) < 0.9
+    lens = torch.where(v, torch.randint(0, 4, (n,), generator=g, device=dev,
+                                        dtype=torch.int32), 0)
+    arr = torch.randint(-2 ** 40, 2 ** 40, (n, 3), generator=g, device=dev)
+    arr[torch.arange(3, device=dev)[None, :] >= lens[:, None]] = 0
+    cols.append(DeviceColumn(arr, v, T.ArrayType(T.LongType()), lens))
+    return cols
+
+
+@pytest.mark.parametrize("m", [1, 7, 2047, 2048, 2049, 4095, 4097,
+                               (1 << 22) + 1])
+def test_gather_one_launch_matches_plain(dev, m):
+    """K3 at its tile and run edges over every column kind, aligned and
+    misaligned string matrices, indices with negatives, a source without
+    rows, and a permutation that starts 4 bytes into its allocation (no
+    16-byte index loads): one launch a call, equal to the plain
+    version."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    n = 5000
+    for offset in (0, 1):
+        cols = _gather_cols(g, n, dev, offset)
+        idx = torch.randint(-2, n, (m + 1,), generator=g, device=dev,
+                            dtype=torch.int32)
+        for perm in (idx[:m], idx[1:]):
+            before = K.gather_columns.launches
+            got = K.gather_columns(cols, perm)
+            assert K.gather_columns.launches == before + 1
+            for a, b in zip(got, K.gather_plain(cols, perm)):
+                _same(a, b)
+    empty = [type(c)(c.data[:0], c.validity[:0], c.dtype,
+                     None if c.lengths is None else c.lengths[:0])
+             for c in cols]
+    perm = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    for a, b in zip(K.gather_columns(empty, perm),
+                    K.gather_plain(empty, perm)):
+        _same(a, b)
+
+
+def test_gather_long_table_and_zero_rows(dev):
+    """More columns than the kernel's parameters hold (the table is read
+    from a device copy) in one launch; a 0-row perm launches nothing."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    base = _gather_cols(g, 3000, dev)
+    cols = base * (K.GATHER_PARAM_WORDS // K.GATHER_COL_WORDS // len(base)
+                   + 1)
+    assert len(cols) * K.GATHER_COL_WORDS > K.GATHER_PARAM_WORDS
+    perm = torch.randint(-1, 3000, (10_001,), generator=g, device=dev,
+                         dtype=torch.int32)
+    before = K.gather_columns.launches
+    got = K.gather_columns(cols, perm)
+    assert K.gather_columns.launches == before + 1
+    for a, b in zip(got, K.gather_plain(cols, perm)):
+        _same(a, b)
+    out = K.gather_columns(base, perm[:0])
+    assert K.gather_columns.launches == before + 1
+    assert [o.capacity for o in out] == [0] * len(base)
 
 
 @pytest.mark.parametrize("keys", [
@@ -281,11 +371,14 @@ def test_rank_probe_and_expand_match_plain(dev, jt, keys):
     rb = ColumnBatch.from_arrow(_join_side(rng, 700, 50), dev)
     k = [] if jt == "cross" else keys
     if k:
-        before = (J._key_ids.launches, J._segment_flags.launches)
+        # one ids launch over K1's words: no K4 flags, no K3 gather
+        before = (J._key_ids.launches, G._segment_flags.launches,
+                  K.gather_columns.launches, S.sort_permutation.launches)
         _assert_tensors_equal(J._key_ids(lb, rb, k, k),
                               J.key_ids_plain(lb, rb, k, k))
-        assert (J._key_ids.launches, J._segment_flags.launches) == (
-            before[0] + 1, before[1] + len(k))
+        assert (J._key_ids.launches, G._segment_flags.launches,
+                K.gather_columns.launches, S.sort_permutation.launches) == (
+            before[0] + 1, before[1], before[2], before[3] + 1)
     if jt == "cross":
         lb = K.slice_rows(lb, 0, 500)
     arrays, total = J.join_probe(lb, rb, k, k, jt)
@@ -299,6 +392,72 @@ def test_rank_probe_and_expand_match_plain(dev, jt, keys):
     m = J.matched_build_rows(ri, rb.num_rows)
     assert torch.equal(m, J.matched_build_rows_plain(
         ri, torch.zeros(rb.num_rows, dtype=torch.bool, device=dev)))
+
+
+def _ids_like_plain(lb, rb, keys):
+    """K6 against its plain version: one ids launch and one K1 sort a
+    call, no K4 flags, no K3 gather."""
+    from spark_rapids_tpu_torch.ops import join as J
+    before = (J._key_ids.launches, S.sort_permutation.launches,
+              G._segment_flags.launches, K.gather_columns.launches)
+    got = J._key_ids(lb, rb, keys, keys)
+    assert (J._key_ids.launches, S.sort_permutation.launches,
+            G._segment_flags.launches, K.gather_columns.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    _assert_tensors_equal(got, J.key_ids_plain(lb, rb, keys, keys))
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, (1 << 22) + 1])
+def test_key_ids_tile_edges_match_plain(dev, n):
+    """K6's tiles of 4096 sorted rows: one row, one short of a tile, one
+    tile, one over, and 2^22 + 1 rows (1025 tiles, the look-back over
+    many) of an int64 key with nulls and ties, split into a left and a
+    right side; and at 2^22 + 1 rows two keys (int32, W 13 string), whose
+    words are two 64-bit words."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    cl = n - n // 3
+    valid = torch.rand(n, generator=g, device=dev) < 0.95
+    x = torch.randint(-(1 << 20), 1 << 20, (n,), generator=g, device=dev)
+    cols = [_int_key(x * 7919, valid, T.LongType())]
+    if n > 1 << 22:
+        lens = torch.randint(0, 14, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+        mat = torch.randint(97, 99, (n, 13), generator=g, device=dev,
+                            dtype=torch.uint8)
+        mat[torch.arange(13, device=dev)[None, :] >= lens[:, None]] = 0
+        v2 = torch.rand(n, generator=g, device=dev) < 0.97
+        mat[~v2] = 0
+        cols += [_int_key(torch.randint(-3, 3, (n,), generator=g, device=dev,
+                                        dtype=torch.int32), valid,
+                          T.IntegerType()),
+                 DeviceColumn(mat, v2, T.StringType(),
+                              torch.where(v2, lens, 0))]
+    full = ColumnBatch(cols, n, None, dev)
+    lb, rb = K.slice_rows(full, 0, cl), K.slice_rows(full, cl, n)
+    keys = list(range(len(cols)))
+    lid, rid = _ids_like_plain(lb, rb, keys)
+    if n > 1:
+        assert int(lid.max()) == 2 ** 31 - 1 or bool(valid[:cl].all())
+    _ids_like_plain(rb, lb, keys[::-1])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_key_ids_fuzzed_sides_match_plain(dev, seed):
+    """K6 over fuzzed join sides: an integral key (nulls, the dtype's
+    max), a string key and a double key (NaN, -0.0), alone and together,
+    each side alone empty too."""
+    rng = np.random.default_rng(100 + seed)
+    dtype = (np.int32, np.int64, np.int16, np.int8)[seed]
+    lb = ColumnBatch.from_arrow(_join_side(rng, 30_000 + seed, 60, dtype),
+                                dev)
+    rb = ColumnBatch.from_arrow(_join_side(rng, 9_000, 60, dtype), dev)
+    for keys in ([0], [1], [2], [0, 1, 2], [2, 0]):
+        _ids_like_plain(lb, rb, keys)
+        _ids_like_plain(K.slice_rows(lb, 0, 0), rb, keys)
+        _ids_like_plain(lb, K.slice_rows(rb, 0, 0), keys)
 
 
 def test_tpcds_queries_on_cuda_match_cpu(dev, tmp_path):
