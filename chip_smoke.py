@@ -37,7 +37,17 @@ Phases (any failure exits non-zero; no phase's error is caught):
    its plain version and index_select of every leaf (the best of two
    rounds), its C entry point alone and its kernel alone (torch.profiler:
    one gather_kernel a call, nothing else), with the 32-byte source
-   sectors the permutation touches; K6 at q6's rank join and at 2^22 rows
+   sectors the permutation touches; K4 at q1's shape (2^24 rows under
+   q1's two keys, the 11 aggregates of q1's update; 16 specs checked) and
+   at 2^22 rows in ~2^20 groups of one int64 key (the same aggregates over
+   q1's doubles), each checked (double sums with the same bits on two
+   calls), through the wrapper in turns with its plain version, its three
+   C entry points alone and its kernels alone (torch.profiler: one
+   bounds_kernel, agg_tile_kernel and agg_combine_kernel and K3's key
+   gather a call, one copy to the host), beside torch.segment_reduce once
+   a distinct summed or counted input and index_add_ once a spec; K8a's
+   kernel alone at a synthetic q1 lineitem batch (one decode_batch_kernel
+   a call); K6 at q6's rank join and at 2^22 rows
    of one int64 key, in turns with torch.unique, its C entry points alone
    and its kernels alone (K1's, one key_ids_kernel, one copy to the host
    and nothing else);
@@ -119,9 +129,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    all-null columns, dictionaries of widths 4 to 256), then on the first
    scan batch of q1's lineitem, of q6's store_sales (default layout) and
    of simple_agg's performance file as their scans encode them, against
-   the plain versions and the raw upload; each kernel's time beside its
-   bound, its plain version's and (K8b) index_select's, and the copy to
-   the card of the encoded against the raw buffer.  Every path above
+   the plain versions and the raw upload; K8a timed as the batch's one
+   launch (through decode_jobs, its C entry point alone and, where
+   torch.profiler sees device work, its kernel alone), K8b a column;
+   each beside its bound, its plain version's and (K8b) index_select's,
+   and the copy to the card of the encoded against the raw buffer.  Every path above
    scans with the codec on (its default for batches of more than 1024
    rows): K8a must launch on every path, K8b on q1 and simple_agg;
 12. range and round-robin exchanges and bounded-frame min/max: K11
@@ -970,66 +982,256 @@ def check_gather(torch, dev, q1_batch, perm) -> dict:
                 k3_q6_bound_ms=_bound_ms(q6["bytes"])), got
 
 
-def check_segmented(torch, dev, q1_batch, sorted_cols) -> dict:
-    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+#: K4's kernels a call (three launches of csrc/segmented.cu and K3's gather
+#: of the keys, beside one host read of the group count)
+_K4_KERNELS = {"bounds_kernel": 1, "agg_tile_kernel": 1,
+               "agg_combine_kernel": 1, "gather_kernel": 1}
+#: q1's update specs over (flag, status, qty, price, disc, tax): the 11 the
+#: q1 update runs, then the ones checked besides
+_Q1_SPECS = [("sum", 2), ("sum", 3), ("sum", 4), ("sum", 5), ("sum", 2),
+             ("count", 2), ("sum", 3), ("count", 3), ("sum", 4),
+             ("count", 4), ("count_star", 0), ("min", 5), ("max", 3),
+             ("first", 4), ("last_non_null", 2), ("avg", 3)]
+_Q1_TIMED = 11
+#: rows of K4's many-groups shape, in about a quarter as many groups
+K4_MANY_ROWS = 1 << 22
+#: rows of phase 3's synthetic q1 lineitem batch (K8a's profile)
+K8A_PROFILE_ROWS = 1 << 20
+#: K8a's kernel alone at phase 3's synthetic q1 batch (profile_decode), the
+#: reading phase 11 reports where its own profile sees no device work
+PHASE3_K8A: dict = {}
+
+
+def _k4_entry(torch, sb, keys, specs):
+    """K4's three C entry points alone, every table, scratch and output
+    prepared once: the boundary pass, the host read of G and S, the tile
+    and the combine launch.  Returns (run, the outputs' views, plan)."""
+    from spark_rapids_tpu_torch.ops import native
     from spark_rapids_tpu_torch.ops import segmented as G
-    sb = ColumnBatch(sorted_cols, q1_batch.num_rows,
-                     type(q1_batch.schema)(q1_batch.schema.fields[:6]), dev)
-    # q1's update specs over (flag, status, qty, price, disc, tax)
-    specs = [G.AggSpec("sum", 2), G.AggSpec("sum", 3), G.AggSpec("sum", 4),
-             G.AggSpec("sum", 5), G.AggSpec("sum", 2), G.AggSpec("count", 2),
-             G.AggSpec("sum", 3), G.AggSpec("count", 3), G.AggSpec("sum", 4),
-             G.AggSpec("count", 4), G.AggSpec("count_star", 0),
-             G.AggSpec("min", 5), G.AggSpec("max", 3),
-             G.AggSpec("first", 4), G.AggSpec("last_non_null", 2)]
-    gk, ga, g = G.segment_aggregate(sb, [0, 1], specs)
-    wk, wa, wg = G.segment_aggregate_plain(sb, [0, 1], specs)
+    from spark_rapids_tpu_torch.ops.kernels import num_tiles, ptr
+    lib = native.lib("segmented")
+    dev, n = sb.device, sb.num_rows
+    nt = num_tiles(n)
+    stream = native.stream_ptr(dev)
+    kwords = G.key_table([sb.columns[k] for k in keys])
+    khost, ktab = native.param_table(kwords, len(kwords) > G.KEY_PARAM_WORDS,
+                                     dev)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    offs = torch.empty(nt + 2, dtype=torch.int32, device=dev)
+    spans = torch.empty(nt, dtype=torch.int32, device=dev)
+    status = G._status(dev, stream, nt)
+    bounds = (khost.buffer_info()[0], len(kwords), len(keys), ptr(ktab), 1,
+              ptr(flags), ptr(offs), ptr(spans), ptr(status), n, stream)
+    native.check(lib.srt_seg_bounds(*bounds), "srt_seg_bounds")
+    g, nspans = offs[nt:].tolist()
+    plan = G.agg_plan(sb, specs)
+    views = G.agg_outputs(plan, g, dev)
+    words = G.agg_table(sb, plan, views)
+    host, tab = native.param_table(words, len(words) > G.AGG_PARAM_WORDS,
+                                   dev)
+    starts = torch.empty(g, dtype=torch.int32, device=dev)
+    slots = torch.empty(len(plan.jobs) * 4 * nt, dtype=torch.int64,
+                        device=dev)
+    head = (host.buffer_info()[0], len(words), len(plan.cols),
+            len(plan.jobs), len(plan.outs), ptr(tab))
+    tiles = head + (ptr(flags), ptr(offs), ptr(starts), ptr(slots), n, g,
+                    stream)
+    combine = head + (ptr(offs), ptr(spans), nspans, ptr(starts), ptr(slots),
+                      n, g, G.combine_threads(nt, nspans), stream)
+
+    def run(_keep=(khost, ktab, host, tab, flags, spans, status, starts,
+                   slots)):
+        native.check(lib.srt_seg_bounds(*bounds), "srt_seg_bounds")
+        offs[nt:].tolist()  # the wrapper's one host read
+        native.check(lib.srt_seg_agg_tiles(*tiles), "srt_seg_agg_tiles")
+        native.check(lib.srt_seg_agg_combine(*combine),
+                     "srt_seg_agg_combine")
+    return run, views, plan
+
+
+def _k4_check(torch, label, sb, keys, specs) -> float:
+    """K4 against its plain version: keys and integers exact, doubles
+    within F64_RTOL, validity exact, double sums with the same bits on a
+    second call; returns the largest double difference."""
+    from spark_rapids_tpu_torch.ops import segmented as G
+    gk, ga, g = G.segment_aggregate(sb, keys, specs)
+    again = G.segment_aggregate(sb, keys, specs)[1]
+    wk, wa, wg = G.segment_aggregate_plain(sb, keys, specs)
     if g != wg:
-        raise AssertionError(f"segmented: {g} groups vs {wg}")
-    _assert_equal_cols(torch, gk, wk, "segmented keys")
+        raise AssertionError(f"{label}: {g} groups vs {wg}")
+    _assert_equal_cols(torch, gk, wk, f"{label} keys")
     err = 0.0
-    for spec, a, b in zip(specs, ga, wa):
+    for spec, a, b, c in zip(specs, ga, wa, again):
         if not torch.equal(a.validity, b.validity):
-            raise AssertionError(f"segmented {spec}: validity differs")
+            raise AssertionError(f"{label} {spec}: validity differs")
         if a.data.dtype == torch.float64:
             diff = (a.data - b.data).abs()
             err = max(err, float(diff.max()))
             tol = F64_RTOL * b.data.abs() + 1e-300
             if bool((diff > tol).any()):
-                raise AssertionError(f"segmented {spec}: beyond rtol "
+                raise AssertionError(f"{label} {spec}: beyond rtol "
                                      f"{F64_RTOL}")
+            if not torch.equal(a.data.view(torch.int64),
+                               c.data.view(torch.int64)):
+                raise AssertionError(f"{label} {spec}: another run gave "
+                                     "other bits")
         elif not torch.equal(a.data, b.data):
-            raise AssertionError(f"segmented {spec}: differs")
-    q1_specs = specs[:11]  # timed: the aggregates the q1 update runs
-    ms = _time_ms(torch, lambda: G.segment_aggregate(sb, [0, 1], q1_specs))
-    plain_ms = _time_ms(
-        torch, lambda: G.segment_aggregate_plain(sb, [0, 1], q1_specs))
-    # library yardstick: index_add_ per aggregate input by segment id
-    flag = torch.ones(sb.num_rows, dtype=torch.bool, device=dev)
-    for c in sb.columns[:2]:
-        flag[1:] &= (c.data[1:] == c.data[:-1]).all(1)
-    seg = torch.cumsum((~flag).to(torch.int64), 0)
-    ones = torch.ones(sb.num_rows, dtype=torch.int64, device=dev)
-    inputs = [ones if s.op == "count_star" else
-              sb.columns[s.child_index].validity.to(torch.int64)
-              if s.op == "count" else sb.columns[s.child_index].data
-              for s in q1_specs]
-    lib_ms = _time_ms(torch, lambda: [
-        torch.zeros(g, dtype=x.dtype, device=dev).index_add_(0, seg, x)
-        for x in inputs])
-    distinct = _leaves(sb.columns)
-    nbytes = _nbytes(distinct)
-    print(f"[K4 segmented] rows={sb.num_rows} groups={g} checked_aggs="
-          f"{len(specs)} timed_aggs={len(q1_specs)} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-          f"bound_ms={_bound_ms(nbytes):.4f} max_abs_err={err:.3e}",
-          flush=True)
+            raise AssertionError(f"{label} {spec}: differs")
+    return err
+
+
+def _time_k4(torch, label: str, sb, keys, specs, lengths,
+             reps: int = 5) -> dict:
+    """K4 at one shape: checked, then through the wrapper in turns with
+    its plain version, the C entry points alone, the kernels alone
+    (torch.profiler: the three K4 kernels and K3's key gather a call, one
+    host read, nothing else), and the yardsticks: torch.segment_reduce
+    once a distinct summed or counted input (null slots are zero, so the
+    data sum directly; count_star is the lengths themselves) and
+    index_add_ once a spec by segment id."""
+    from spark_rapids_tpu_torch.ops import segmented as G
+    t = {"err": _k4_check(torch, label, sb, keys, specs)}
+    timed = specs[:_Q1_TIMED]
+    run, views, plan = _k4_entry(torch, sb, keys, timed)
+    run()
+    gk, ga, g = G.segment_aggregate(sb, keys, timed)
+    for o, a in zip(plan.spec_out, ga):
+        if o is not None and not torch.equal(views[o][0], a.data):
+            raise AssertionError(f"{label}: the C entry points differ from "
+                                 "the wrapper")
+    t.update(_in_turns(torch, {
+        "ms": lambda: G.segment_aggregate(sb, keys, timed),
+        "plain_ms": lambda: G.segment_aggregate_plain(sb, keys, timed)},
+        reps=reps))
+    t["entry_ms"] = _time_ms(torch, run, reps=20)
+    kern = _kernels_ms(torch, label, lambda: G.segment_aggregate(
+        sb, keys, timed), _K4_KERNELS)
+    t["kernels"] = kern
+    t["kernel_ms"] = None if kern is None else sum(
+        kern[k] for k in ("bounds_kernel", "agg_tile_kernel",
+                          "agg_combine_kernel"))
+    summed = sorted({s.child_index for s in timed if s.op == "sum"})
+    counted = sorted({s.child_index for s in timed if s.op == "count"})
+    inputs = [sb.columns[c].data for c in summed] + [
+        sb.columns[c].validity.to(torch.float64) for c in counted]
+    t["library_ms"] = _time_ms(torch, lambda: [
+        torch.segment_reduce(x, "sum", lengths=lengths, unsafe=True)
+        for x in inputs], reps=reps)
+    seg = torch.repeat_interleave(
+        torch.arange(lengths.numel(), device=sb.device), lengths)
+    ones = torch.ones(sb.num_rows, dtype=torch.int64, device=sb.device)
+    adds = [ones if s.op == "count_star" else
+            sb.columns[s.child_index].validity.to(torch.int64)
+            if s.op == "count" else sb.columns[s.child_index].data
+            for s in timed]
+    t["index_add_ms"] = _time_ms(torch, lambda: [
+        torch.zeros(g, dtype=x.dtype, device=sb.device).index_add_(0, seg, x)
+        for x in adds], reps=reps)
+    # the bound: each key and distinct input leaf read once, each distinct
+    # output (one row a group) and the keys' group rows written once
+    used = set(keys) | {s.child_index for s in timed if s.op != "count_star"}
+    leaves = _leaves([sb.columns[i] for i in sorted(used)])
+    outs = [t for d, v in views for t in (d, v) if t is not None]
+    t["bytes"] = _nbytes(leaves) + _nbytes(outs) + _nbytes(_leaves(gk))
+    t["groups"], t["jobs"] = g, len(plan.jobs)
+    km = "not measured" if kern is None else (
+        f"{t['kernel_ms']:.4f} ({_fmt_kernels(kern)})")
+    print(f"[{label}] rows={sb.num_rows} groups={g} specs checked="
+          f"{len(specs)} timed={len(timed)} jobs={len(plan.jobs)} outputs="
+          f"{len(plan.outs)}: ms={t['ms']:.4f} (the C entry points alone "
+          f"{t['entry_ms']:.4f}, the kernels alone {km}) plain_ms="
+          f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+          f"(segment_reduce, {len(inputs)} calls) index_add_ms="
+          f"{t['index_add_ms']:.4f} ({len(adds)} calls) bound_ms="
+          f"{_bound_ms(t['bytes']):.4f} ({t['bytes']} bytes) max_abs_err="
+          f"{t['err']:.3e}; double sums the same bits on two runs; in "
+          f"turns, the best of two rounds", flush=True)
+    return t
+
+
+def check_segmented(torch, dev, q1_batch, sorted_cols) -> dict:
+    """K4 at q1's shape (2^24 rows sorted by its two W 4 keys, 11 timed
+    aggregates) and at a many-groups shape (2^22 rows in ~2^20 groups of
+    one int64 key, the same aggregates over q1's doubles)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import segmented as G
+    sb = ColumnBatch(sorted_cols, q1_batch.num_rows,
+                     type(q1_batch.schema)(q1_batch.schema.fields[:6]), dev)
+    specs = [G.AggSpec(o, c) for o, c in _Q1_SPECS]
+    code = sb.columns[0].data[:, 0].to(torch.int64) * 256 + \
+        sb.columns[1].data[:, 0].to(torch.int64)
+    lengths = torch.unique_consecutive(code, return_counts=True)[1]
+    q1 = _time_k4(torch, "K4 segmented q1", sb, [0, 1], specs, lengths)
+    rng = np.random.default_rng(16)
+    n = K4_MANY_ROWS
+    key = np.sort(rng.integers(0, K4_MANY_ROWS >> 2, n))
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    cols = [DeviceColumn(torch.from_numpy(key).to(dev), ones, T.LongType())]
+    cols += [DeviceColumn(c.data[:n].contiguous(), c.validity[:n].contiguous(),
+                          c.dtype) for c in sorted_cols[2:6]]
+    many = ColumnBatch(cols, n, None, dev)
+    mspecs = [G.AggSpec(o, c - 1) for o, c in _Q1_SPECS]
+    mlen = torch.unique_consecutive(cols[0].data, return_counts=True)[1]
+    mg = _time_k4(torch, "K4 segmented many groups", many, [0], mspecs, mlen)
     return dict(name="segment_aggregate", route="cuda",
                 source="spark_rapids_tpu_torch/csrc/segmented.cu",
                 replaces="spark_rapids_tpu/ops/segmented.py:68",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms)
+                max_abs_err=max(q1["err"], mg["err"]), ms=q1["ms"],
+                plain_ms=q1["plain_ms"], bound_ms=_bound_ms(q1["bytes"]),
+                bound_by="bytes", library_ms=q1["library_ms"],
+                kernel_ms=q1["kernel_ms"], entry_ms=q1["entry_ms"],
+                k4_kernels=q1["kernels"], k4_index_add_ms=q1["index_add_ms"],
+                k4_jobs=q1["jobs"], k4_many_ms=mg["ms"],
+                k4_many_entry_ms=mg["entry_ms"],
+                k4_many_kernel_ms=mg["kernel_ms"],
+                k4_many_kernels=mg["kernels"],
+                k4_many_plain_ms=mg["plain_ms"],
+                k4_many_library_ms=mg["library_ms"],
+                k4_many_index_add_ms=mg["index_add_ms"],
+                k4_many_bound_ms=_bound_ms(mg["bytes"]),
+                k4_many_groups=mg["groups"])
+
+
+def profile_decode(torch, dev) -> dict:
+    """K8a's kernel alone under torch.profiler, in phase 3 (later in a run
+    it has seen no device work): a synthetic q1 lineitem batch of 2^20
+    rows (q1's generator's columns, the codec on: the doubles and the
+    ship date bit-packed, the two flags dictionary strings), one
+    decode_batch_kernel a call and nothing else.  K8a's count is put
+    back."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    host = _q1_host_columns(np.random.default_rng(8), K8A_PROFILE_ROWS)
+    arrays, names = [], []
+    for name, leaf in host.items():
+        if isinstance(leaf, tuple):
+            arrays.append(pa.array([bytes(r[:1]).decode() for r in leaf[0]]))
+        elif name == "l_shipdate":
+            arrays.append(pa.array(leaf).cast(pa.date32()))
+        else:
+            arrays.append(pa.array(leaf))
+        names.append(name)
+    rb = pa.RecordBatch.from_arrays(arrays, names=names)
+    packed = ColumnBatch.stage_arrow(rb, dev, codec=True)
+    buf = packed.buf.to(dev)
+    jobs = [j for _i, j in packed.k8a_jobs(buf)]
+    n = packed.num_rows
+    saved = WC.decode_fixed.launches
+    _k8_same(torch, _leaves(packed.decode(buf)),
+             _leaves(packed.decode(buf, plain=True)),
+             "K8a at the synthetic q1 batch")
+    ms = _one_kernel_ms(torch, "K8a decode_batch_kernel",
+                        lambda: WC.decode_jobs(jobs, n, dev),
+                        "decode_batch_kernel")
+    WC.decode_fixed.launches = saved
+    print(f"[K8a profile] a synthetic q1 lineitem batch of {n} rows, "
+          f"{len(jobs)} jobs ({'; '.join(_describe(packed))}): the "
+          f"kernel alone {'not measured' if ms is None else f'{ms:.4f}'} "
+          "ms", flush=True)
+    return {"kernel_ms": ms, "jobs": len(jobs)}
 
 
 # ---------------------------------------------------------------------------
@@ -4039,30 +4241,54 @@ def check_codec_stress(torch, dev) -> None:
           "versions, doubles bit for bit", flush=True)
 
 
-def _k8_calls(packed, buf, i: int):
-    """(counter, kernel call, plain call, bytes moved) of column i's
-    decode; None when the column is raw and all valid (no kernel)."""
+def _k8b_calls(packed, buf, i: int):
+    """(kernel call, plain call, bytes moved) of dictionary column i's
+    decode (K8b, a launch a column)."""
     spec = packed.col_specs[i]
     n = packed.num_rows
     vdesc = spec[2]
     vb = 0 if vdesc[0] == "av" else packed.layout[vdesc[1]][1]
-    if spec[0] == "dict":
-        k, w = packed.layout[spec[3]][3]
-        nbytes = packed.layout[spec[1][1]][1] + vb + k * (w + 4) + \
-            n * (w + 4 + 1)
-        name = "decode_dict"
-    else:
-        desc = spec[1] if spec[0] == "fixed" else spec[3]
-        if desc[0] == "raw" and vdesc[0] == "av":
-            return None
-        if desc[0] == "raw":
-            nbytes = vb + n
-        else:
-            nbytes = packed.layout[desc[1]][1] + vb + \
-                n * (np.dtype(desc[3]).itemsize + 1)
-        name = "decode_fixed"
-    return (name, lambda: packed.decode_column(buf, i),
+    k, w = packed.layout[spec[3]][3]
+    nbytes = packed.layout[spec[1][1]][1] + vb + k * (w + 4) + \
+        n * (w + 4 + 1)
+    return (lambda: packed.decode_column(buf, i),
             lambda: packed.decode_column(buf, i, plain=True), nbytes)
+
+
+def _k8a_bytes(packed) -> int:
+    """What K8a must move for a batch: each job's packed words and
+    validity words read once, its data and validity written once."""
+    n = packed.num_rows
+    nbytes = 0
+    for spec in packed.col_specs:
+        if spec[0] == "dict":
+            continue
+        desc = spec[1] if spec[0] == "fixed" else spec[3]
+        if spec[2][0] != "av":
+            nbytes += packed.layout[spec[2][1]][1]
+        if desc[0] != "raw":
+            nbytes += packed.layout[desc[1]][1] + \
+                n * np.dtype(desc[3]).itemsize
+        nbytes += n
+    return nbytes
+
+
+def _k8a_entry(torch, jobs, n: int, dev):
+    """srt_decode_batch alone on a table and outputs prepared once."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    from spark_rapids_tpu_torch.ops import native
+    outs = WC.decode_outputs(jobs, n, dev)
+    words = WC.decode_table(jobs, outs)
+    host, tab = native.param_table(words, len(words) > WC.DECODE_PARAM_WORDS,
+                                   dev)
+    lib = native.lib("wirecodec")
+    args = (host.buffer_info()[0], len(words), len(jobs),
+            None if tab is None else tab.data_ptr(), n,
+            native.stream_ptr(dev))
+
+    def run(_keep=(host, tab, outs)):
+        native.check(lib.srt_decode_batch(*args), "srt_decode_batch")
+    return run
 
 
 def _describe(packed) -> list:
@@ -4096,32 +4322,52 @@ def _check_codec_batch(torch, dev, label: str, rb) -> dict:
     _k8_same(torch, got, _leaves(raw.to(dev).columns),
              f"K8 at {label} against the raw upload")
     del got
-    out = {"decode_fixed": [0.0, 0.0, 0, 0], "decode_dict": [0.0, 0.0, 0, 0],
-           "library_dict_ms": 0.0}
+    out = {"decode_dict": [0.0, 0.0, 0, 0], "library_dict_ms": 0.0}
+    # K8a: every job of the batch in one launch (PackedBatch.decode's K8a
+    # part: its table and the launch), beside the plain per-column decode
+    # of the same columns, its C entry point alone and, where the profiler
+    # sees device work, its kernel alone
+    n = packed.num_rows
+    fixed = [i for i, sp in enumerate(packed.col_specs) if sp[0] != "dict"]
+    k8a = {"jobs": len(fixed), "ms": 0.0, "plain_ms": 0.0,
+           "entry_ms": 0.0, "kernel_ms": None, "bytes": 0}
+    if fixed:
+        k8a["ms"] = _time_ms(torch, lambda: WC.decode_jobs(
+            [j for _i, j in packed.k8a_jobs(buf)], n, dev), reps=20)
+        k8a["plain_ms"] = _time_ms(torch, lambda: [
+            packed.decode_column(buf, i, plain=True) for i in fixed])
+        jobs = [j for _i, j in packed.k8a_jobs(buf)]
+        k8a["entry_ms"] = _time_ms(torch, _k8a_entry(torch, jobs, n, dev),
+                                   reps=20)
+        saved = WC.decode_fixed.launches
+        k8a["kernel_ms"] = _one_kernel_ms(
+            torch, f"K8a {label}", lambda: WC.decode_jobs(jobs, n, dev),
+            "decode_batch_kernel")
+        WC.decode_fixed.launches = saved
+        k8a["bytes"] = _k8a_bytes(packed)
+    out["decode_fixed"] = k8a
     for i in range(len(packed.col_specs)):
-        calls = _k8_calls(packed, buf, i)
-        if calls is None:
+        if packed.col_specs[i][0] != "dict":
             continue
-        name, fn, plain, nbytes = calls
-        acc = out[name]
+        fn, plain, nbytes = _k8b_calls(packed, buf, i)
+        acc = out["decode_dict"]
         acc[0] += _time_ms(torch, fn, reps=20)
         acc[1] += _time_ms(torch, plain)
         acc[2] += nbytes
         acc[3] += 1
-        if name == "decode_dict":
-            spec = packed.col_specs[i]
-            idesc, vdesc = spec[1], spec[2]
-            vw = None if vdesc[0] == "av" else packed.leaf(buf, vdesc[1])
-            params = packed.leaf(buf, packed.params)
-            idx = packed.leaf(buf, idesc[1]).long() if idesc[0] == "raw" \
-                else WC.decode_fixed(packed.leaf(buf, idesc[1]), vw,
-                                     packed.num_rows, idesc[2],
-                                     params[idesc[4]:idesc[4] + 1], 1,
-                                     torch.int64)[0]
-            mat, lens = packed.leaf(buf, spec[3]), packed.leaf(buf, spec[4])
-            out["library_dict_ms"] += _time_ms(
-                torch, lambda: (mat.index_select(0, idx),
-                                lens.index_select(0, idx)), reps=20)
+        spec = packed.col_specs[i]
+        idesc, vdesc = spec[1], spec[2]
+        vw = None if vdesc[0] == "av" else packed.leaf(buf, vdesc[1])
+        params = packed.leaf(buf, packed.params)
+        idx = packed.leaf(buf, idesc[1]).long() if idesc[0] == "raw" \
+            else WC.decode_fixed(packed.leaf(buf, idesc[1]), vw,
+                                 packed.num_rows, idesc[2],
+                                 params[idesc[4]:idesc[4] + 1], 1,
+                                 torch.int64)[0]
+        mat, lens = packed.leaf(buf, spec[3]), packed.leaf(buf, spec[4])
+        out["library_dict_ms"] += _time_ms(
+            torch, lambda: (mat.index_select(0, idx),
+                            lens.index_select(0, idx)), reps=20)
     copy_ms = _time_ms(torch, lambda: packed.buf.to(dev, non_blocking=True),
                        reps=10)
     raw_copy_ms = _time_ms(torch, lambda: raw.buf.to(dev,
@@ -4132,9 +4378,11 @@ def _check_codec_batch(torch, dev, label: str, rb) -> dict:
           f"(decoded leaves {packed.raw_bytes}); copy to the card "
           f"{copy_ms:.4f} ms encoded, {raw_copy_ms:.4f} ms raw; host "
           f"encode {enc_s:.3f} s, raw staging {raw_s:.3f} s; K8a "
-          f"{out['decode_fixed'][3]} columns {out['decode_fixed'][0]:.4f} ms "
-          f"(plain {out['decode_fixed'][1]:.4f}, bound "
-          f"{_bound_ms(out['decode_fixed'][2]):.4f}); K8b "
+          f"{k8a['jobs']} jobs in one launch {k8a['ms']:.4f} ms "
+          f"(the C entry alone {k8a['entry_ms']:.4f}, the kernel alone "
+          f"{'not measured' if k8a['kernel_ms'] is None else k8a['kernel_ms']}"
+          f"; plain {k8a['plain_ms']:.4f}, bound "
+          f"{_bound_ms(k8a['bytes']):.4f}); K8b "
           f"{out['decode_dict'][3]} columns {out['decode_dict'][0]:.4f} ms "
           f"(plain {out['decode_dict'][1]:.4f}, bound "
           f"{_bound_ms(out['decode_dict'][2]):.4f}, index_select "
@@ -4179,16 +4427,26 @@ def run_codec_phase(torch, dev, sf: float) -> dict:
         torch.cuda.empty_cache()
     a = res["q1 lineitem"]["decode_fixed"]
     b = res["simple_agg performance"]["decode_dict"]
-    if not a[3] or not b[3]:
-        raise AssertionError("the q1 batch decoded no K8a column or the "
+    if not a["jobs"] or not b[3]:
+        raise AssertionError("the q1 batch decoded no K8a job or the "
                              "mortgage batch no K8b column")
+    k8a = {f"k8a_{label.split()[0]}_{k}": v for label, r in res.items()
+           for k, v in r["decode_fixed"].items() if k != "bytes"}
+    k8a.update({f"k8a_{label.split()[0]}_bound_ms":
+                _bound_ms(r["decode_fixed"]["bytes"])
+                for label, r in res.items()})
     return {
         "decode_fixed": dict(
             name="decode_fixed", route="cuda",
             source="spark_rapids_tpu_torch/csrc/wirecodec.cu",
             replaces="spark_rapids_tpu/columnar/wirecodec.py:104",
-            max_abs_err=0.0, ms=a[0], plain_ms=a[1],
-            bound_ms=_bound_ms(a[2]), bound_by="bytes", library_ms=None),
+            max_abs_err=0.0, ms=a["ms"], plain_ms=a["plain_ms"],
+            bound_ms=_bound_ms(a["bytes"]), bound_by="bytes",
+            library_ms=None, entry_ms=a["entry_ms"],
+            kernel_ms=a["kernel_ms"] if a["kernel_ms"] is not None
+            else PHASE3_K8A.get("kernel_ms"),
+            kernel_ms_source="phase 11" if a["kernel_ms"] is not None
+            else "phase 3 (a synthetic q1 batch)", **k8a),
         "decode_dict": dict(
             name="decode_dict", route="cuda",
             source="spark_rapids_tpu_torch/csrc/wirecodec.cu",
@@ -6599,6 +6857,7 @@ def main(argv=None) -> int:
                                                           q1_batch, perm)
     entries["segment_aggregate"] = check_segmented(torch, dev, q1_batch,
                                                    sorted_cols)
+    PHASE3_K8A.update(profile_decode(torch, dev))
     del q1_batch, perm, sorted_cols
     entries["join_probe_fast"] = check_join_probe(torch, dev, rng)
     entries["join_key_ids"] = check_key_ids(torch, dev, rng)
@@ -6688,7 +6947,8 @@ def main(argv=None) -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         row.update({k: v for k, v in e.items() if k.startswith(
-            ("kernel_ms", "entry_ms", "one_key_", "k1_", "k3_", "k6_"))})
+            ("kernel_ms", "entry_ms", "one_key_", "k1_", "k3_", "k4_",
+             "k6_", "k8a_"))})
         row["launches_by_path"] = {p: c[counters[0]]
                                    for p, c in by_path.items()}
         row["launches_by_counter"] = {

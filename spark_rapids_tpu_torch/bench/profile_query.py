@@ -258,7 +258,7 @@ def main(argv=None) -> int:
     del scanned
     scan_ops, _w = _device_ops(lambda: [None for _b in scan.execute(ctx)])
     split.update(copy_to_card_ms=_ms_of(scan_ops, "HtoD"),
-                 k8a_ms=_ms_of(scan_ops, "decode_fixed_kernel"),
+                 k8a_ms=_ms_of(scan_ops, "decode_batch_kernel"),
                  k8b_ms=_ms_of(scan_ops, "decode_dict_kernel"))
 
     rows, prof_wall = _device_ops(run)
@@ -274,7 +274,7 @@ def main(argv=None) -> int:
         "device_busy_s": device_us / 1e6 if rows else None,
         "device_busy_share": (device_us / 1e6 / prof_wall) if rows else None,
         "copy_to_card_ms": _ms_of(rows, "HtoD"),
-        "k8a_ms": _ms_of(rows, "decode_fixed_kernel"),
+        "k8a_ms": _ms_of(rows, "decode_batch_kernel"),
         "k8b_ms": _ms_of(rows, "decode_dict_kernel"),
         "k14_ms": _ms_of(rows, "split_counts_kernel", "split_emit_kernel",
                          "array_emit_kernel"),

@@ -1,5 +1,6 @@
-"""Time K1 (``sort_permutation``), K3 (``gather_columns``), K6
-(``join._key_ids``) and K15a (``mesh_pack``) of whichever
+"""Time K1 (``sort_permutation``), K3 (``gather_columns``), K4
+(``segment_aggregate``), K6 (``join._key_ids``), K8a (the fixed-width
+decode of ``PackedBatch.decode``) and K15a (``mesh_pack``) of whichever
 ``spark_rapids_tpu_torch`` is importable, at the shapes ``chip_smoke.py``
 checks them: q1's two one-letter keys at 2^24 rows, the mixed
 int64/f64/int32/W16-string keys at 2^22 rows in two orders, q6's rank
@@ -8,7 +9,13 @@ that key), K6 over 2^22 rows of one int64 key (3 x 2^20 left, 2^20
 right), K3 at 2^24 rows x q1's six columns under q1's sort permutation
 (q1's four key groups as its generator draws them, and six equally likely
 ones) and at 14,524 of 2^20 rows x six int32 columns (a q6 join output),
-and a
+K4 over those six sorted columns (q1's two keys, its 11 update aggregates)
+and over 2^22 rows of one int64 key in ~2^20 groups (the same aggregates
+over q1's doubles), K8a over a 2^20-row q1 lineitem batch of q1's
+generator's quantity, price, discount, tax and ship date, staged with the
+codec on (the price raw, four bit-packed streams: one launch where K8a
+decodes a batch at once, a launch a stream where it decodes a column at
+a time), and a
 4,194,304-row shard of one and of three int32 columns packed into 8
 sections in K10's order (top_customers_mesh's and q6_mesh_partitioned's
 largest).  Each result is first held against the package's plain version.
@@ -239,6 +246,53 @@ def _time_gather(torch, out: dict, name: str, cols, perm) -> None:
         torch, lambda: K.gather_columns(cols, perm))
 
 
+#: q1's 11 update aggregates over (flag, status, qty, price, disc, tax)
+_Q1_AGGS = [("sum", 2), ("sum", 3), ("sum", 4), ("sum", 5), ("sum", 2),
+            ("count", 2), ("sum", 3), ("count", 3), ("sum", 4), ("count", 4),
+            ("count_star", 0)]
+
+
+def _time_k4(torch, out: dict, name: str, batch, keys, shift: int) -> None:
+    """K4 at one shape, held to its plain version (doubles within rtol
+    1e-9), through the wrapper and its device time a call."""
+    from spark_rapids_tpu_torch.ops import segmented as G
+    specs = [G.AggSpec(o, c - shift) for o, c in _Q1_AGGS]
+    gk, ga, g = G.segment_aggregate(batch, keys, specs)
+    wk, wa, wg = G.segment_aggregate_plain(batch, keys, specs)
+    if g != wg or any(not torch.equal(a.validity, b.validity) or (
+            not torch.allclose(a.data, b.data, rtol=1e-9, atol=0.0)
+            if a.data.dtype == torch.float64 else
+            not torch.equal(a.data, b.data)) for a, b in zip(ga, wa)):
+        raise AssertionError(f"K4 differs from its plain version ({name})")
+    t = _best(torch, {"k4": lambda: G.segment_aggregate(batch, keys, specs)})
+    out[f"k4_{name}_ms"] = t["k4"]
+    out[f"k4_{name}_groups"] = g
+    out[f"k4_{name}_device_ms"] = _device_ms(
+        torch, lambda: G.segment_aggregate(batch, keys, specs))
+
+
+def _q1_decode_batch(torch, dev):
+    """A 2^20-row q1 lineitem batch (no flags: its decode is K8a alone),
+    staged with the codec on and copied to the card: (packed, buf)."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    rng = np.random.default_rng(8)
+    n = 1 << 20
+    ship = rng.integers(8036, 10591, n).astype(np.int32)
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    rb = pa.RecordBatch.from_arrays([
+        pa.array(qty),
+        pa.array(np.round(rng.uniform(900.0, 2100.0, n) * qty, 2)),
+        pa.array(np.round(rng.integers(0, 11, n) * 0.01, 2)),
+        pa.array(np.round(rng.integers(0, 9, n) * 0.01, 2)),
+        pa.array(ship).cast(pa.date32())],
+        names=["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+               "l_shipdate"])
+    packed = ColumnBatch.stage_arrow(rb, dev, codec=True)
+    return packed, packed.buf.to(dev)
+
+
 def _category_keys(torch, dev, n: int):
     """q6's rank join: n item rows of a nullable W 16 string key (10
     category names) against the 11 category groups (the first null)."""
@@ -300,7 +354,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     native.build(["sort", "mesh_exchange", "partition_group", "gather",
-                  "join_ids"])
+                  "join_ids", "segmented", "wirecodec"])
     dev = torch.device("cuda", 0)
     out = {"card": card, "package": os.path.dirname(pkg.__file__)}
     q1 = _q1_keys(torch, dev, 1 << 24)
@@ -326,6 +380,39 @@ def main() -> int:
     cols, perm = _q1_gather_cols(torch, dev, 1 << 24)
     _time_gather(torch, out, "q1", cols, perm)
     del cols, perm
+    cols, perm = _q1_gather_cols(torch, dev, 1 << 24)
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import kernels as K
+    sorted_cols = K.gather_columns(cols, perm)
+    del cols, perm
+    _time_k4(torch, out, "q1", ColumnBatch(sorted_cols, 1 << 24, None, dev),
+             [0, 1], 0)
+    import numpy as np
+    m = 1 << 22
+    key = np.sort(np.random.default_rng(16).integers(0, 1 << 20, m))
+    many = [DeviceColumn(torch.from_numpy(key).to(dev),
+                         torch.ones(m, dtype=torch.bool, device=dev),
+                         T.LongType())]
+    many += [DeviceColumn(c.data[:m].contiguous(),
+                          c.validity[:m].contiguous(), c.dtype)
+             for c in sorted_cols[2:6]]
+    _time_k4(torch, out, "many", ColumnBatch(many, m, None, dev), [0], 1)
+    del sorted_cols, many
+    packed, buf = _q1_decode_batch(torch, dev)
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    before = WC.decode_fixed.launches
+    got = packed.decode(buf)
+    out["k8a_q1_launches"] = WC.decode_fixed.launches - before
+    for a, b in zip(got, packed.decode(buf, plain=True)):
+        if not (torch.equal(a.validity, b.validity) and torch.equal(
+                a.data.view(torch.int64) if a.data.dtype == torch.float64
+                else a.data, b.data.view(torch.int64)
+                if b.data.dtype == torch.float64 else b.data)):
+            raise AssertionError("K8a differs from its plain version")
+    out["k8a_q1_ms"] = _best(torch, {"k8a": lambda: packed.decode(buf)})[
+        "k8a"]
+    out["k8a_q1_device_ms"] = _device_ms(torch, lambda: packed.decode(buf))
+    del packed, buf
     cols, rows = _q6_join_output(torch, dev)
     _time_gather(torch, out, "q6", cols, rows)
     del cols, rows

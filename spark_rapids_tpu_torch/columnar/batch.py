@@ -197,9 +197,62 @@ class PackedBatch:
 
     def decode(self, buf: torch.Tensor, plain: bool = False) -> list:
         """The batch's columns from its buffer on a device; ``plain`` runs
-        the K8 kernels' plain versions on any device (to compare them)."""
+        the K8 kernels' plain versions on any device (to compare them).  On
+        CUDA every K8a stream of the batch decodes in one launch
+        (:meth:`decode_cuda`)."""
+        if buf.device.type == "cuda" and not plain:
+            return self.decode_cuda(buf)
         return [self.decode_column(buf, i, plain)
                 for i in range(len(self.col_specs))]
+
+    def k8a_jobs(self, buf: torch.Tensor) -> list:
+        """(column, job) of every K8a job of the batch on ``buf``
+        (``wirecodec.k8a_job``, by device address): a bit-packed data or
+        lengths stream with its validity, and for a raw leaf its validity
+        stream (ones where the column is all valid).  Dictionary columns
+        (K8b) have none."""
+        base = buf.data_ptr()
+        lay = self.layout
+        params = base + lay[self.params][0]
+        out = []
+        for i, spec in enumerate(self.col_specs):
+            if spec[0] == "dict":
+                continue
+            vdesc = spec[2]
+            vw = 0 if vdesc[0] == "av" else base + lay[vdesc[1]][0]
+            desc = spec[1] if spec[0] == "fixed" else spec[3]
+            if desc[0] == "raw":
+                out.append((i, wc.k8a_job(0, vw, 0)))
+                continue
+            _kind, li, bits, dt, p, factor = desc
+            out.append((i, wc.k8a_job(base + lay[li][0], vw, params + 8 * p,
+                                      bits, factor, _NP_TO_TORCH[dt])))
+        return out
+
+    def decode_cuda(self, buf: torch.Tensor) -> list:
+        """The batch's columns on CUDA: one K8a launch over every job
+        (``wirecodec.decode_jobs``, every output carved from one
+        allocation), one K8b launch a dictionary column, views of raw
+        leaves."""
+        jobs = self.k8a_jobs(buf)
+        outs = dict(zip((i for i, _j in jobs), wc.decode_jobs(
+            [j for _i, j in jobs], self.num_rows, buf.device)))
+        cols = []
+        for i, spec in enumerate(self.col_specs):
+            if spec[0] == "dict":
+                cols.append(self.decode_column(buf, i))
+                continue
+            dtype = self.schema.fields[i].data_type
+            data, valid = outs[i]
+            desc = spec[1] if spec[0] == "fixed" else spec[3]
+            if desc[0] == "raw":
+                data = self.leaf(buf, desc[1])
+            if spec[0] == "fixed":
+                cols.append(DeviceColumn(data, valid, dtype))
+            else:
+                cols.append(DeviceColumn(self.leaf(buf, spec[1][1]), valid,
+                                         dtype, data))
+        return cols
 
     def decode_column(self, buf: torch.Tensor, i: int,
                       plain: bool = False) -> DeviceColumn:

@@ -25,9 +25,13 @@ Encodings (chosen per column per batch, host-side):
 
 Device side (kernel family K8, ``csrc/wirecodec.cu``):
 
-* :func:`decode_fixed` (K8a) unpacks one bit-packed stream into a column
-  of the port's dtype and its validity, null slots zero; it also decodes
-  a validity stream alone and the bit-packed lengths of a string column;
+* K8a unpacks bit-packed streams into columns of the port's dtype and
+  their validity, null slots zero; a stream is a column's data, a string
+  column's lengths or a validity stream alone (all valid: ones).
+  :func:`decode_jobs` decodes every stream of a scan batch in one launch
+  (one job a stream by device address, :func:`decode_table`, every output
+  carved from one allocation); :func:`decode_fixed` is the checked
+  one-stream call over tensors through the same kernel;
 * :func:`decode_dict` (K8b) unpacks a dictionary string column's indices
   and copies each row's dictionary bytes and length.
 
@@ -37,6 +41,8 @@ versions compute in int64: PyTorch on the CPU has no shifts on uint32.
 """
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
@@ -44,6 +50,7 @@ from spark_rapids_tpu_torch.ops import native
 
 __all__ = ["bits_needed", "pack_bits_host", "encode_fixed", "encode_lengths",
            "maybe_dict_arrow", "decode_fixed", "decode_fixed_plain",
+           "k8a_job", "decode_jobs", "decode_outputs", "decode_table",
            "decode_dict", "decode_dict_plain", "packed_words"]
 
 _FAST_BITS = {8: np.uint8, 16: np.uint16, 32: np.uint32}
@@ -255,8 +262,16 @@ def maybe_dict_arrow(arr, n: int):
 # device-side decode (K8)
 # ---------------------------------------------------------------------------
 
-#: C entry point kinds of csrc/wirecodec.cu srt_decode_fixed
+#: job kinds of csrc/wirecodec.cu srt_decode_batch
 _VALID_ONLY, _INT, _BOOL, _SCALED = 0, 1, 2, 3
+#: table words a job, rows a block's tile (4 a thread), and the small and
+#: large parameter tables (``kDecodeJobWords``, ``kDecodeTile``,
+#: ``kDecodeSmallWords``, ``kDecodeLargeWords``); past the large one the
+#: wrapper hands the kernel a device copy
+DECODE_JOB_WORDS, DECODE_TILE = 7, 1024
+DECODE_SMALL_WORDS, DECODE_PARAM_WORDS = 448, 4000
+native.share_limits("wirecodec", (DECODE_JOB_WORDS, DECODE_TILE,
+                                  DECODE_SMALL_WORDS, DECODE_PARAM_WORDS))
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -307,23 +322,8 @@ def _validity_plain(vwords: torch.Tensor | None, n: int, dev) -> torch.Tensor:
     return _unpack_plain(vwords, n, 1) != 0
 
 
-def decode_fixed(words: torch.Tensor | None, vwords: torch.Tensor | None,
-                 n: int, bits: int = 0, base: torch.Tensor | None = None,
-                 factor=1, out_dtype: torch.dtype | None = None):
-    """K8a: one fixed-width column of ``n`` rows from its packed streams.
-
-    ``words``: int32 [>= ceil(n*bits/32)], the uint32 stream of ``bits``-bit
-    values (None: decode the validity alone); ``vwords``: the 1-bit
-    validity stream (None: every row valid); ``base``: the int64 FOR
-    base, one element (None: 0); ``factor``: an int divisor (value
-    ``(bits + base) * factor`` in int64, then cast to ``out_dtype``) or a
-    float scale (``out_dtype`` float64: ``(double(bits) + double(base)) *
-    factor``, each step rounded); a bool ``out_dtype`` is ``bits != 0``.
-    Returns (data [n] or None, bool validity [n]); null slots are zero.
-
-    Replaces the reference's ``_unpack_bits_device`` (wirecodec.py:104),
-    ``decode_data`` (:269), ``decode_validity`` (:259) and the zeroing of
-    null slots in ``_packed_unpack_cached`` (batch.py:250-262)."""
+def _check_fixed(words, vwords, n, bits, base, factor, out_dtype):
+    """The stream's device tensor (its words, else its validity words)."""
     like = words if words is not None else vwords
     if like is None:
         raise ValueError("decode_fixed: nothing to decode (no data and "
@@ -337,11 +337,34 @@ def decode_fixed(words: torch.Tensor | None, vwords: torch.Tensor | None,
     _check_stream(words, n, bits, "decode_fixed")
     _check_stream(vwords, n, 1, "decode_fixed validity")
     _check_base(base, like)
+    return like
+
+
+def decode_fixed(words: torch.Tensor | None, vwords: torch.Tensor | None,
+                 n: int, bits: int = 0, base: torch.Tensor | None = None,
+                 factor=1, out_dtype: torch.dtype | None = None):
+    """K8a: one fixed-width column of ``n`` rows from its packed streams.
+
+    ``words``: int32 [>= ceil(n*bits/32)], the uint32 stream of ``bits``-bit
+    values (None: decode the validity alone); ``vwords``: the 1-bit
+    validity stream (None: every row valid); ``base``: the int64 FOR
+    base, one element (None: 0); ``factor``: an int divisor (value
+    ``(bits + base) * factor`` in int64, then cast to ``out_dtype``) or a
+    float scale (``out_dtype`` float64: ``(double(bits) + double(base)) *
+    factor``, each step rounded); a bool ``out_dtype`` is ``bits != 0``.
+    Returns (data [n] or None, bool validity [n]); null slots are zero.
+    On CUDA a one-job :func:`decode_jobs`.
+
+    Replaces the reference's ``_unpack_bits_device`` (wirecodec.py:104),
+    ``decode_data`` (:269), ``decode_validity`` (:259) and the zeroing of
+    null slots in ``_packed_unpack_cached`` (batch.py:250-262)."""
+    like = _check_fixed(words, vwords, n, bits, base, factor, out_dtype)
     if like.device.type == "cpu":
         return decode_fixed_plain(words, vwords, n, bits, base, factor,
                                   out_dtype)
-    return _decode_fixed_cuda(words, vwords, n, bits, base, factor,
-                              out_dtype)
+    return decode_jobs([k8a_job(_ptr(words) or 0, _ptr(vwords) or 0,
+                                _ptr(base) or 0, bits, factor, out_dtype)],
+                       n, like.device)[0]
 
 
 decode_fixed.launches = 0
@@ -368,33 +391,78 @@ def decode_fixed_plain(words, vwords, n: int, bits: int = 0, base=None,
 
 
 _INT_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8}
+_ITEM = {**_INT_BYTES, torch.bool: 1, torch.float64: 8}
 
 
-def _decode_fixed_cuda(words, vwords, n, bits, base, factor, out_dtype):
-    dev = (words if words is not None else vwords).device
-    valid = torch.empty(n, dtype=torch.bool, device=dev)
-    data = None if words is None else torch.empty(n, dtype=out_dtype,
-                                                  device=dev)
-    if n == 0:
-        return data, valid
-    if words is None:
-        kind, nbytes = _VALID_ONLY, 1
-    elif isinstance(factor, float):
-        kind, nbytes = _SCALED, 8
+def k8a_job(words: int, vwords: int, base: int, bits: int = 0, factor=1,
+            out_dtype: torch.dtype | None = None) -> tuple:
+    """One job of K8a's table from device addresses (0: none): the packed
+    words (0: the validity alone), the 1-bit validity words (0: every row
+    valid) and the int64 FOR base (0: base 0), as :func:`decode_fixed`
+    takes them.  Returns (words, vwords, base, output dtype or None, the
+    divisor or the scale's float64 bits, bits | kind << 8 | output bytes
+    << 16)."""
+    if not words:
+        return 0, vwords, 0, None, 1, 1 | _VALID_ONLY << 8 | 1 << 16
+    if isinstance(factor, float):
+        kind, fw = _SCALED, struct.unpack("<q", struct.pack("<d", factor))[0]
     elif out_dtype == torch.bool:
-        kind, nbytes = _BOOL, 1
+        kind, fw = _BOOL, 1
     elif out_dtype in _INT_BYTES:
-        kind, nbytes = _INT, _INT_BYTES[out_dtype]
+        kind, fw = _INT, int(factor)
     else:
         raise ValueError(f"decode_fixed: no K8a output of type {out_dtype}")
-    native.check(native.lib("wirecodec").srt_decode_fixed(
-        _ptr(words), bits, _ptr(base),
-        int(factor) if kind == _INT else 1,
-        float(factor) if kind == _SCALED else 1.0, kind, nbytes,
-        _ptr(vwords), _ptr(data), _ptr(valid), n, native.stream_ptr(dev)),
-        "srt_decode_fixed")
+    return (words, vwords, base, out_dtype, fw,
+            bits | kind << 8 | _ITEM[out_dtype] << 16)
+
+
+def decode_outputs(jobs, n: int, dev) -> list:
+    """(data or None, validity) of every job of ``jobs`` (:func:`k8a_job`)
+    over ``n`` rows: views of one allocation, each 16-byte aligned."""
+    rnd = lambda x: -(-x // 16) * 16  # noqa: E731
+    sizes = [0 if j[3] is None else rnd(n * _ITEM[j[3]]) for j in jobs]
+    buf = torch.empty(max(sum(sizes) + len(jobs) * rnd(n), 16),
+                      dtype=torch.uint8, device=dev)
+    outs, off = [], 0
+    for a, j in zip(sizes, jobs):
+        data = None
+        if j[3] is not None:
+            data = buf[off:off + n * _ITEM[j[3]]].view(j[3])
+            off += a
+        outs.append((data, buf[off:off + n].view(torch.bool)))
+        off += rnd(n)
+    return outs
+
+
+def decode_table(jobs, outs) -> list[int]:
+    """K8a's table (:data:`DECODE_JOB_WORDS` int64 words a job): the
+    addresses of each job's packed words, validity words and FOR base, of
+    its data (0: none) and validity outputs, its divisor (or the scale's
+    float64 bits) and bits | kind << 8 | output bytes << 16."""
+    words = []
+    for (w, v, base, _dt, fw, kw), (data, valid) in zip(jobs, outs):
+        words += [w, v, base, 0 if data is None else data.data_ptr(),
+                  valid.data_ptr(), fw, kw]
+    return words
+
+
+def decode_jobs(jobs, n: int, dev):
+    """K8a on CUDA: every job of ``jobs`` (:func:`k8a_job`, all over ``n``
+    rows) in one launch of ``srt_decode_batch`` (counted once in
+    ``decode_fixed.launches``); every output carved from one allocation
+    (:func:`decode_outputs`).  Returns each job's (data [n] or None, bool
+    validity [n])."""
+    outs = decode_outputs(jobs, n, dev)
+    if n == 0 or not jobs:
+        return outs
+    words = decode_table(jobs, outs)
+    host, tab = native.param_table(words, len(words) > DECODE_PARAM_WORDS,
+                                   dev)
+    native.check(native.lib("wirecodec").srt_decode_batch(
+        host.buffer_info()[0], len(words), len(jobs), _ptr(tab), n,
+        native.stream_ptr(dev)), "srt_decode_batch")
     decode_fixed.launches += 1
-    return data, valid
+    return outs
 
 
 def decode_dict(words: torch.Tensor, vwords: torch.Tensor | None, n: int,

@@ -7,10 +7,12 @@
 // passes outputs and scratch as torch tensors) and return cudaGetLastError().
 //
 // Tiling: a tile is kThreads * kItems consecutive rows handled by one block.
-// Flag scans (filter keep flags, segment boundary flags) run in two steps:
-// a per-tile count, then one single-block exclusive scan over the tile
-// counts.  The scatter/reduce kernels recompute the in-tile ranks with
-// cub::BlockScan, so the scanned row positions are never written out.
+// Flag scans (filter keep flags, join offsets, partition and window
+// segments) run in two steps: a per-tile count, then one single-block
+// exclusive scan over the tile counts; K4's boundary pass instead counts
+// and scans in one launch with the decoupled look-back below.  The
+// scatter/reduce kernels recompute the in-tile ranks with cub::BlockScan,
+// so the scanned row positions are never written out.
 #pragma once
 
 #include <cstdint>
@@ -158,6 +160,87 @@ inline void flag_scan(const uint8_t* flag, int64_t n, int32_t* tile_counts,
   if (nt > 0) tile_count_kernel<<<nt, kThreads, 0, stream>>>(flag, n, tile_counts);
   scan_exclusive_kernel<<<1, kScanThreads, 0, stream>>>(tile_counts,
                                                         tile_offsets, nt);
+}
+
+// Decoupled look-back (Merrill and Garland's single-pass prefix scan) over
+// the tiles of one launch, in place of a tile count and a one-block scan.
+// A block takes its tile from a ticket, so a tile only ever waits on tiles
+// that have started.  status (uint64): [0] the ticket, [1] the tiles done,
+// [2 + t] tile t's state -- its own count or its inclusive prefix in the
+// low 62 bits, which of the two in the top two -- zero on entry.  The last
+// tile done zeroes [0, 2 + ntiles) again, so a caller keeps one status
+// array and never clears it.  Counts are integers whose sums stay below
+// 2^62 (a caller may pack two 31-bit counts into one).
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr unsigned long long kLbAgg = 1ull << 62;
+constexpr unsigned long long kLbPrefix = 2ull << 62;
+constexpr unsigned long long kLbValue = kLbAgg - 1ull;
+
+__device__ __forceinline__ unsigned long long lb_load(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+__device__ __forceinline__ void lb_store(unsigned long long* p,
+                                         unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// The block's tile; every thread calls it (one __syncthreads).
+__device__ __forceinline__ long long lookback_ticket(
+    unsigned long long* status, long long* s_tile) {
+  if (threadIdx.x == 0) *s_tile = (long long)atomicAdd(status, 1ull);
+  __syncthreads();
+  return *s_tile;
+}
+
+// Warp 0 of the block, every lane: publishes the tile's count `agg`, reads
+// the earlier tiles' states 32 at a time back to the nearest published
+// prefix, publishes the tile's inclusive prefix and returns the exclusive
+// one (on every lane).
+__device__ __forceinline__ unsigned long long lookback_prefix(
+    unsigned long long* status, long long tile, unsigned long long agg) {
+  unsigned long long* st = status + 2;
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) lb_store(st, kLbPrefix | agg);
+    return 0ull;
+  }
+  if (lane == 0) lb_store(st + tile, kLbAgg | agg);
+  unsigned long long before = 0ull;
+  for (long long j = tile - 1;; j -= 32) {
+    const long long q = j - lane;  // lane 0 the nearest
+    unsigned long long s = q >= 0 ? lb_load(st + q) : kLbPrefix;
+    while (__any_sync(kFullMask, (s & ~kLbValue) == 0ull))
+      if ((s & ~kLbValue) == 0ull) s = lb_load(st + q);
+    const unsigned pre = __ballot_sync(kFullMask, (s & kLbPrefix) != 0ull);
+    // the counts up to and including the nearest published prefix
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    unsigned long long v = lane <= stop ? (s & kLbValue) : 0ull;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+    before += v;
+    if (pre) break;
+  }
+  if (lane == 0) lb_store(st + tile, kLbPrefix | (before + agg));
+  return before;
+}
+
+// Every thread of the block, once warp 0's look-back is over: the last
+// tile done zeroes the status for the next launch.
+__device__ __forceinline__ void lookback_done(unsigned long long* status,
+                                              long long ntiles,
+                                              int* s_last) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *s_last = atomicAdd(status + 1, 1ull) ==
+              (unsigned long long)(ntiles - 1);
+  }
+  __syncthreads();
+  if (*s_last) {
+    __threadfence();
+    for (long long i = threadIdx.x; i < ntiles + 2; i += blockDim.x)
+      status[i] = 0ull;
+  }
 }
 
 }  // namespace srt

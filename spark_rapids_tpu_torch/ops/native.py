@@ -60,7 +60,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_D = ctypes.c_double
 
 #: C entry points and their argument types (every one returns a
 #: cudaError_t as int and takes the stream last, but the ``_limits``
@@ -82,11 +81,12 @@ _SIGNATURES = {
         "srt_sort_limits": [_P, _I],
     },
     "segmented": {
-        "srt_seg_flags": [_P, _P, _P, _I, _I, _P, _L, _P],
-        "srt_seg_prepare": [_P, _L, _P, _P, _P],
-        "srt_seg_starts": [_P, _L, _P, _P, _P],
-        "srt_seg_agg": [_I, _P, _P, _I, _I, _P, _L, _P, _P, _I, _P, _P, _P,
-                        _I, _I, _P],
+        "srt_seg_bounds": [_P, _L, _I, _P, _I, _P, _P, _P, _P, _L, _P],
+        "srt_seg_agg_tiles": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _L,
+                              _I, _P],
+        "srt_seg_agg_combine": [_P, _L, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                                _L, _I, _I, _P],
+        "srt_segmented_limits": [_P, _I],
         "srt_seg_percentile": [_P, _L, _P, _P, _I, _P, _I, _P, _P, _P],
         "srt_seg_string_minmax": [_I, _P, _P, _P, _I, _P, _L, _P, _P, _I,
                                   _P, _P, _P],
@@ -142,7 +142,8 @@ _SIGNATURES = {
         "srt_hex": [_P, _P, _P, _P, _L, _P],
     },
     "wirecodec": {
-        "srt_decode_fixed": [_P, _I, _P, _L, _D, _I, _I, _P, _P, _P, _L, _P],
+        "srt_decode_batch": [_P, _L, _I, _P, _L, _P],
+        "srt_wirecodec_limits": [_P, _I],
         "srt_decode_dict": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P],
     },
     "range_partition": {

@@ -6,10 +6,15 @@ NaN == NaN, -0.0 == 0.0), and reduce each contiguous segment.  Null keys
 form their own group.  A grand aggregate (no keys) yields exactly one row,
 even on empty input.
 
-:func:`segment_aggregate` is the K4 wrapper: on CUDA it runs
-``csrc/segmented.cu``; on the CPU its plain version mirrors the reference's
-segment_sum formulation with ``index_add_``, and takes min/max/first/last
-rows by sorting and indexing.
+:func:`segment_aggregate` is the K4 wrapper: on CUDA it makes three
+launches of ``csrc/segmented.cu`` a call -- the boundary pass over every
+key column (:func:`_segment_flags`), then one tile launch and one combine
+launch over every aggregate, the specs deduplicated into jobs
+(:func:`agg_plan`) and passed as one table (:func:`agg_table`) -- with
+one host read of the group count between the first two; on the CPU its
+plain version mirrors the reference's segment_sum formulation with
+``index_add_``, and takes min/max/first/last rows by sorting and
+indexing.
 
 A percentile sorts the rows by (keys, value ascending, value nulls last)
 with K1, so each segment's valid values lie at its front in order (NaN
@@ -326,20 +331,18 @@ def _segment_percentile_cuda(values, starts, counts, qs):
 
 def segment_string_min_max(col: DeviceColumn, flags: torch.Tensor,
                            starts: torch.Tensor, is_max: bool,
-                           tile_offsets: torch.Tensor | None = None,
-                           slots: torch.Tensor | None = None
+                           tile_offsets: torch.Tensor | None = None
                            ) -> DeviceColumn:
     """Per segment of rows sorted by the group keys, the least (``is_max``:
     the greatest) valid string of ``col``; a segment without one is null.
     ``flags`` (uint8 [n], 1 at each segment's first row) and ``starts``
-    (int32 [G], those rows) are K4's boundary pass; on CUDA its tile
-    offsets and its aggregate scratch ``slots`` are reused when given."""
+    (int32 [G], those rows) are K4's; on CUDA its tile offsets are reused
+    when given, else one boundary pass over the flags makes them."""
     if not col.is_string:
         raise ValueError(f"segment_string_min_max over {col.dtype}")
     if col.data.device.type == "cpu":
         return segment_string_min_max_plain(col, flags, starts, is_max)
-    return _string_min_max_cuda(col, flags, starts, is_max, tile_offsets,
-                                slots)
+    return _string_min_max_cuda(col, flags, starts, is_max, tile_offsets)
 
 
 segment_string_min_max.launches = 0
@@ -359,41 +362,62 @@ def segment_string_min_max_plain(col: DeviceColumn, flags: torch.Tensor,
                           seg_id, g, n, has)
 
 
-def _string_min_max_cuda(col, flags, starts, is_max, tile_offsets, slots):
+def _string_min_max_cuda(col, flags, starts, is_max, tile_offsets):
     n = col.data.shape[0]
     g = starts.shape[0]
     dev = col.data.device
-    lib = native.lib("segmented")
-    stream = native.stream_ptr(dev)
-    nt = num_tiles(n)
     if tile_offsets is None:
-        tile_offsets = torch.empty(nt + 1, dtype=torch.int32, device=dev)
-        native.check(lib.srt_seg_prepare(
-            ptr(flags), n, ptr(torch.empty(nt, dtype=torch.int32,
-                                           device=dev)),
-            ptr(tile_offsets), stream), "srt_seg_prepare")
-    if slots is None:
-        slots = torch.empty(2 * (g + nt), dtype=torch.int64, device=dev)
+        _f, tile_offsets, _s = _segment_flags([flags], n, dev, offsets=True)
+    slots = torch.empty(2 * (g + num_tiles(n)), dtype=torch.int64,
+                        device=dev)
     data = col.data.contiguous()
     if data.data_ptr() % 16:
         data = data.clone()  # rows are compared as aligned words
     pick = torch.empty(g, dtype=torch.int32, device=dev)
-    native.check(lib.srt_seg_string_minmax(
+    native.check(native.lib("segmented").srt_seg_string_minmax(
         int(is_max), ptr(data), ptr(col.lengths.to(torch.int32).contiguous()),
         ptr(col.validity.contiguous()), col.max_len, ptr(flags), n,
-        ptr(tile_offsets), ptr(starts), g, ptr(slots), ptr(pick), stream),
-        "srt_seg_string_minmax")
+        ptr(tile_offsets), ptr(starts), g, ptr(slots), ptr(pick),
+        native.stream_ptr(dev)), "srt_seg_string_minmax")
     segment_string_min_max.launches += 1
     return gather_columns([col], pick)[0]
 
 
 # ---------------------------------------------------------------------------
-# CUDA (csrc/segmented.cu)
+# CUDA (csrc/segmented.cu): three launches a call
 # ---------------------------------------------------------------------------
 
-_OP_CODES = {"count": 3, "count_star": 4, "avg": 2, "first": 9, "last": 10,
-             "first_non_null": 11, "last_non_null": 12}
-_KIND_INT, _KIND_FLOAT, _KIND_BOOL, _KIND_STRING = 0, 1, 2, 3
+#: rows a tile and a thread of the K4 launches (``kTile``, ``kItems``)
+SEG_TILE, SEG_ITEMS = 4096, 16
+#: table words of a key column, an input column, a job and an output
+KEY_WORDS, COL_WORDS, JOB_WORDS, OUT_WORDS = 4, 4, 2, 3
+#: the longest key table the boundary pass takes in its parameters; past
+#: it the wrapper hands over a device copy
+KEY_PARAM_WORDS = 128
+#: the aggregate's small and large parameter tables (``kAggSmallWords``,
+#: ``kAggLargeWords``); past the large one, a device copy
+AGG_SMALL_WORDS, AGG_PARAM_WORDS = 480, 4000
+native.share_limits("segmented", (SEG_TILE, SEG_ITEMS, KEY_WORDS, COL_WORDS,
+                                  JOB_WORDS, OUT_WORDS, KEY_PARAM_WORDS,
+                                  AGG_SMALL_WORDS, AGG_PARAM_WORDS))
+
+#: value kinds of csrc/segmented.cu (``ValKind``); a flag column (uint8,
+#: nonzero where a segment starts) is the kind of K4s's given flags
+_KIND_INT, _KIND_FLOAT, _KIND_BOOL, _KIND_STRING, _KIND_FLAG = 0, 1, 2, 3, 4
+#: the jobs' accumulators (``AggOp``)
+OP_SUM_I, OP_SUM_F, OP_COUNT, OP_COUNT_STAR = 0, 1, 3, 4
+OP_MIN_I, OP_MAX_I, OP_MIN_F, OP_MAX_F = 5, 6, 7, 8
+OP_FIRST, OP_LAST, OP_FIRST_NN, OP_LAST_NN = 9, 10, 11, 12
+_PICK_OPS = {"first": OP_FIRST, "last": OP_LAST,
+             "first_non_null": OP_FIRST_NN, "last_non_null": OP_LAST_NN}
+#: accumulators that read the column's values (staged by the tile launch)
+STAGED_OPS = frozenset({OP_SUM_I, OP_SUM_F, OP_MIN_I, OP_MAX_I, OP_MIN_F,
+                        OP_MAX_F})
+#: accumulators whose count is that of the column's valid rows, so that a
+#: count over the column rides on them
+VALID_COUNTED_OPS = STAGED_OPS | {OP_COUNT, OP_FIRST_NN, OP_LAST_NN}
+#: what an output takes of its job's state (``OutMode``)
+OUT_VALUE, OUT_AVG, OUT_COUNT, OUT_PICK = 0, 1, 2, 3
 
 
 def _kind(col: DeviceColumn) -> tuple[int, int]:
@@ -404,17 +428,6 @@ def _kind(col: DeviceColumn) -> tuple[int, int]:
     if col.dtype.fractional:
         return _KIND_FLOAT, col.data.element_size()
     return _KIND_INT, col.data.element_size()
-
-
-def _op_code(spec: AggSpec, col: DeviceColumn | None) -> int:
-    if spec.op in _OP_CODES:
-        return _OP_CODES[spec.op]
-    if spec.op == "sum":
-        return 0 if col.dtype.integral else 1
-    if spec.op in ("min", "max"):
-        base = 7 if col.dtype.fractional else 5
-        return base + (spec.op == "max")
-    raise NotImplementedError(f"aggregate op {spec.op}")
 
 
 def _check_cuda_covered(sb: ColumnBatch, aggs: list[AggSpec]) -> None:
@@ -436,26 +449,265 @@ def _empty_grand(spec: AggSpec, col: DeviceColumn | None, dev):
                         valid, rtype)
 
 
-def _segment_flags(cols: list[DeviceColumn], flags: torch.Tensor) -> None:
-    """Set ``flags[i]`` (uint8, CUDA) where row i's key differs from row
-    i-1's in any of ``cols`` (null == null, NaN == NaN, -0.0 == 0.0): one
-    launch of ``srt_seg_flags`` per column, each counted.  The boundary
-    pass of the aggregate and of the join's key ids (ops/join.py)."""
-    lib = native.lib("segmented")
-    stream = native.stream_ptr(flags.device)
+def key_table(cols) -> list[int]:
+    """The boundary pass's table (:data:`KEY_WORDS` int64 words a key):
+    each key's data, validity and lengths (0: fixed width) addresses and
+    its kind and row bytes; a uint8 tensor stands for a flag column (a
+    segment starts where it is nonzero).  Keys must be contiguous."""
+    words = []
     for c in cols:
+        if isinstance(c, torch.Tensor):
+            words += [c.data_ptr(), 0, 0, _KIND_FLAG | 1 << 8]
+            continue
         kind, item = _kind(c)
-        data = c.data.contiguous()
-        if kind == _KIND_STRING and data.data_ptr() % 4:
-            data = data.clone()
-        native.check(lib.srt_seg_flags(
-            ptr(data), ptr(c.validity.contiguous()),
-            ptr(None if c.lengths is None else c.lengths.contiguous()),
-            kind, item, ptr(flags), flags.numel(), stream), "srt_seg_flags")
-        _segment_flags.launches += 1
+        words += [c.data.data_ptr(), c.validity.data_ptr(),
+                  0 if c.lengths is None else c.lengths.data_ptr(),
+                  kind | item << 8]
+    return words
+
+
+#: the boundary pass's look-back state by (device, stream): zero between
+#: launches (the last tile of each launch clears it), grown as needed
+_STATUS: dict = {}
+
+
+def _status(dev, stream: int, ntiles: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    st = _STATUS.get(key)
+    if st is None or st.numel() < ntiles + 2:
+        st = torch.zeros(max(ntiles + 2, 1024), dtype=torch.int64,
+                         device=dev)
+        _STATUS[key] = st
+    return st
+
+
+def _segment_flags(cols, n: int, dev, first: int = 1,
+                   offsets: bool = False):
+    """K4's boundary pass, one launch of ``srt_seg_bounds`` over every key
+    column (counted once): uint8 flags [n], 1 where row i's key differs
+    from row i-1's in any of ``cols`` (null == null, NaN == NaN, -0.0 ==
+    0.0), ``first`` at row 0.  With ``offsets``, also the int32 tile
+    offsets [ntiles + 2] (the groups started before each tile, then G and
+    S) and the tiles that hold a flag (the first S of int32 [ntiles]);
+    else those two are None.  The aggregate's boundary pass and the
+    window's partition and order flags (ops/window.py)."""
+    nt = num_tiles(n)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_offsets = torch.empty(nt + 2, dtype=torch.int32, device=dev) \
+        if offsets else None
+    spans = torch.empty(nt, dtype=torch.int32, device=dev) \
+        if offsets else None
+    if n == 0:
+        if offsets:
+            tile_offsets.zero_()
+        return flags, tile_offsets, spans
+    keys = [c.contiguous() if isinstance(c, torch.Tensor) else _contig_col(c)
+            for c in cols]
+    words = key_table(keys)
+    stream = native.stream_ptr(dev)
+    host, tab = native.param_table(words, len(words) > KEY_PARAM_WORDS, dev)
+    native.check(native.lib("segmented").srt_seg_bounds(
+        host.buffer_info()[0], len(words), len(keys), ptr(tab), first,
+        ptr(flags), ptr(tile_offsets), ptr(spans),
+        ptr(_status(dev, stream, nt)) if offsets else None, n, stream),
+        "srt_seg_bounds")
+    _segment_flags.launches += 1
+    return flags, tile_offsets, spans
 
 
 _segment_flags.launches = 0
+
+
+@dataclass
+class AggPlan:
+    """The jobs of one aggregate call.  ``cols``: each input column's child
+    index (None: count_star's rows), ``jobs``: (column position, op),
+    grouped by column, ``outs``: (job, mode, torch dtype), grouped by job;
+    ``spec_out``: each spec's output (None for string min/max, K4s);
+    ``col_jobs``, ``job_outs``: the jobs of each column, the outputs of
+    each job."""
+    cols: list
+    jobs: list
+    outs: list
+    spec_out: list
+    col_jobs: list
+    job_outs: list
+
+
+def _job_of(op: str, col):
+    """(accumulator op, output mode, output dtype) of a spec that is not a
+    count, a percentile or a string min/max; ``col``: its column's
+    (is_string, integral, fractional, torch dtype)."""
+    if op == "count_star":
+        return OP_COUNT_STAR, OUT_COUNT, torch.int64
+    if op == "sum":
+        if col[1]:
+            return OP_SUM_I, OUT_VALUE, torch.int64
+        return OP_SUM_F, OUT_VALUE, torch.float64
+    if op == "avg":
+        return OP_SUM_F, OUT_AVG, torch.float64
+    if op in ("min", "max"):
+        base = OP_MIN_F if col[2] else OP_MIN_I
+        return base + (op == "max"), OUT_VALUE, col[3]
+    if op in _PICK_OPS:
+        return _PICK_OPS[op], OUT_PICK, torch.int32
+    raise NotImplementedError(f"aggregate op {op}")
+
+
+#: plans by (specs, the signature of their columns): a group-by makes the
+#: same plan for every batch
+_PLANS: dict = {}
+
+
+def agg_plan(sb: ColumnBatch, aggs: list[AggSpec]) -> AggPlan:
+    """Deduplicate ``aggs`` into jobs and outputs: identical specs share an
+    output, a sum and an average of a double column share a job (over an
+    integer column sum folds in wrapping int64, avg in doubles: two jobs),
+    a count (and a percentile's count of valid values) rides on the first
+    job over its column whose count is that of the valid rows, else gets a
+    count job of its own.  Plans are kept by the specs and their columns'
+    types."""
+    specs = tuple((a.op, None if a.op == "count_star" else a.child_index)
+                  for a in aggs)
+    sig = {ci: (c.is_string, c.dtype.integral, c.dtype.fractional,
+                c.data.dtype)
+           for ci, c in ((ci, sb.columns[ci]) for _op, ci in specs
+                         if ci is not None)}
+    key = (specs, tuple(sorted(sig.items())))
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) > 1024:
+            _PLANS.clear()
+        plan = _PLANS[key] = _build_plan(specs, sig)
+    return plan
+
+
+def _build_plan(specs, sig) -> AggPlan:
+    cols, jobs, outs = [], [], []
+    col_pos, job_pos, out_pos = {}, {}, {}
+
+    def job(ci, op):
+        if ci not in col_pos:
+            col_pos[ci] = len(cols)
+            cols.append(ci)
+        key = (col_pos[ci], op)
+        if key not in job_pos:
+            job_pos[key] = len(jobs)
+            jobs.append(key)
+        return job_pos[key]
+
+    def out(j, mode, dtype):
+        key = (j, mode, dtype)
+        if key not in out_pos:
+            out_pos[key] = len(outs)
+            outs.append(key)
+        return out_pos[key]
+
+    spec_out, counts = [], []
+    for i, (op, ci) in enumerate(specs):
+        col = None if ci is None else sig[ci]
+        if op in ("count", "percentile"):
+            counts.append(i)
+        elif op in ("min", "max") and col[0]:
+            pass
+        else:
+            jop, mode, dtype = _job_of(op, col)
+            spec_out.append((i, out(job(ci, jop), mode, dtype)))
+            continue
+        spec_out.append((i, None))
+    spec_out = dict(spec_out)
+    for i in counts:
+        ci = specs[i][1]
+        cp = col_pos.get(ci)
+        j = next((k for k, (c, op) in enumerate(jobs)
+                  if c == cp and op in VALID_COUNTED_OPS), None)
+        if j is None:
+            j = job(ci, OP_COUNT)
+        spec_out[i] = out(j, OUT_COUNT, torch.int64)
+    # jobs grouped by column, outputs by job (stable), indices remapped
+    jorder = sorted(range(len(jobs)), key=lambda k: jobs[k][0])
+    jnew = {old: new for new, old in enumerate(jorder)}
+    oorder = sorted(range(len(outs)), key=lambda k: jnew[outs[k][0]])
+    onew = {old: new for new, old in enumerate(oorder)}
+    jobs = [jobs[k] for k in jorder]
+    outs = [(jnew[outs[k][0]],) + outs[k][1:] for k in oorder]
+    col_jobs, job_outs = [0] * len(cols), [0] * len(jobs)
+    for c, _op in jobs:
+        col_jobs[c] += 1
+    for j, *_rest in outs:
+        job_outs[j] += 1
+    return AggPlan(cols, jobs, outs,
+                   [None if spec_out[i] is None else onew[spec_out[i]]
+                    for i in range(len(specs))], col_jobs, job_outs)
+
+
+def agg_outputs(plan: AggPlan, g: int, dev) -> list:
+    """(data, validity or None) views of every output of ``plan`` over
+    ``g`` groups, carved from one allocation (16-byte aligned views)."""
+    rnd = lambda x: -(-x // 16) * 16  # noqa: E731
+    vb = rnd(g)
+    total = sum(rnd(dtype.itemsize * g) + (0 if mode == OUT_PICK else vb)
+                for _j, mode, dtype in plan.outs)
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=dev)
+    views, off = [], 0
+    for _j, mode, dtype in plan.outs:
+        a = dtype.itemsize * g
+        data = buf[off:off + a].view(dtype)
+        off += rnd(a)
+        valid = None
+        if mode != OUT_PICK:
+            valid = buf[off:off + g].view(torch.bool)
+            off += vb
+        views.append((data, valid))
+    return views
+
+
+def agg_table(sb: ColumnBatch, plan: AggPlan, views) -> list[int]:
+    """The aggregate's table: each input column (:data:`COL_WORDS` words:
+    data and validity addresses, 0 for count_star's rows; kind | staged <<
+    8 | item << 16; first job | jobs << 32), each job (:data:`JOB_WORDS`:
+    op; first output | outputs << 32), each output (:data:`OUT_WORDS`:
+    data and validity addresses, mode | kind << 8 | item << 16).  Input
+    columns must be contiguous."""
+    words = []
+    j0 = 0
+    for pos, ci in enumerate(plan.cols):
+        nj = plan.col_jobs[pos]
+        staged = int(any(op in STAGED_OPS
+                         for _c, op in plan.jobs[j0:j0 + nj]))
+        if ci is None:
+            words += [0, 0, 0, j0 | nj << 32]
+        else:
+            col = sb.columns[ci]
+            kind, item = _kind(col)
+            words += [col.data.data_ptr(), col.validity.data_ptr(),
+                      kind | staged << 8 | item << 16, j0 | nj << 32]
+        j0 += nj
+    o0 = 0
+    for j, (_c, op) in enumerate(plan.jobs):
+        no = plan.job_outs[j]
+        words += [op, o0 | no << 32]
+        o0 += no
+    for (data, valid), (_j, mode, dtype) in zip(views, plan.outs):
+        kind = _KIND_FLOAT if dtype.is_floating_point else _KIND_INT
+        words += [data.data_ptr(), 0 if valid is None else valid.data_ptr(),
+                  mode | kind << 8 | data.element_size() << 16]
+    return words
+
+
+def combine_threads(ntiles: int, nspans: int) -> int:
+    """Threads a combine block: a block of 256 where a spanning group has
+    many pieces on average (two a tile), one warp where they are few."""
+    return 256 if 2 * ntiles >= 64 * max(nspans, 1) else 32
+
+
+def _contig_col(c: DeviceColumn) -> DeviceColumn:
+    if all(t is None or t.is_contiguous()
+           for t in (c.data, c.validity, c.lengths)):
+        return c
+    return DeviceColumn(c.data.contiguous(), c.validity.contiguous(),
+                        c.dtype, None if c.lengths is None
+                        else c.lengths.contiguous())
 
 
 def _segment_aggregate_cuda(sb: ColumnBatch, key_indices: list[int],
@@ -492,78 +744,74 @@ def _segment_aggregate_cuda(sb: ColumnBatch, key_indices: list[int],
                     for s in aggs], 1
     lib = native.lib("segmented")
     stream = native.stream_ptr(dev)
-    flags = torch.zeros(n, dtype=torch.uint8, device=dev)
-    if key_indices:
-        _segment_flags([sb.columns[ki] for ki in key_indices], flags)
-    else:
-        flags[0] = 1
     nt = num_tiles(n)
-    counts = torch.empty(nt, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nt + 1, dtype=torch.int32, device=dev)
-    native.check(lib.srt_seg_prepare(ptr(flags), n, ptr(counts),
-                                     ptr(offsets), stream), "srt_seg_prepare")
-    g = int(offsets[nt].item())
+    cols = list(sb.columns)
+    for i in set(key_indices) | {s.child_index for s in aggs
+                                 if s.op != "count_star"}:
+        cols[i] = _contig_col(cols[i])
+    sb = ColumnBatch(cols, n, sb.schema, dev)
+    plan = agg_plan(sb, aggs)
+    strings = [i for i, o in enumerate(plan.spec_out) if o is None
+               and aggs[i].op in ("min", "max")]
+    keys = [sb.columns[k] for k in key_indices]
+    flags = offsets = spans = None
+    g, nspans = 1, 1
+    if keys or strings:
+        # the one host read: the group count and the tiles with a flag
+        flags, offsets, spans = _segment_flags(keys, n, dev, offsets=True)
+        if keys:
+            g, nspans = offsets[nt:].tolist()
     starts = torch.empty(g, dtype=torch.int32, device=dev)
-    native.check(lib.srt_seg_starts(ptr(flags), n, ptr(offsets), ptr(starts),
-                                    stream), "srt_seg_starts")
-    key_cols = gather_columns([sb.columns[k] for k in key_indices], starts) \
-        if key_indices else []
-    slots = torch.empty(2 * (g + nt), dtype=torch.int64, device=dev)
-
-    def run(code, col, out_data, out_valid):
-        if col is None:
-            data, valid, kind, item = flags, flags, _KIND_INT, 1
-        else:
-            data, valid = col.data.contiguous(), col.validity.contiguous()
-            kind, item = _kind(col)
-        out_kind = _KIND_FLOAT if out_data.dtype.is_floating_point \
-            else _KIND_INT
-        native.check(lib.srt_seg_agg(
-            code, ptr(data), ptr(valid), kind, item, ptr(flags), n,
-            ptr(offsets), ptr(starts), g, ptr(slots), ptr(out_data),
-            ptr(out_valid), out_kind, out_data.element_size(), stream),
-            "srt_seg_agg")
-
-    # percentiles: one valid count and one K4p launch per value column,
-    # serving every q over it
+    views = agg_outputs(plan, g, dev)
+    words = agg_table(sb, plan, views)
+    njobs = len(plan.jobs)
+    slots = torch.empty(max(njobs, 1) * 4 * nt, dtype=torch.int64,
+                        device=dev)
+    host, tab = native.param_table(words, len(words) > AGG_PARAM_WORDS, dev)
+    args = (host.buffer_info()[0], len(words), len(plan.cols), njobs,
+            len(plan.outs), ptr(tab))
+    native.check(lib.srt_seg_agg_tiles(
+        *args, ptr(flags), ptr(offsets), ptr(starts), ptr(slots), n, g,
+        stream), "srt_seg_agg_tiles")
+    if njobs:
+        native.check(lib.srt_seg_agg_combine(
+            *args, ptr(offsets if keys else None),
+            ptr(spans if keys else None), nspans, ptr(starts), ptr(slots),
+            n, g, combine_threads(nt, nspans), stream),
+            "srt_seg_agg_combine")
+    segment_aggregate.launches += 1
+    key_cols = gather_columns(keys, starts) if keys else []
+    # percentiles: one K4p launch per value column, serving every q over it
     pct: dict[tuple, DeviceColumn] = {}
     by_col: dict[int, list[float]] = {}
     for spec in aggs:
         if spec.op == "percentile":
             by_col.setdefault(spec.child_index, []).append(spec.param)
     for ci, qs in by_col.items():
+        i = next(k for k, s in enumerate(aggs)
+                 if s.op == "percentile" and s.child_index == ci)
         col = sb.columns[ci]
-        valid_counts = torch.empty(g, dtype=torch.int64, device=dev)
-        run(_OP_CODES["count"], col, valid_counts,
-            torch.empty(g, dtype=torch.bool, device=dev))
-        data, valid = segment_percentile(col.data.to(torch.float64),
-                                         starts, valid_counts, qs)
+        data, valid = segment_percentile(col.data.to(torch.float64), starts,
+                                         views[plan.spec_out[i]][0], qs)
         for j, q in enumerate(qs):
             pct[(ci, q)] = DeviceColumn(data[j], valid[j], T.DoubleType())
     outs = []
-    for spec in aggs:
+    for i, spec in enumerate(aggs):
         if spec.op == "percentile":
             outs.append(pct[(spec.child_index, spec.param)])
             continue
         col = sb.columns[spec.child_index] if spec.op != "count_star" \
             else None
-        if spec.op in ("min", "max") and col.is_string:
+        o = plan.spec_out[i]
+        if o is None:  # string min/max: K4s
             outs.append(segment_string_min_max(col, flags, starts,
-                                               spec.op == "max", offsets,
-                                               slots))
+                                               spec.op == "max", offsets))
             continue
-        code = _op_code(spec, col)
-        picks = spec.op in ("first", "last", "first_non_null",
-                            "last_non_null")
+        data, valid = views[o]
+        if plan.outs[o][1] == OUT_PICK:
+            outs.append(gather_columns([col], data)[0])
+            continue
         rtype = spec.result_type(col.dtype if col is not None
                                  else T.LongType())
-        out_dtype = torch.int32 if picks else torch_dtype(rtype)
-        out_data = torch.empty(g, dtype=out_dtype, device=dev)
-        out_valid = torch.empty(g, dtype=torch.bool, device=dev)
-        run(code, col, out_data, out_valid)
-        if picks:
-            outs.append(gather_columns([col], out_data)[0])
-        else:
-            outs.append(DeviceColumn(out_data, out_valid, rtype))
-    segment_aggregate.launches += 1
+        outs.append(DeviceColumn(data, valid, rtype))
     return key_cols, outs, g

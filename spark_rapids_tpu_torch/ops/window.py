@@ -97,18 +97,24 @@ def _boundary_flags(sb: ColumnBatch, part_idx, order_idx):
     (K4's boundary pass on CUDA); ``part[0]`` is 1 and ``order[0]`` 0."""
     n = sb.num_rows
     dev = sb.device
+    if dev.type != "cpu" and n:
+        # one boundary pass each, row 0's flag set by the kernel
+        part = _segment_flags([sb.columns[k] for k in part_idx], n, dev,
+                              first=1)[0] if part_idx else None
+        order = _segment_flags([sb.columns[k] for k in order_idx], n, dev,
+                               first=0)[0] if order_idx else None
+        if part is None:
+            part = torch.zeros(n, dtype=torch.uint8, device=dev)
+            part[0] = 1
+        if order is None:
+            order = torch.zeros(n, dtype=torch.uint8, device=dev)
+        return part, order
     part = torch.zeros(n, dtype=torch.uint8, device=dev)
     order = torch.zeros(n, dtype=torch.uint8, device=dev)
-    if dev.type == "cpu":
-        for ki in part_idx:
-            part |= _cols_differ(sb.columns[ki]).to(torch.uint8)
-        for ki in order_idx:
-            order |= _cols_differ(sb.columns[ki]).to(torch.uint8)
-    else:
-        if part_idx:
-            _segment_flags([sb.columns[k] for k in part_idx], part)
-        if order_idx:
-            _segment_flags([sb.columns[k] for k in order_idx], order)
+    for ki in part_idx:
+        part |= _cols_differ(sb.columns[ki]).to(torch.uint8)
+    for ki in order_idx:
+        order |= _cols_differ(sb.columns[ki]).to(torch.uint8)
     if n:
         part[0] = 1
         order[0] = 0

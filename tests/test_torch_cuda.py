@@ -1762,3 +1762,143 @@ def test_mesh_pack_matches_plain_at_mesh_sizes(dev, p):
     buf, _layout = ME.mesh_pack(cols, perm, counts)
     assert ME.mesh_pack.launches == before + 1
     assert torch.equal(buf, ME.mesh_pack_plain(cols, perm, counts))
+
+
+# ---------------------------------------------------------------------------
+# K4 in three launches a call, K8a in one launch a batch
+# ---------------------------------------------------------------------------
+
+_K4_SPECS = [("sum", 1), ("sum", 2), ("avg", 2), ("avg", 1), ("sum", 2),
+             ("count", 2), ("count_star", 0), ("min", 1), ("max", 2),
+             ("min", 3), ("max", 3), ("first", 2), ("last", 1),
+             ("first_non_null", 2), ("last_non_null", 3), ("count", 3)]
+
+
+def _k4_batch(dev, n: int, groups: int, seed: int):
+    """n rows sorted by an int64 key of about ``groups`` groups (n: every
+    row its own), an int32, a double (NaN, -0.0, nulls) and a bool
+    column."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    rng = np.random.default_rng(seed)
+    key = np.sort(rng.integers(0, groups, n)) if groups < n else \
+        np.arange(n)
+
+    def col(x, null_p, dt):
+        v = rng.random(n) >= null_p
+        t = torch.from_numpy(np.where(v, x, np.zeros((), x.dtype)))
+        return DeviceColumn(t.to(dev), torch.from_numpy(v).to(dev), dt)
+    return ColumnBatch([
+        col(key.astype(np.int64), 0.0, T.LongType()),
+        col(rng.integers(-1000, 1000, n).astype(np.int32), 0.1,
+            T.IntegerType()),
+        col(rng.choice([1.5, -0.0, 0.0, np.nan, 2.25, -3e10], n)
+            * rng.random(n), 0.1, T.DoubleType()),
+        col(rng.random(n) < 0.5, 0.2, T.BooleanType())], n, None, dev)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, (1 << 20) + 1])
+@pytest.mark.parametrize("shape", ["one", "third", "each"])
+def test_segment_aggregate_three_launches_match_plain(dev, n, shape):
+    """K4 at its tile edges with one group, ~n/3 groups and a group a
+    row: keys, every covered op, duplicates (a sum beside its avg),
+    against the plain version; double sums within rtol 1e-9 and with the
+    same bits on a second run; a boundary pass a call."""
+    groups = {"one": 1, "third": max(n // 3, 1), "each": n}[shape]
+    sb = _k4_batch(dev, n, groups, n + len(shape))
+    specs = [G.AggSpec(o, c) for o, c in _K4_SPECS]
+    before = G._segment_flags.launches, G.segment_aggregate.launches
+    gk, ga, g = G.segment_aggregate(sb, [0], specs)
+    assert (G._segment_flags.launches, G.segment_aggregate.launches) == \
+        (before[0] + 1, before[1] + 1)
+    again = G.segment_aggregate(sb, [0], specs)[1]
+    wk, wa, wg = G.segment_aggregate_plain(sb, [0], specs)
+    assert g == wg
+    _same(gk[0], wk[0])
+    for spec, a, b, c in zip(specs, ga, wa, again):
+        assert torch.equal(a.validity, b.validity), spec
+        if a.data.dtype == torch.float64 and spec.op in ("sum", "avg"):
+            torch.testing.assert_close(a.data, b.data, rtol=1e-9, atol=0.0,
+                                       equal_nan=True)
+            assert torch.equal(a.data.view(torch.int64),
+                               c.data.view(torch.int64)), spec
+        else:
+            _same(a, b)
+    # the grand aggregate: no boundary pass
+    before = G._segment_flags.launches
+    _gk, ga, g = G.segment_aggregate(sb, [], specs)
+    assert G._segment_flags.launches == before and g == 1
+    for spec, a, b in zip(specs, ga, G.segment_aggregate_plain(sb, [],
+                                                               specs)[1]):
+        assert torch.equal(a.validity, b.validity), spec
+        torch.testing.assert_close(a.data, b.data, rtol=1e-9, atol=0.0,
+                                   equal_nan=True)
+
+
+_K8_EDGES = [1, 4095, 4096, 4097, (1 << 20) + 1]
+
+
+@pytest.mark.parametrize("n", _K8_EDGES)
+def test_decode_batch_every_kind_and_width_matches_plain(dev, n):
+    """K8a in one launch over every kind and width of a batch (int8-int64
+    at each bit bucket they take, bool, doubles at both scales, validity
+    alone, all-valid and all-null validity), exact against the plain
+    version, doubles bit for bit."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    g = torch.Generator(device=dev).manual_seed(n)
+
+    def words(bits):
+        return torch.randint(-2**31, 2**31, (WC.packed_words(n, bits),),
+                             generator=g, dtype=torch.int32, device=dev)
+    vpatterns = [None, words(1), torch.zeros_like(words(1))]
+    streams = []
+    for i, bits in enumerate((1, 2, 4, 8, 12, 16, 20, 24, 28, 32)):
+        v = vpatterns[i % 3]
+        for out, base, factor in ((torch.int64, -2**63, 1),
+                                  (torch.int64, 2**40, 1_000_000),
+                                  (torch.float64, -2**40, 0.01),
+                                  (torch.float64, 2**52, 1.0)):
+            b = torch.tensor([base], dtype=torch.int64, device=dev)
+            streams.append((words(bits), v, bits, b, factor, out))
+        if bits <= 28:
+            streams.append((words(bits), v, bits, None, 1, torch.int32))
+        if bits <= 12:
+            streams.append((words(bits), v, bits, None, 1, torch.int16))
+        if bits <= 4:
+            streams.append((words(bits), v, bits, None, 1, torch.int8))
+    streams.append((words(1), vpatterns[1], 1, None, 1, torch.bool))
+    streams.append((None, vpatterns[1], 0, None, 1, None))
+    streams.append((None, vpatterns[2], 0, None, 1, None))
+    before = WC.decode_fixed.launches
+    got = WC.decode_jobs([WC.k8a_job(
+        0 if w is None else w.data_ptr(), 0 if v is None else v.data_ptr(),
+        0 if b is None else b.data_ptr(), bits, factor, out)
+        for w, v, bits, b, factor, out in streams], n, dev)
+    assert WC.decode_fixed.launches == before + 1
+    for s, (d, v) in zip(streams, got):
+        wd, wv = WC.decode_fixed_plain(s[0], s[1], n, *s[2:])
+        assert torch.equal(v, wv)
+        if d is None:
+            assert wd is None
+            continue
+        assert d.dtype == wd.dtype
+        if d.dtype == torch.float64:
+            d, wd = d.view(torch.int64), wd.view(torch.int64)
+        assert torch.equal(d, wd), s[2:]
+
+
+def test_packed_batch_decodes_in_one_launch(dev):
+    """A scan batch on the card: one K8a launch for every encoded stream,
+    equal to the plain per-column decode and to the raw upload."""
+    from spark_rapids_tpu_torch.columnar import wirecodec as WC
+    rng = np.random.default_rng(81)
+    rb = _record_batch(rng, 70_001)
+    packed = ColumnBatch.stage_arrow(rb, dev, codec=True)
+    buf = packed.buf.to(dev)
+    before = WC.decode_fixed.launches
+    got = packed.decode(buf)
+    assert WC.decode_fixed.launches == before + 1
+    for a, b in zip(got, packed.decode(buf, plain=True)):
+        _same(a, b)
+    for a, b in zip(got, ColumnBatch.from_arrow(rb, dev, codec=False)
+                    .columns):
+        _same(a, b)
