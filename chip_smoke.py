@@ -19,7 +19,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
    inputs
    at the shapes the q1 and q6 main paths give it, the kernel held against
    its plain PyTorch version on the card, and its time beside the plain
-   version's, one PyTorch library call's and the memory-bound floor; K1
+   version's, one PyTorch library call's and the memory-bound floor; K2
+   at a 2^20-row scan batch of q1's 7 columns under q1's filter (~98%
+   kept) and under a 3% keep, through the wrapper in turns with its plain
+   version and mask indexing of every leaf, its two C entry points alone
+   (with the host read between them) and its kernels alone
+   (torch.profiler: one count_kernel and one copy_kernel a call, one copy
+   to the host); K5 at q6's largest probe (2^20 stream rows against
+   customer's 501,187 keys, every join type over the build's search
+   layout), through the wrapper in turns with its plain version and two
+   searchsorted calls, its C entry point alone and its search kernel
+   alone (one search_kernel a call, nothing else), beside K7's own
+   offsets scan of the same counts (which the search spares), and at
+   q6's other build sides (item, date_dim, customer_address) through the
+   wrapper and the kernel alone; the rank path's search (its sorted ids
+   new each call, their layout built for the call) at q6's and q24's
+   shapes; K1
    at q1's keys (2^24 rows) and at mixed int64/f64/int32/W16-string keys
    (2^22 rows, two orders) with the plan its wrapper derived (the varying
    bits, words and digit passes), timed in turns beside its plain version
@@ -61,7 +76,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
    every launch counter of K1-K7 (K4's boundary pass and K5's build-key
    rewrite included) is set to 0 just before its cold run, and each must
    be above 0 after it, but for K7's matched-build bitmap, which only a
-   full outer join runs;
+   full outer join runs; and K7's own offsets scan
+   (``join._offsets_cuda``, which only K14 takes) must stay at 0 (K5's
+   search writes the offsets K7 reads);
 6. the shuffle exchange (K9 murmur3 partition ids, K10 partition
    grouping: both held against their plain versions at 2^24 rows), then
    three paths over the generator's default layout (2^20-row files, 28
@@ -450,9 +467,87 @@ def _batch(torch, host: dict, dev, null_every: int = 0):
 # kernel phases
 # ---------------------------------------------------------------------------
 
+#: K2's kernels a call (csrc/compact.cu), beside one host read of the
+#: kept row count
+_K2_KERNELS = {"count_kernel": 1, "copy_kernel": 1}
+
+
+def _compact_entry(torch, batch, keep):
+    """K2's two C entry points alone, with the host read between them, on
+    outputs and a table prepared once: returns ``(run, outs)``."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import native
+    lib = native.lib("compact")
+    dev, n = keep.device, batch.num_rows
+    nt = K.num_tiles(n)
+    stream = native.stream_ptr(dev)
+    srcs = [K._contig(c) for c in batch.columns]
+    outs = [K._empty_like_rows(c, int(keep.sum())) for c in srcs]
+    offsets = torch.empty(nt + 1, dtype=torch.int32, device=dev)
+    rows = torch.empty(nt * K.TILE, dtype=torch.int16, device=dev)
+    status = native.lookback_status(K._STATUS, dev, stream, nt)
+    words = K.gather_table(srcs, outs)
+    host, tab = native.param_table(words, len(words) > K.COMPACT_PARAM_WORDS,
+                                   dev)
+    count = (keep.data_ptr(), n, offsets.data_ptr(), rows.data_ptr(),
+             status.data_ptr(), stream)
+    copy = (host.buffer_info()[0], len(words), len(srcs), K.ptr(tab),
+            rows.data_ptr(), n, offsets.data_ptr(), stream)
+
+    def run(_keep=(host, tab, srcs, outs, offsets, rows, status)):
+        native.check(lib.srt_compact_count(*count), "srt_compact_count")
+        int(offsets[nt].item())
+        native.check(lib.srt_compact_copy(*copy), "srt_compact_copy")
+    return run, outs
+
+
+def _time_compact(torch, label: str, batch, keep) -> dict:
+    """K2 at one shape: held to its plain version, then through the
+    wrapper in turns with the plain version and mask indexing of every
+    leaf (the best of two rounds), its C entry points alone (with the host
+    read) and its kernels alone (torch.profiler: one count_kernel and one
+    copy_kernel a call, one copy to the host, nothing else)."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    got = K.compact(batch, keep)
+    want = K.compact_plain(batch, keep)
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{label}: row counts differ")
+    _assert_equal_cols(torch, got.columns, want.columns, label)
+    run, outs = _compact_entry(torch, batch, keep)
+    run()
+    _assert_equal_cols(torch, outs, got.columns, f"{label} C entry")
+    leaves = _leaves(batch.columns)
+    t = _in_turns(torch, {
+        "ms": lambda: K.compact(batch, keep),
+        "plain_ms": lambda: K.compact_plain(batch, keep),
+        "library_ms": lambda: [x[keep] for x in leaves]})
+    t["entry_ms"] = _time_ms(torch, run, reps=20)
+    saved = K.compact.launches
+    kern = _kernels_ms(torch, label, lambda: K.compact(batch, keep),
+                       _K2_KERNELS)
+    K.compact.launches = saved
+    t["kernels"] = kern
+    t["kernel_ms"] = None if kern is None else sum(
+        kern[k] for k in _K2_KERNELS)
+    t["bytes"] = _nbytes(leaves) + keep.numel() + _nbytes(
+        _leaves(got.columns))
+    t["kept"] = got.num_rows
+    km = "not measured" if kern is None else (
+        f"{t['kernel_ms']:.4f} ({_fmt_kernels(kern)})")
+    print(f"[{label}] rows={batch.num_rows} x {batch.num_columns} columns "
+          f"kept={got.num_rows}: ms={t['ms']:.4f} (the C entry points alone "
+          f"{t['entry_ms']:.4f}, the kernels alone {km}) plain_ms="
+          f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} (mask "
+          f"indexing of every leaf) bound_ms={_bound_ms(t['bytes']):.4f} "
+          f"({t['bytes']} bytes); in turns, the best of two rounds",
+          flush=True)
+    return t
+
+
 def check_compact(torch, dev, rng) -> dict:
     """Checked at 2^22 rows and at the main path's scan batch (one parquet
-    row group, 2^20 rows), timed at the latter."""
+    row group, 2^20 rows x q1's 7 columns), timed at the latter under q1's
+    filter (~98% kept) and under a selective keep (~3%, q6-like)."""
     from spark_rapids_tpu_torch.ops import kernels as K
     for n in (1 << 22, 1 << 20):
         batch = _batch(torch, _q1_host_columns(rng, n), dev, null_every=97)
@@ -462,20 +557,23 @@ def check_compact(torch, dev, rng) -> dict:
         if got.num_rows != want.num_rows:
             raise AssertionError("compact: row counts differ")
         _assert_equal_cols(torch, got.columns, want.columns, "compact")
-    ms = _time_ms(torch, lambda: K.compact(batch, keep))
-    plain_ms = _time_ms(torch, lambda: K.compact_plain(batch, keep))
-    leaves = _leaves(batch.columns)
-    lib_ms = _time_ms(torch, lambda: [t[keep] for t in leaves])
-    nbytes = _nbytes(leaves) + keep.numel() + _nbytes(_leaves(got.columns))
-    print(f"[K2 compact] rows={n} kept={got.num_rows} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-          f"bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+    q1 = _time_compact(torch, "K2 compact q1", batch, keep)
+    sel = torch.from_numpy(rng.random(n) < 0.03).to(dev)
+    few = _time_compact(torch, "K2 compact 3%", batch, sel)
     return dict(name="compact", route="cuda",
                 source="spark_rapids_tpu_torch/csrc/compact.cu",
                 replaces="spark_rapids_tpu/ops/kernels.py:62",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms)
+                max_abs_err=0.0, ms=q1["ms"], plain_ms=q1["plain_ms"],
+                bound_ms=_bound_ms(q1["bytes"]), bound_by="bytes",
+                library_ms=q1["library_ms"], kernel_ms=q1["kernel_ms"],
+                entry_ms=q1["entry_ms"], k2_kernels=q1["kernels"],
+                k2_kept=q1["kept"], k2_sel_ms=few["ms"],
+                k2_sel_entry_ms=few["entry_ms"],
+                k2_sel_kernel_ms=few["kernel_ms"],
+                k2_sel_plain_ms=few["plain_ms"],
+                k2_sel_library_ms=few["library_ms"],
+                k2_sel_bound_ms=_bound_ms(few["bytes"]),
+                k2_sel_kept=few["kept"])
 
 
 def _mixed_batch(torch, rng, n: int, dev):
@@ -1264,9 +1362,138 @@ def _assert_same_tensors(torch, got, want, what: str) -> None:
 _STREAM_JOIN_TYPES = ("inner", "left", "semi", "anti", "full")
 
 
+#: q6's other fast-path build sides at SF10 (their rows, int32 keys 1..n)
+_Q6_BUILDS = {"item": 56_920, "date_dim": 73_049,
+              "customer_address": 250_593}
+
+
+def _search_entry(torch, col, prep, jt: str, layout):
+    """K5's C entry point alone on outputs allocated once: ``(run, buf)``,
+    ``buf`` the int32 outputs (the total, start, cnt, out_cnt, offsets)."""
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import native
+    lib = native.lib("join_probe")
+    key, valid = col.data.contiguous(), col.validity.contiguous()
+    n, dev = key.numel(), key.device
+    buf = torch.empty(2 + 4 * n + 1, dtype=torch.int32, device=dev)
+    stream = native.stream_ptr(dev)
+    status = native.lookback_status(J._STATUS, dev, stream,
+                                    -(-n // J.PROBE_TILE))
+    skey, _perm, nv = prep
+    base = buf.data_ptr()
+    args = (key.data_ptr(), valid.data_ptr(), n, skey.data_ptr(),
+            skey.numel(), nv.data_ptr(), J.ptr(layout.levels), layout.k,
+            key.element_size(),
+            J._JT_CODES[jt], base + 8, base + 8 + 4 * n, base + 8 + 8 * n,
+            base + 8 + 12 * n, base, 0, status.data_ptr(), stream)
+
+    def run(_keep=(key, valid, buf, status, prep, layout)):
+        native.check(lib.srt_join_search(*args), "srt_join_search")
+    return run, buf
+
+
+def _time_probe(torch, label: str, stream, build, full: bool,
+                reps: int = 20) -> dict:
+    """K5 at one shape (an inner probe over the build's layout): checked
+    against its plain version, then timed through the wrapper and its
+    search kernel alone (torch.profiler: one search_kernel a call,
+    nothing else).  ``full``: the wrapper in turns with the plain version
+    and two searchsorted calls (the best of two rounds), the C entry point
+    alone, and K7's own offsets scan of the same counts, which the search
+    spares."""
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import native
+    prep = J.build_prepare_fast(build, 0)
+    lay = prep.layout
+    col = stream.columns[0]
+    got, total = J.probe_fast(stream, 0, *prep, "inner", layout=lay)
+    want, wtotal = J.probe_fast_plain(stream, 0, *prep, "inner")
+    _assert_same_tensors(torch, got + (total,), want + (wtotal,), label)
+    oc = got[3].to(torch.int64)
+    if not torch.equal(got.offsets.to(torch.int64), torch.cat(
+            [oc.new_zeros(1), torch.cumsum(oc, 0)])):
+        raise AssertionError(f"{label}: offsets differ from out_cnt's sum")
+    n = col.capacity
+    skey, key = prep[0], col.data
+
+    def wrapper():
+        return J.probe_fast(stream, 0, *prep, "inner", layout=lay)
+    if full:
+        run, buf = _search_entry(torch, col, prep, "inner", lay)
+        run()
+        if not torch.equal(buf[2 + 2 * n:], torch.cat([got[3],
+                                                       got.offsets])):
+            raise AssertionError(f"{label}: the C entry differs")
+        t = _in_turns(torch, {
+            "ms": wrapper,
+            "plain_ms": lambda: J.probe_fast_plain(stream, 0, *prep,
+                                                   "inner"),
+            "library_ms": lambda: (
+                torch.searchsorted(skey, key),
+                torch.searchsorted(skey, key, right=True))}, reps=reps)
+        t["entry_ms"] = _time_ms(torch, run, reps=reps)
+        lib7, sp = native.lib("join_expand"), native.stream_ptr(key.device)
+        t["k7_scan_ms"] = _time_ms(torch, lambda: J._offsets_cuda(
+            lib7, got[3], sp), reps=reps)
+    else:
+        t = {"ms": _time_ms(torch, wrapper, reps=reps)}
+    saved = J.join_search.launches
+    t["kernel_ms"] = _one_kernel_ms(torch, label, wrapper, "search_kernel")
+    J.join_search.launches = saved
+    nb, item = skey.numel(), key.element_size()
+    # each stream key and validity read, start, cnt, out_cnt and the
+    # offsets written, the sorted build keys read once
+    t["bytes"] = n * (item + 1) + n * 16 + 4 + 8 + nb * item
+    t["levels"], t["matched"] = lay.k, int(total.item())
+    km = ("not measured" if t["kernel_ms"] is None
+          else f"{t['kernel_ms']:.4f}")
+    more = (f"; the C entry alone {t['entry_ms']:.4f}) plain_ms="
+            f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+            f"(searchsorted x2) bound_ms={_bound_ms(t['bytes']):.4f} "
+            f"({t['bytes']} bytes); K7's own offsets scan of these counts, "
+            f"spared: {t['k7_scan_ms']:.4f}; in turns, the best of two "
+            f"rounds" if full else
+            f") bound_ms={_bound_ms(t['bytes']):.4f} ({t['bytes']} bytes)")
+    print(f"[{label}] stream={n} build={nb} layout levels below the staged "
+          f"one={lay.k} matched={t['matched']}: ms={t['ms']:.4f} (the "
+          f"kernel alone {km}{more}", flush=True)
+    return t
+
+
+def _time_rank_search(torch, dev, rng, label: str, nl: int, nr: int):
+    """The rank path's search, whose sorted build ids are new every call:
+    the layout built for the call (``join.rank_layout``: staged whole, or
+    past the shared memory one levels-only launch of srt_join_build_keys)
+    and searched, checked against the plain ranges and timed, with its
+    device time a call (torch.profiler)."""
+    from spark_rapids_tpu_torch.ops import join as J
+    rid = torch.from_numpy(np.sort(rng.integers(0, nr, nr)).astype(
+        np.int32)).to(dev)
+    lid_np = rng.integers(0, nr, nl).astype(np.int32)
+    lid_np[rng.random(nl) < 0.03] = 2 ** 31 - 1
+    lid = torch.from_numpy(lid_np).to(dev)
+    k = J.search_levels(nr, 4)[0]
+
+    def search():
+        return J.join_search(lid, None, rid, None, "inner",
+                             layout=J.rank_layout(rid))
+    _assert_same_tensors(torch, search()[:3], J._ranges_plain(
+        lid, rid, None, None, "inner"), label)
+    t = {"ms": _time_ms(torch, search, reps=20),
+         "device_ms": _device_ms(torch, search)}
+    dms = ("not measured" if t["device_ms"] is None
+           else f"{t['device_ms']:.4f}")
+    print(f"[{label}] stream={nl} sorted ids={nr} (levels k={k}): the rank "
+          f"path's layout built and searched {t['ms']:.4f} ms, device "
+          f"{dms}", flush=True)
+    return t
+
+
 def check_join_probe(torch, dev, rng) -> dict:
     """K5 at q6's largest probe: a 2^20-row int32 stream batch (~4% null)
-    against customer's 501,187 build keys (~1% null), every join type."""
+    against customer's 501,187 build keys (~1% null), every join type over
+    the build's layout; timed there, at q6's other build sides and at the
+    rank path's shapes."""
     from spark_rapids_tpu_torch.ops import join as J
     nb, ns = 501_187, 1 << 20
     build = _int_batch(torch, np.arange(1, nb + 1, dtype=np.int32),
@@ -1277,33 +1504,39 @@ def check_join_probe(torch, dev, rng) -> dict:
     _assert_same_tensors(torch, prep, J.build_prepare_fast_plain(build, 0),
                          "build_prepare_fast")
     for jt in _STREAM_JOIN_TYPES:
-        got, total = J.probe_fast(stream, 0, *prep, jt)
         want, wtotal = J.probe_fast_plain(stream, 0, *prep, jt)
+        got, total = J.probe_fast(stream, 0, *prep, jt, layout=prep.layout)
         _assert_same_tensors(torch, got + (total,), want + (wtotal,),
                              f"probe_fast {jt}")
-    total = J.probe_fast(stream, 0, *prep, "inner")[1]
-    ms = _time_ms(torch, lambda: J.probe_fast(stream, 0, *prep, "inner"),
-                  reps=20)
-    plain_ms = _time_ms(torch, lambda: J.probe_fast_plain(
-        stream, 0, *prep, "inner"), reps=20)
-    skey, key = prep[0], stream.columns[0].data
-    lib_ms = _time_ms(torch, lambda: (torch.searchsorted(skey, key),
-                                      torch.searchsorted(skey, key,
-                                                         right=True)),
-                      reps=20)
-    # stream key + validity read, start/cnt/out_cnt written, build keys
-    # read once
-    nbytes = ns * (4 + 1) + ns * 12 + nb * 4 + 4 + 8
-    print(f"[K5 probe] stream={ns} build={nb} matched="
-          f"{int(total.item())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} bound_ms={_bound_ms(nbytes):.4f} "
-          f"(join types {list(_STREAM_JOIN_TYPES)}: equal)", flush=True)
-    return dict(name="join_probe_fast", route="cuda",
-                source="spark_rapids_tpu_torch/csrc/join_probe.cu",
-                replaces="spark_rapids_tpu/ops/join.py:152",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms)
+    t = _time_probe(torch, "K5 probe customer", stream, build, full=True)
+    others = {}
+    for name, rows in _Q6_BUILDS.items():
+        b = _int_batch(torch, np.arange(1, rows + 1, dtype=np.int32),
+                       rng.random(rows) >= 0.01, dev)
+        s = _int_batch(torch, rng.integers(1, rows + 1, ns).astype(
+            np.int32), rng.random(ns) >= 0.04, dev)
+        others[name] = _time_probe(torch, f"K5 probe {name}", s, b,
+                                   full=False)
+    rank = {"q6": _time_rank_search(torch, dev, rng, "K5 rank search q6",
+                                    56_920, 11),
+            "q24": _time_rank_search(torch, dev, rng, "K5 rank search q24",
+                                     ns, 2_880_000)}
+    out = dict(name="join_probe_fast", route="cuda",
+               source="spark_rapids_tpu_torch/csrc/join_probe.cu",
+               replaces="spark_rapids_tpu/ops/join.py:152",
+               max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+               bound_ms=_bound_ms(t["bytes"]), bound_by="bytes",
+               library_ms=t["library_ms"], kernel_ms=t["kernel_ms"],
+               entry_ms=t["entry_ms"], k5_k7_scan_ms=t["k7_scan_ms"],
+               k5_levels=t["levels"])
+    for name, o in others.items():
+        out.update({f"k5_{name}_ms": o["ms"],
+                    f"k5_{name}_kernel_ms": o["kernel_ms"],
+                    f"k5_{name}_bound_ms": _bound_ms(o["bytes"])})
+    for name, r in rank.items():
+        out.update({f"k5_rank_{name}_ms": r["ms"],
+                    f"k5_rank_{name}_device_ms": r["device_ms"]})
+    return out
 
 
 _CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry",
@@ -1477,12 +1710,27 @@ def check_key_ids(torch, dev, rng) -> dict:
                 k6_fuzz_varying_bits=fuzz["plan"].bits)
 
 
+def _with_offsets(torch, J, arrays):
+    """The plain probe's arrays with the offsets K7 reads on the card (of
+    out_cnt and of full outer's unmatched build rows, each with its total
+    last), from torch.cumsum: the plain probe writes none."""
+    def offsets(counts):
+        c = counts.to(torch.int64)
+        return torch.cat([c.new_zeros(1), torch.cumsum(c, 0)]).to(
+            torch.int32)
+    u = arrays[4]
+    return J.ProbeArrays(tuple(arrays), offsets(arrays[3]),
+                         None if u is None else offsets(u))
+
+
 def _check_expand(torch, J, lb, rb, jts, what):
     for jt in jts:
         keys = [] if jt == "cross" else [0]
         arrays, total = J.join_probe_plain(lb, rb, keys, keys, jt)
         n = int(total.item())
-        got = J.join_indices_from_probe(lb.num_rows, arrays, jt, n)
+        got = J.join_indices_from_probe(lb.num_rows,
+                                        _with_offsets(torch, J, arrays), jt,
+                                        n)
         want = J.join_indices_plain(lb.num_rows, arrays, jt, n)
         _assert_same_tensors(torch, got, want, f"expand {what} {jt}")
         m = J.matched_build_rows(got[1], rb.num_rows)
@@ -1495,6 +1743,7 @@ def check_expand(torch, dev, rng) -> dict:
     and a many-to-many shape (0-16 matches per row plus one key that
     matches 2^16 build rows), every join type."""
     from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import native
     ns = 1 << 20
     stream = _int_batch(torch, rng.integers(0, 2192, ns).astype(np.int32),
                         rng.random(ns) >= 0.02, dev)
@@ -1512,15 +1761,23 @@ def check_expand(torch, dev, rng) -> dict:
     many = _int_batch(torch, skeys, np.ones(ns, dtype=np.bool_), dev)
     _check_expand(torch, J, many, build, _STREAM_JOIN_TYPES, "many")
     arrays, total = J.join_probe_plain(many, build, [0], [0], "inner")
+    arrays = _with_offsets(torch, J, arrays)
     n_many = int(total.item())
     many_ms = _time_ms(torch, lambda: J.join_indices_from_probe(
         ns, arrays, "inner", n_many))
-    # q6's shape, timed
-    prep = J.build_prepare_fast_plain(dates, 0)
-    arrays, total = J.probe_fast_plain(stream, 0, *prep, "inner")
+    # q6's shape, timed over the offsets K5 wrote (as the paths run it),
+    # and beside it K7's own three-launch scan of the same counts, which
+    # K5's search spares
+    prep = J.build_prepare_fast(dates, 0)
+    arrays, total = J.probe_fast(stream, 0, *prep, "inner",
+                                 layout=prep.layout)
     n = int(total.item())
     ms = _time_ms(torch, lambda: J.join_indices_from_probe(
         ns, arrays, "inner", n), reps=20)
+    lib7 = native.lib("join_expand")
+    sp = native.stream_ptr(dev)
+    scan_ms = _time_ms(torch, lambda: J._offsets_cuda(lib7, arrays[3], sp),
+                       reps=20)
     plain_ms = _time_ms(torch, lambda: J.join_indices_plain(
         ns, arrays, "inner", n), reps=20)
     out_cnt = arrays[3]
@@ -1530,7 +1787,8 @@ def check_expand(torch, dev, rng) -> dict:
     # out_cnt read per stream row; cnt, start and the build permutation
     # read only for the rows with output; li and ri written per output row
     nbytes = ns * 4 + n * (4 + 4 + 4) + n * 8
-    print(f"[K7 expand] q6 stream={ns} out={n} ms={ms:.4f} "
+    print(f"[K7 expand] q6 stream={ns} out={n} ms={ms:.4f} (its own "
+          f"offsets scan of these counts, spared: {scan_ms:.4f}) "
           f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
           f"(torch.repeat_interleave, left indices only) "
           f"bound_ms={_bound_ms(nbytes):.4f}; many-to-many out={n_many} "
@@ -1540,7 +1798,7 @@ def check_expand(torch, dev, rng) -> dict:
                 replaces="spark_rapids_tpu/ops/join.py:216",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms)
+                library_ms=lib_ms, k7_scan_ms=scan_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1613,7 +1871,8 @@ def _counters() -> dict:
             "segment_aggregate": {"segment_aggregate": G.segment_aggregate,
                                   "segment_flags": G._segment_flags},
             "join_probe_fast": {"join_search": J.join_search,
-                                "build_prepare_fast": J.build_prepare_fast},
+                                "build_prepare_fast": J.build_prepare_fast,
+                                "rank_layout": J.rank_layout},
             "join_key_ids": {"key_ids": J._key_ids},
             "join_expand": {"join_indices_from_probe":
                             J.join_indices_from_probe,
@@ -1673,6 +1932,12 @@ def _reset_counters(entries) -> None:
             w.launches = 0
 
 
+#: counters that may or may not be 0 on any path: the rank path's
+#: levels-only layout build runs only where a rank join's sorted ids pass
+#: the search's shared memory (q24's store_returns, agg_join's loans)
+_WHERE_NEEDED = ("rank_layout",)
+
+
 def _read_counters(entries, query: str, off_path=()) -> dict:
     """{entry: {counter: launches}}; fails if a counter on the query's
     path stayed at 0."""
@@ -1680,7 +1945,7 @@ def _read_counters(entries, query: str, off_path=()) -> dict:
            for name in entries}
     for group in got.values():
         for k, v in group.items():
-            if v <= 0 and k not in off_path:
+            if v <= 0 and k not in off_path and k not in _WHERE_NEEDED:
                 raise AssertionError(f"{query} ran without launching {k}")
     return got
 
@@ -1855,6 +2120,7 @@ def run_q6(torch, warm: int) -> dict:
     from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.bench import tpcds_gen
     from spark_rapids_tpu_torch.bench.tpcds_queries import TPCDS_QUERIES
+    from spark_rapids_tpu_torch.ops import join as J
     q6, tables = TPCDS_QUERIES["q6"]
     sf = Q6_SF
     data_dir = os.path.join(ROOT, ".bench_data",
@@ -1883,11 +2149,17 @@ def run_q6(torch, warm: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters(entries)
+    J._offsets_cuda.launches = 0
     t0 = time.perf_counter()
     rows = q6(session, data_dir).collect()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = _read_counters(entries, "q6", _OFF_Q6_PATH + _MAY_DICT)
+    # K5's search writes the offsets K7 reads: K7's own scan runs not once
+    k7_scans = J._offsets_cuda.launches
+    if k7_scans != 0:
+        raise AssertionError(f"q6 ran K7's own offsets scan {k7_scans} "
+                             "times")
     _check_q6(rows, want)
     peak = torch.cuda.max_memory_allocated()
     warm_s, peaks = _warm_runs(torch, "q6",
@@ -1899,7 +2171,7 @@ def run_q6(torch, warm: int) -> dict:
           f"warm_s={[round(x, 3) for x in warm_s]} "
           f"rows_per_s_warm={n / min(warm_s) if warm_s else 0:.0f} "
           f"cold_peak_bytes={peak} warm_peak_bytes={peaks} "
-          f"launches={launches}", flush=True)
+          f"launches={launches} k7_offsets_scans={k7_scans}", flush=True)
     return launches
 
 
@@ -2128,7 +2400,7 @@ def _drive(torch, label: str, make_df, check, entries, warm: int,
     launches = _read_counters(entries, label, tuple(off_path) + tuple(zero))
     for group in launches.values():
         for k, v in group.items():
-            if k in zero and v != 0:
+            if k in zero and v != 0 and k not in _WHERE_NEEDED:
                 raise AssertionError(f"{label} launched {k} {v} times, "
                                      "expected 0")
     check(rows)
@@ -4979,15 +5251,16 @@ def check_frame_min_max(torch, dev, rng) -> dict:
           f"windows); timed rows={n} trailing 7-day max ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={_bound_ms(nbytes):.4f}; "
           f"forward max (RANGE CURRENT ROW .. UNBOUNDED FOLLOWING) "
-          f"ms={fwd_ms:.4f}; library_ms={lib_ms:.4f} (max_pool1d, kernel "
-          f"7, stride 1, over the same values without partition edges or "
-          f"nulls)", flush=True)
+          f"ms={fwd_ms:.4f}; library_ms=None (no PyTorch call computes "
+          f"it; max_pool1d, kernel 7, stride 1, over the same values, "
+          f"another function without partition edges or nulls: "
+          f"{lib_ms:.4f})", flush=True)
     return dict(name="frame_min_max", route="cuda",
                 source="spark_rapids_tpu_torch/csrc/window_range.cu",
                 replaces="spark_rapids_tpu/ops/window.py:126",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms)
+                library_ms=None, k12c_max_pool1d_ms=lib_ms)
 
 
 def reference_top_customers_rr(data_dir: str) -> list[tuple]:
@@ -6947,8 +7220,8 @@ def main(argv=None) -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         row.update({k: v for k, v in e.items() if k.startswith(
-            ("kernel_ms", "entry_ms", "one_key_", "k1_", "k3_", "k4_",
-             "k6_", "k8a_"))})
+            ("kernel_ms", "entry_ms", "one_key_", "k1_", "k2_", "k3_",
+             "k4_", "k5_", "k6_", "k7_", "k8a_", "k12c_"))})
         row["launches_by_path"] = {p: c[counters[0]]
                                    for p, c in by_path.items()}
         row["launches_by_counter"] = {

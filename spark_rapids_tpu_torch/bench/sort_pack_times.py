@@ -1,8 +1,17 @@
-"""Time K1 (``sort_permutation``), K3 (``gather_columns``), K4
+"""Time K2 (``compact``), K5 (``probe_fast`` with the offsets K7 needs),
+K1 (``sort_permutation``), K3 (``gather_columns``), K4
 (``segment_aggregate``), K6 (``join._key_ids``), K8a (the fixed-width
 decode of ``PackedBatch.decode``) and K15a (``mesh_pack``) of whichever
 ``spark_rapids_tpu_torch`` is importable, at the shapes ``chip_smoke.py``
-checks them: q1's two one-letter keys at 2^24 rows, the mixed
+checks them: K2 over a 2^20-row q1 scan batch of its 7 columns under
+q1's filter (~98% kept) and under a 3% keep (the wrapper, its C entry
+points alone -- ``srt_compact_count`` and ``srt_compact_copy``, or an
+older tree's ``srt_compact_prepare`` and one ``srt_compact_column`` a
+column -- and its kernels' device time a call), K5 at q6's largest probe
+(2^20 int32 stream rows against customer's 501,187 keys, an inner join)
+with the offsets K7 needs (written by the search where the tree's search
+writes them, else K7's ``_offsets_cuda`` after it; the C entry alone; the
+search kernel's device time), q1's two one-letter keys at 2^24 rows, the mixed
 int64/f64/int32/W16-string keys at 2^22 rows in two orders, q6's rank
 join (K6 over 56,920 item rows of a W 16 category key, and K1 alone on
 that key), K6 over 2^22 rows of one int64 key (3 x 2^20 left, 2^20
@@ -34,6 +43,8 @@ unpacked with ``git archive`` into a git-ignored directory):
     for t in PARENT . . PARENT; do
         PYTHONPATH=$t python3 spark_rapids_tpu_torch/bench/sort_pack_times.py
     done
+
+``--only-k2-k5`` times K2 and K5 alone.
 """
 from __future__ import annotations
 
@@ -336,6 +347,209 @@ def _int64_sides(torch, dev, nl: int, nr: int):
     return out
 
 
+def _q1_filter_batch(torch, dev, n: int):
+    """q1's seven scanned lineitem columns as its generator draws them (a
+    double's validity false every 97th row), and q1's filter's keep flags
+    (ship date <= 1998-09-02: ~98% kept)."""
+    import numpy as np
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    rng = np.random.default_rng(12)
+    ship = rng.integers(8036, 10591, n).astype(np.int32)
+    receipt = ship + rng.integers(1, 31, n)
+    flag = np.where(receipt <= 9204, rng.integers(0, 2, n), 2)
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    valid = np.ones(n, bool)
+    valid[::97] = False
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def letters(codes, s):
+        m = np.zeros((n, 4), np.uint8)
+        m[:, 0] = np.frombuffer(s, np.uint8)[codes]
+        return DeviceColumn(torch.from_numpy(m).to(dev), ones,
+                            T.StringType(), torch.ones(n, dtype=torch.int32,
+                                                       device=dev))
+
+    def dbl(x):
+        return DeviceColumn(torch.from_numpy(np.where(valid, x, 0.0)).to(dev),
+                            torch.from_numpy(valid).to(dev), T.DoubleType())
+    cols = [letters(flag, b"RAN"), letters((ship > 9204).astype(int), b"FO"),
+            dbl(qty), dbl(np.round(rng.uniform(900.0, 2100.0, n) * qty, 2)),
+            dbl(np.round(rng.integers(0, 11, n) * 0.01, 2)),
+            dbl(np.round(rng.integers(0, 9, n) * 0.01, 2)),
+            DeviceColumn(torch.from_numpy(ship).to(dev), ones, T.DateType())]
+    return ColumnBatch(cols, n, None, dev), cols[6].data <= 10471
+
+
+def _kernels_device_ms(torch, fn, needle: str = "", reps: int = 10):
+    """The device time a call of the kernels whose names hold ``needle``
+    (every kernel where it is empty; no copy, no memset), from
+    torch.profiler over ``reps`` warm calls; None where it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and needle in e.key
+                and "Memcpy" not in e.key and "Memset" not in e.key)
+    return total / reps / 1e3 if total > 0 else None
+
+
+def _compact_entry(torch, batch, keep):
+    """K2's C entry points alone, the outputs allocated once, with the
+    host read of the kept rows between the count and the copies: the two
+    launches of ``srt_compact_count``/``srt_compact_copy``, or (an older
+    tree) ``srt_compact_prepare`` and one ``srt_compact_column`` a
+    column."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.ops import native
+    lib = native.lib("compact")
+    dev, n = keep.device, batch.num_rows
+    nt = K.num_tiles(n)
+    stream = native.stream_ptr(dev)
+    srcs = [K._contig(c) for c in batch.columns]
+    outs = [K._empty_like_rows(c, int(keep.sum())) for c in srcs]
+    offsets = torch.empty(nt + 1, dtype=torch.int32, device=dev)
+    kp = keep.data_ptr()
+    if "srt_compact_count" in native._SIGNATURES["compact"]:
+        status = native.lookback_status(K._STATUS, dev, stream, nt)
+        rows = torch.empty(nt * K.TILE, dtype=torch.int16, device=dev)
+        words = K.gather_table(srcs, outs)
+        host, tab = native.param_table(
+            words, len(words) > K.COMPACT_PARAM_WORDS, dev)
+
+        def two(_keep=(host, tab, srcs, outs, offsets, rows, status)):
+            lib.srt_compact_count(kp, n, offsets.data_ptr(), rows.data_ptr(),
+                                  status.data_ptr(), stream)
+            int(offsets[nt].item())
+            lib.srt_compact_copy(host.buffer_info()[0], len(words),
+                                 len(srcs), K.ptr(tab), rows.data_ptr(), n,
+                                 offsets.data_ptr(), stream)
+        return two
+    counts = torch.empty(max(nt, 1), dtype=torch.int32, device=dev)
+    calls = [(kp, n, offsets.data_ptr(), c.data.data_ptr(),
+              o.data.data_ptr(), c.validity.data_ptr(),
+              o.validity.data_ptr(), K.ptr(c.lengths), K.ptr(o.lengths),
+              c.row_bytes, stream) for c, o in zip(srcs, outs)]
+
+    def each(_keep=(srcs, outs, offsets, counts)):
+        lib.srt_compact_prepare(kp, n, counts.data_ptr(),
+                                offsets.data_ptr(), stream)
+        int(offsets[nt].item())
+        for a in calls:
+            lib.srt_compact_column(*a)
+    return each
+
+
+def _time_k2(torch, out: dict, dev) -> None:
+    """K2 at a 2^20-row q1 scan batch x its 7 columns under q1's filter
+    and under a selective keep (~3%, q6-like): the wrapper (checked
+    against the plain version), the C entry points alone and the kernels'
+    device time a call."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    n = 1 << 20
+    batch, q1keep = _q1_filter_batch(torch, dev, n)
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    sel = torch.rand(n, generator=g, device=dev) < 0.03
+    for name, keep in (("q1", q1keep), ("sel", sel)):
+        got, want = K.compact(batch, keep), K.compact_plain(batch, keep)
+        for a, b in zip(got.columns, want.columns):
+            for x, y in ((a.data, b.data), (a.validity, b.validity),
+                         (a.lengths, b.lengths)):
+                if (x is None) != (y is None) or (
+                        x is not None and not torch.equal(x, y)):
+                    raise AssertionError(f"K2 differs from its plain "
+                                         f"version ({name})")
+        entry = _compact_entry(torch, batch, keep)
+        t = _best(torch, {"k2": lambda: K.compact(batch, keep),
+                          "entry": entry})
+        out[f"k2_{name}_ms"] = t["k2"]
+        out[f"k2_{name}_entry_ms"] = t["entry"]
+        out[f"k2_{name}_kernels_ms"] = _kernels_device_ms(
+            torch, lambda: K.compact(batch, keep))
+        out[f"k2_{name}_kept"] = got.num_rows
+
+
+def _time_k5(torch, out: dict, dev) -> None:
+    """K5 at q6's largest probe (2^20 int32 stream rows, ~4% null, against
+    customer's 501,187 keys, ~1% null; an inner join) with the offsets K7
+    needs: the probe through the wrapper (over the build's layout where
+    the tree has one) and the probe plus K7's own offsets scan where the
+    search writes none, both checked; the C entry alone; the search
+    kernel's device time a call."""
+    import numpy as np
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import native
+    rng = np.random.default_rng(14)
+    nb, ns = 501_187, 1 << 20
+
+    def side(keys, valid):
+        keys = np.where(valid, keys, 0).astype(np.int32)
+        return ColumnBatch([DeviceColumn(
+            torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev),
+            T.IntegerType())], len(keys), None, dev)
+    build = side(np.arange(1, nb + 1), rng.random(nb) >= 0.01)
+    stream = side(rng.integers(1, nb + 1, ns), rng.random(ns) >= 0.04)
+    prep = J.build_prepare_fast(build, 0)
+    lay = getattr(prep, "layout", None)
+    sp = native.stream_ptr(dev)
+    lib7 = native.lib("join_expand")
+    if lay is not None:
+        def probe():
+            arrays, total = J.probe_fast(stream, 0, *prep, "inner",
+                                         layout=lay)
+            return arrays, total, arrays.offsets
+    else:
+        def probe():
+            arrays, total = J.probe_fast(stream, 0, *prep, "inner")
+            return arrays, total, J._offsets_cuda(lib7, arrays[3], sp)
+    arrays, total, offsets = probe()
+    want, wtotal = J.probe_fast_plain(stream, 0, *prep, "inner")
+    oc = want[3].to(torch.int64)
+    if int(total.item()) != int(wtotal.item()) or any(
+            not torch.equal(a, b) for a, b in zip(arrays[:2], want[:2])) \
+            or not torch.equal(offsets.to(torch.int64), torch.cat(
+                [oc.new_zeros(1), torch.cumsum(oc, 0)])):
+        raise AssertionError("K5 differs from its plain version")
+    lib = native.lib("join_probe")
+    key, valid = stream.columns[0].data, stream.columns[0].validity
+    skey, _perm, nv = prep
+    res = torch.empty(2 + 4 * ns + 1, dtype=torch.int32, device=dev)
+    base = res.data_ptr()
+    if lay is not None:
+        status = native.lookback_status(J._STATUS, dev, sp,
+                                        -(-ns // J.PROBE_TILE))
+        args = (key.data_ptr(), valid.data_ptr(), ns, skey.data_ptr(), nb,
+                nv.data_ptr(), J.ptr(lay.levels), lay.k, 4, 0, base + 8,
+                base + 8 + 4 * ns, base + 8 + 8 * ns, base + 8 + 12 * ns,
+                base, 0, status.data_ptr(), sp)
+    else:
+        status = None
+        args = (key.data_ptr(), valid.data_ptr(), ns, skey.data_ptr(), nb,
+                nv.data_ptr(), 4, 0, base + 8, base + 8 + 4 * ns,
+                base + 8 + 8 * ns, base, sp)
+
+    def entry(_keep=(res, status)):
+        lib.srt_join_search(*args)
+    t = _best(torch, {"probe": probe, "entry": entry})
+    out["k5_probe_offsets_ms"] = t["probe"]
+    out["k5_entry_ms"] = t["entry"]
+    out["k5_search_kernel_ms"] = _kernels_device_ms(
+        torch, probe, "search_kernel")
+    out["k5_probe_offsets_device_ms"] = _kernels_device_ms(torch, probe)
+    out["k5_matched"] = int(total.item())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -357,6 +571,12 @@ def main() -> int:
                   "join_ids", "segmented", "wirecodec"])
     dev = torch.device("cuda", 0)
     out = {"card": card, "package": os.path.dirname(pkg.__file__)}
+    native.build(["compact", "join_probe", "join_expand"])
+    _time_k2(torch, out, dev)
+    _time_k5(torch, out, dev)
+    if "--only-k2-k5" in sys.argv[1:]:
+        print(json.dumps(out), flush=True)
+        return 0
     q1 = _q1_keys(torch, dev, 1 << 24)
     orders = [S.SortOrder(0, True, True), S.SortOrder(1, True, True)]
     if not torch.equal(S.sort_permutation(q1, orders),

@@ -7,12 +7,12 @@
 // passes outputs and scratch as torch tensors) and return cudaGetLastError().
 //
 // Tiling: a tile is kThreads * kItems consecutive rows handled by one block.
-// Flag scans (filter keep flags, join offsets, partition and window
-// segments) run in two steps: a per-tile count, then one single-block
-// exclusive scan over the tile counts; K4's boundary pass instead counts
-// and scans in one launch with the decoupled look-back below.  The
-// scatter/reduce kernels recompute the in-tile ranks with cub::BlockScan,
-// so the scanned row positions are never written out.
+// Flag scans (K7's own offsets, partition and window segments) run in two
+// steps: a per-tile count, then one single-block exclusive scan over the
+// tile counts; K4's boundary pass, K2's count and K5's search instead count
+// and scan in one launch with the decoupled look-back below.  The
+// scatter/reduce kernels recompute the in-tile ranks, so the scanned row
+// positions are never written out.
 #pragma once
 
 #include <cstdint>

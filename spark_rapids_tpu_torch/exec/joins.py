@@ -205,7 +205,8 @@ class JoinExec(PlanNode):
         for lb in self._stream_batches(ctx, pid):
             lb2, lkeys = self._augment(lb, self._lkeys_b)
             if prep is not None:
-                arrays, total = probe_fast(lb2, lkeys[0], *prep, stream_jt)
+                arrays, total = probe_fast(lb2, lkeys[0], *prep, stream_jt,
+                                           layout=prep.layout)
             else:
                 arrays, total = join_probe(lb2, rb2, lkeys, rkeys,
                                            stream_jt)
@@ -214,6 +215,7 @@ class JoinExec(PlanNode):
                 continue
             li, ri = join_indices_from_probe(lb2.num_rows, arrays,
                                              stream_jt, total)
+            del arrays  # not held while the output batch is consumed
             if matched is not None:
                 matched_build_rows(ri, rb2.num_rows, out=matched)
             kf = list(lb2.schema.fields) + (

@@ -46,7 +46,7 @@ from spark_rapids_tpu_torch.exec.joins import JoinExec
 from spark_rapids_tpu_torch.expr.core import (Expression, bind, eval_device,
                                               output_name)
 from spark_rapids_tpu_torch.ops import kernels as dk
-from spark_rapids_tpu_torch.ops.join import build_prepare_fast
+from spark_rapids_tpu_torch.ops.join import PreparedBuild, build_prepare_fast
 from spark_rapids_tpu_torch.ops.mesh_exchange import mesh_unpack
 from spark_rapids_tpu_torch.ops.segmented import sorted_group_by
 from spark_rapids_tpu_torch.parallel.mesh import (COUNTERS, Mesh, make_mesh,
@@ -257,9 +257,11 @@ def _pad_widths(b: ColumnBatch, widths) -> ColumnBatch:
 
 
 def _move(x, dev):
-    """Tensors (in tuples) on ``dev``."""
+    """Tensors (in tuples, a prepared build with its layout) on ``dev``."""
     if isinstance(x, torch.Tensor):
         return x.to(dev, non_blocking=True)
+    if isinstance(x, PreparedBuild):
+        return x.to(dev)
     if isinstance(x, tuple):
         return tuple(_move(v, dev) for v in x)
     return x

@@ -17,12 +17,14 @@ The reference joins sort-merge style, from XLA primitives:
 
 On CUDA the sorts are K1 (``sort_permutation``; K6's through
 ``sort_words``, which keeps K1's packed key words) and the gathers K3; the
-new kernels are ``csrc/join_probe.cu`` (K5: build-key rewrite, the
-binary-search probe with per-join-type counts and the batch total),
+new kernels are ``csrc/join_probe.cu`` (K5: the build-key rewrite with
+the search layout, the probe with per-join-type counts, their offsets
+and the batch total),
 ``csrc/join_ids.cu`` (K6: flags between neighbouring sorted rows' words ->
 dense ids, scattered back to the rows) and
-``csrc/join_expand.cu`` (K7: exclusive scan of the counts, one binary
-search per output slot, the full-outer tail, the matched-build bitmap).
+``csrc/join_expand.cu`` (K7: one binary search per output slot over the
+offsets K5 wrote, the full-outer tail, the matched-build bitmap, and the
+exclusive scan that K14's emit counts take).
 Beside each is its plain PyTorch version; a wrapper takes it only for a
 tensor on the CPU and counts its kernel launches in ``.launches``.
 
@@ -40,7 +42,7 @@ Right outer join is the exec layer's job (swap sides, reorder columns,
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -57,7 +59,9 @@ from spark_rapids_tpu_torch.ops.sort import (SortOrder, chain_sort,
                                              sort_permutation_plain,
                                              sort_words)
 
-__all__ = ["JOIN_TYPES", "I32MAX", "build_prepare_fast",
+__all__ = ["JOIN_TYPES", "I32MAX", "PreparedBuild", "ProbeArrays",
+           "SearchLayout", "search_levels", "rank_layout",
+           "build_prepare_fast",
            "build_prepare_fast_plain", "probe_fast", "probe_fast_plain",
            "join_search", "key_ids_plain", "join_probe", "join_probe_plain",
            "join_total",
@@ -133,40 +137,172 @@ def _ranges_plain(lkey, skey, nv, lvalid, join_type: str):
 # the search kernel shared by K5 and K6 (csrc/join_probe.cu)
 # ---------------------------------------------------------------------------
 
+#: stream rows a tile of the search kernel, the bytes of a layout node
+#: (one sector), the bytes of the level staged in shared memory and the
+#: most levels (csrc/join_probe.cu ``kTile``, ``kNodeBytes``,
+#: ``kStageBytes``, ``kMaxLevels``)
+PROBE_TILE = 4096
+NODE_BYTES = 32
+STAGE_BYTES = 32768
+MAX_LEVELS = 16
+native.share_limits("join_probe", (PROBE_TILE, NODE_BYTES, STAGE_BYTES,
+                                   MAX_LEVELS))
+
+#: the search kernel's look-back status by (device, stream): zero between
+#: launches (the last tile of each launch clears it), grown as needed
+_STATUS: dict = {}
+
+
+class SearchLayout(NamedTuple):
+    """The search layout of a sorted build side (csrc/join_probe.cu): a
+    static tree over the sorted keys, nodes of one 32-byte sector; level
+    ``j`` (1..``k``) holds every ``F^j``-th key (``F = NODE_BYTES /
+    item``), each level padded to whole nodes, in ``levels`` (None where
+    ``k`` is 0); level ``k`` is the one the search stages in shared
+    memory (0: the sorted keys themselves)."""
+    levels: torch.Tensor | None
+    k: int
+
+
+class PreparedBuild(tuple):
+    """The reference's prepared build, ``(sorted_key, perm, nv)``, with
+    the card's search layout beside it in ``.layout``."""
+
+    def __new__(cls, sorted_key, perm, nv, layout=None):
+        self = super().__new__(cls, (sorted_key, perm, nv))
+        self.layout = layout
+        return self
+
+    def to(self, device):
+        lay = self.layout
+        if lay is not None and lay.levels is not None:
+            lay = SearchLayout(lay.levels.to(device, non_blocking=True),
+                               lay.k)
+        return PreparedBuild(*(t.to(device, non_blocking=True)
+                               for t in self), lay)
+
+
+class ProbeArrays(tuple):
+    """The reference's probe arrays, ``(start, cnt, perm, out_cnt,
+    unmatched_r)``, with the exclusive int32 offsets that K5's search
+    wrote beside them (``.offsets`` of ``out_cnt``, ``.uoffsets`` of
+    ``unmatched_r``, each with its total last), which K7's expansion
+    takes in place of its own scan."""
+
+    def __new__(cls, arrays, offsets=None, uoffsets=None):
+        self = super().__new__(cls, arrays)
+        self.offsets = offsets
+        self.uoffsets = uoffsets
+        return self
+
+
+def search_levels(nb: int, item: int):
+    """The search layout's geometry for ``nb`` sorted keys of ``item``
+    bytes, as the kernel computes it: ``(k, sizes, offsets, length)`` --
+    the level staged in shared memory (the first whose keys fit
+    :data:`STAGE_BYTES`), each level's key count ``sizes[j] = ceil(nb /
+    F^j)``, the first element of levels 1..k in the layout tensor
+    (``offsets[0]`` unused) and that tensor's length."""
+    f = NODE_BYTES // item
+    sizes = [nb]
+    while sizes[-1] * item > STAGE_BYTES:
+        sizes.append(-(-sizes[-1] // f))
+    offsets, at = [0], 0
+    for size in sizes[1:]:
+        offsets.append(at)
+        at += -(-size // f) * f
+    return len(sizes) - 1, sizes, offsets, at
+
+
+def rank_layout(sorted_ids: torch.Tensor) -> SearchLayout:
+    """The search layout of the rank path's sorted int32 ids, new each
+    call: staged whole in shared memory where they fit
+    :data:`STAGE_BYTES` (no launch), else its levels written by one
+    levels-only launch of K5's build kernel (``srt_join_build_keys``),
+    counted in ``.launches``.  On the card a layout pays against the
+    binary search at q24's 2.88M ids too (PERF.md §6)."""
+    n = sorted_ids.numel()
+    k, _sizes, _offsets, length = search_levels(n, 4)
+    if k == 0:
+        return SearchLayout(None, 0)
+    dev = sorted_ids.device
+    levels = torch.empty(length, dtype=torch.int32, device=dev)
+    native.check(native.lib("join_probe").srt_join_build_keys(
+        ptr(sorted_ids), None, None, n, 4, None, None, ptr(levels), k,
+        native.stream_ptr(dev)), "srt_join_build_keys")
+    rank_layout.launches += 1
+    return SearchLayout(levels, k)
+
+
+rank_layout.launches = 0
+
+
 def join_search(lkey: torch.Tensor, lvalid: torch.Tensor | None,
                 skey: torch.Tensor, nv: torch.Tensor | None, jt: str,
-                total: torch.Tensor, want_ranges: bool = True):
+                total: torch.Tensor | None = None, want_ranges: bool = True,
+                layout: SearchLayout | None = None):
     """Per row of ``lkey``: its match range in the sorted ``skey``
     (clipped to ``nv`` when given), the count (0 where ``lvalid`` is
-    False) and the join type's output count; the output counts are added
-    to ``total`` (int64[1]).  Returns (start, cnt, out_cnt)."""
+    False) and the join type's output count, and the exclusive int32
+    offsets of the output counts with their total last.  The output
+    counts' sum is added to ``total`` (int64[1]) when given, else written
+    to a new one.  ``layout``: the search layout of ``skey``
+    (:func:`build_prepare_fast`, :func:`rank_layout`), which the card
+    requires.  Returns ``(start, cnt, out_cnt, offsets, total)``."""
     if lkey.dtype not in _SEARCH_TYPES or skey.dtype != lkey.dtype:
         raise ValueError(f"search keys must share one integral dtype, got "
                          f"{lkey.dtype} and {skey.dtype}")
     if lkey.device.type == "cpu":
         start, cnt, out_cnt = _ranges_plain(lkey, skey, nv, lvalid, jt)
-        total += out_cnt.sum(dtype=torch.int64)
-        return start, cnt, out_cnt
+        oc = out_cnt.to(torch.int64)
+        offsets = torch.cat([oc.new_zeros(1), torch.cumsum(oc, 0)])
+        if total is None:
+            total = torch.zeros(1, dtype=torch.int64)
+        total += offsets[-1]
+        return start, cnt, out_cnt, offsets.to(torch.int32), total
+    return _search_cuda(lkey, lvalid, skey, nv, jt, total, want_ranges,
+                        layout)
+
+
+join_search.launches = 0
+
+
+def _search_cuda(lkey, lvalid, skey, nv, jt, total, want_ranges, layout):
+    """K5's search on the card: one launch of ``srt_join_search``; its
+    outputs and, where none is given, the total are views of one int32
+    allocation."""
     lib = native.lib("join_probe")
+    if layout is None:
+        raise ValueError("K5's search on the card needs the search layout "
+                         "of the sorted keys (PreparedBuild.layout, "
+                         "rank_layout)")
     # bound to names: each buffer must outlive the asynchronous launch
     lkey, skey = lkey.contiguous(), skey.contiguous()
     lvalid = None if lvalid is None else lvalid.contiguous()
     n, dev = lkey.numel(), lkey.device
-    start = torch.empty(n, dtype=torch.int32, device=dev) \
-        if want_ranges else None
-    cnt = torch.empty(n, dtype=torch.int32, device=dev) \
-        if want_ranges else None
-    out_cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    add = total is not None
+    ranges = 2 * n if want_ranges else 0
+    buf = torch.empty(2 + ranges + 2 * n + 1, dtype=torch.int32, device=dev)
+    if not add:
+        total = buf[:2].view(torch.int64)
+    start = buf[2:2 + n] if want_ranges else None
+    cnt = buf[2 + n:2 + ranges] if want_ranges else None
+    out_cnt = buf[2 + ranges:2 + ranges + n]
+    offsets = buf[2 + ranges + n:]
+    if n == 0:
+        offsets.zero_()
+        if not add:
+            total.zero_()
+        return start, cnt, out_cnt, offsets, total
+    stream = native.stream_ptr(dev)
+    status = native.lookback_status(_STATUS, dev, stream, num_tiles(n))
     native.check(lib.srt_join_search(
         ptr(lkey), ptr(lvalid), n, ptr(skey), skey.numel(), ptr(nv),
-        lkey.element_size(), _JT_CODES[jt], ptr(start), ptr(cnt),
-        ptr(out_cnt), ptr(total), native.stream_ptr(dev)),
-        "srt_join_search")
+        ptr(layout.levels), layout.k, lkey.element_size(),
+        _JT_CODES[jt], ptr(start), ptr(cnt), ptr(out_cnt), ptr(offsets),
+        ptr(total), int(add), ptr(status), stream), "srt_join_search")
     join_search.launches += 1
-    return start, cnt, out_cnt
-
-
-join_search.launches = 0
+    return start, cnt, out_cnt, offsets, total
 
 
 # ---------------------------------------------------------------------------
@@ -181,26 +317,35 @@ def build_prepare_fast(rbatch: ColumnBatch, rkey: int):
     dtype max, so the array stays globally sorted; probe ranges are
     clipped to ``nv``, which keeps genuine max-valued keys (they sit at
     positions < nv).  ``nv`` is an int32[1] tensor on the batch's device.
-    The sort is K1; on CUDA the rewrite is a kernel."""
+    The sort is K1; on CUDA the rewrite is a kernel that also writes the
+    search layout.  Returned as a :class:`PreparedBuild`, whose ``layout``
+    (None on the CPU) :func:`probe_fast` takes."""
     col = rbatch.columns[rkey]
     if col.data.dtype not in _SEARCH_TYPES:
         raise ValueError(f"fast-path build key dtype {col.data.dtype}")
     if col.data.device.type == "cpu":
-        return build_prepare_fast_plain(rbatch, rkey)
-    perm = sort_permutation(_one_col_batch(col), _NULLS_LAST)         # K1
-    lib = native.lib("join_probe")
-    data, valid = col.data.contiguous(), col.validity.contiguous()
-    skey = torch.empty_like(data)
-    nv = torch.zeros(1, dtype=torch.int32, device=data.device)
-    native.check(lib.srt_join_build_keys(
-        ptr(data), ptr(valid), ptr(perm), col.capacity, data.element_size(),
-        ptr(skey), ptr(nv), native.stream_ptr(data.device)),
-        "srt_join_build_keys")
-    build_prepare_fast.launches += 1
-    return skey, perm, nv
+        return PreparedBuild(*build_prepare_fast_plain(rbatch, rkey))
+    return _build_prepare_cuda(col)
 
 
 build_prepare_fast.launches = 0
+
+
+def _build_prepare_cuda(col: DeviceColumn) -> PreparedBuild:
+    perm = sort_permutation(_one_col_batch(col), _NULLS_LAST)         # K1
+    lib = native.lib("join_probe")
+    data, valid = col.data.contiguous(), col.validity.contiguous()
+    n, item, dev = col.capacity, data.element_size(), data.device
+    k, _sizes, _offsets, length = search_levels(n, item)
+    skey = torch.empty(n, dtype=data.dtype, device=dev)
+    nv = torch.zeros(1, dtype=torch.int32, device=dev)
+    levels = torch.empty(length, dtype=data.dtype, device=dev) if k \
+        else None
+    native.check(lib.srt_join_build_keys(
+        ptr(data), ptr(valid), ptr(perm), n, item, ptr(skey), ptr(nv),
+        ptr(levels), k, native.stream_ptr(dev)), "srt_join_build_keys")
+    build_prepare_fast.launches += 1
+    return PreparedBuild(skey, perm, nv, SearchLayout(levels, k))
 
 
 def build_prepare_fast_plain(rbatch: ColumnBatch, rkey: int):
@@ -215,20 +360,22 @@ def build_prepare_fast_plain(rbatch: ColumnBatch, rkey: int):
 
 
 def probe_fast(lbatch: ColumnBatch, lkey: int, sorted_key, perm, nv,
-               join_type: str):
-    """Per-stream-batch probe against a prepared build side: two binary
-    searches per row, no sort.  Returns ``((start, cnt, perm, out_cnt,
-    None), total)`` with ``total`` an int64[1] tensor (full outer's
-    unmatched build rows are tracked by the exec, as in the reference)."""
+               join_type: str, layout: SearchLayout | None = None):
+    """Per-stream-batch probe against a prepared build side: one search
+    per row, no sort.  Returns ``(arrays, total)``: ``arrays`` the
+    reference's ``(start, cnt, perm, out_cnt, None)`` (a
+    :class:`ProbeArrays` on the card, carrying the offsets K7 takes) and
+    ``total`` an int64[1] tensor (full outer's unmatched build rows are
+    tracked by the exec, as in the reference).  ``layout``: the build's
+    search layout (``PreparedBuild.layout``), which the card requires."""
     col = lbatch.columns[lkey]
     dev = col.data.device
     if dev.type == "cpu":
         return probe_fast_plain(lbatch, lkey, sorted_key, perm, nv,
                                 join_type)
-    total = torch.zeros(1, dtype=torch.int64, device=dev)
-    start, cnt, out_cnt = join_search(col.data, col.validity, sorted_key,
-                                      nv, join_type, total)
-    return (start, cnt, perm, out_cnt, None), total
+    start, cnt, out_cnt, offsets, total = join_search(
+        col.data, col.validity, sorted_key, nv, join_type, layout=layout)
+    return ProbeArrays((start, cnt, perm, out_cnt, None), offsets), total
 
 
 def probe_fast_plain(lbatch: ColumnBatch, lkey: int, sorted_key, perm, nv,
@@ -361,7 +508,12 @@ def _probe(lbatch: ColumnBatch, rbatch: ColumnBatch,
         cnt = torch.full((cl,), cr, dtype=torch.int32, device=dev)
         rsort_perm = torch.arange(cr, dtype=torch.int32, device=dev)
         total = torch.full((1,), cl * cr, dtype=torch.int64, device=dev)
-        return (start, cnt, rsort_perm, cnt, None), total
+        # every row's run is cr slots: its offsets need no scan (int32,
+        # checked against the total before K7 reads them)
+        offsets = (torch.arange(cl + 1, dtype=torch.int64, device=dev)
+                   * cr).to(torch.int32)
+        return ProbeArrays((start, cnt, rsort_perm, cnt, None),
+                           offsets), total
     if plain:
         lid, rid = key_ids_plain(lbatch, rbatch, lkeys, rkeys)
         rsort_perm = sort_permutation_plain(_one_col_batch(_ids_col(rid)),
@@ -379,18 +531,20 @@ def _probe(lbatch: ColumnBatch, rbatch: ColumnBatch,
     lid, rid = _key_ids(lbatch, rbatch, lkeys, rkeys)                  # K6
     rsort_perm = sort_permutation(_one_col_batch(_ids_col(rid)),
                                   [SortOrder(0)])                      # K1
-    total = torch.zeros(1, dtype=torch.int64, device=dev)
     sorted_rid = gather_columns([_ids_col(rid)], rsort_perm)[0].data   # K3
-    start, cnt, out_cnt = join_search(lid, None, sorted_rid, None,
-                                      join_type, total)               # K5
-    unmatched_r = None
+    start, cnt, out_cnt, offsets, total = join_search(
+        lid, None, sorted_rid, None, join_type,
+        layout=rank_layout(sorted_rid))                                # K5
+    unmatched_r = uoffsets = None
     if join_type == "full":
         lperm = sort_permutation(_one_col_batch(_ids_col(lid)),
                                  [SortOrder(0)])
         sorted_lid = gather_columns([_ids_col(lid)], lperm)[0].data
-        _s, _c, unmatched_r = join_search(rid, None, sorted_lid, None,
-                                          "anti", total, want_ranges=False)
-    return (start, cnt, rsort_perm, out_cnt, unmatched_r), total
+        _s, _c, unmatched_r, uoffsets, total = join_search(
+            rid, None, sorted_lid, None, "anti", total, want_ranges=False,
+            layout=rank_layout(sorted_lid))
+    return ProbeArrays((start, cnt, rsort_perm, out_cnt, unmatched_r),
+                       offsets, uoffsets), total
 
 
 def join_probe(lbatch: ColumnBatch, rbatch: ColumnBatch,
@@ -427,27 +581,39 @@ def join_indices_from_probe(cl: int, probe_arrays, join_type: str,
     """Gather plan of ``total`` output slots (the probe's total, read on
     the host).  Returns (li, ri): int32[total] stream and build row per
     slot, -1 where that side is null (outer non-matches, semi/anti right
-    sides, the full-outer tail's left side)."""
+    sides, the full-outer tail's left side).  On the card the offsets are
+    those K5's search wrote (:class:`ProbeArrays`; a cross join's are
+    arithmetic), which the card requires."""
     if total > I32MAX:
         raise ValueError(
             f"one stream batch of the join would produce {total} rows, "
             f"more than the int32 row indices hold ({I32MAX}); lower "
             "spark.rapids.sql.reader.batchRows")
+    if probe_arrays[3].device.type == "cpu":
+        return join_indices_plain(cl, probe_arrays, join_type, total)
+    return _indices_cuda(cl, probe_arrays, join_type, total)
+
+
+join_indices_from_probe.launches = 0
+
+
+def _indices_cuda(cl: int, probe_arrays, join_type: str, total: int):
+    lib = native.lib("join_expand")
     start, cnt, rsort_perm, out_cnt, unmatched_r = probe_arrays
     dev = out_cnt.device
     take_right = join_type not in ("semi", "anti")
-    if dev.type == "cpu":
-        return join_indices_plain(cl, probe_arrays, join_type, total)
-    lib = native.lib("join_expand")
     stream = native.stream_ptr(dev)
+    offsets = getattr(probe_arrays, "offsets", None)
+    uoff = getattr(probe_arrays, "uoffsets", None)
+    if offsets is None or (unmatched_r is not None and uoff is None):
+        raise ValueError("K7 on the card takes the offsets K5's search "
+                         "wrote (ProbeArrays from probe_fast or join_probe)")
     li = torch.empty(total, dtype=torch.int32, device=dev)
     ri = torch.empty(total, dtype=torch.int32, device=dev)
-    offsets = _offsets_cuda(lib, out_cnt, stream)  # [cl + 1]
     native.check(lib.srt_join_expand(
         ptr(offsets), cl, ptr(cnt), ptr(start), ptr(rsort_perm), total,
         int(take_right), ptr(li), ptr(ri), stream), "srt_join_expand")
     if unmatched_r is not None:
-        uoff = _offsets_cuda(lib, unmatched_r, stream)
         native.check(lib.srt_join_tail(
             ptr(unmatched_r), ptr(uoff), unmatched_r.numel(),
             ptr(offsets[cl:]), ptr(li), ptr(ri), stream), "srt_join_tail")
@@ -455,11 +621,10 @@ def join_indices_from_probe(cl: int, probe_arrays, join_type: str,
     return li, ri
 
 
-join_indices_from_probe.launches = 0
-
-
 def _offsets_cuda(lib, counts: torch.Tensor, stream) -> torch.Tensor:
-    """int32[n + 1]: exclusive scan of ``counts``, the total last."""
+    """int32[n + 1]: exclusive scan of ``counts``, the total last (K7's
+    ``srt_join_offsets``, which K14's emit offsets take and no join path
+    runs: K5's search writes its offsets)."""
     counts = counts.contiguous()
     n = counts.numel()
     dev = counts.device
@@ -470,7 +635,11 @@ def _offsets_cuda(lib, counts: torch.Tensor, stream) -> torch.Tensor:
     native.check(lib.srt_join_offsets(ptr(counts), n, ptr(sums),
                                       ptr(toff), ptr(out), stream),
                  "srt_join_offsets")
+    _offsets_cuda.launches += 1
     return out
+
+
+_offsets_cuda.launches = 0
 
 
 def join_indices_plain(cl: int, probe_arrays, join_type: str, total: int):

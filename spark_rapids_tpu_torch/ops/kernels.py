@@ -52,6 +52,9 @@ def _empty_like_rows(col: DeviceColumn, m: int) -> DeviceColumn:
 
 
 def _contig(col: DeviceColumn) -> DeviceColumn:
+    if col.data.is_contiguous() and col.validity.is_contiguous() and (
+            col.lengths is None or col.lengths.is_contiguous()):
+        return col
     return DeviceColumn(col.data.contiguous(), col.validity.contiguous(),
                         col.dtype, None if col.lengths is None
                         else col.lengths.contiguous())
@@ -81,33 +84,55 @@ def compact_plain(batch: ColumnBatch, keep: torch.Tensor) -> ColumnBatch:
     return ColumnBatch(cols, idx.numel(), batch.schema, batch.device)
 
 
+#: K2's look-back status by (device, stream): zero between launches (the
+#: last tile of each count launch clears it), grown as needed
+_STATUS: dict = {}
+#: table words of the copy kernel's small and large parameter struct
+#: (csrc/compact.cu ``kSmallWords``, ``kLargeWords``); a longer table is
+#: read from a device copy
+COMPACT_SMALL_WORDS = 480
+COMPACT_PARAM_WORDS = 4000
+
+
 def _compact_cuda(batch: ColumnBatch, keep: torch.Tensor) -> ColumnBatch:
+    """K2 on the card: ``srt_compact_count`` (each tile's list of kept
+    rows and its offset by the look-back, the total read once on the
+    host), then ``srt_compact_copy`` over every column (the table of
+    :func:`gather_table`'s words by value) into one allocation a leaf."""
     lib = native.lib("compact")
     n = batch.num_rows
     dev = keep.device
     if keep.shape != (n,) or keep.dtype != torch.bool:
         raise ValueError(f"keep must be bool[{n}], got {keep.dtype}"
                          f"{tuple(keep.shape)}")
+    if n == 0:
+        return ColumnBatch([_empty_like_rows(c, 0) for c in batch.columns],
+                           0, batch.schema, batch.device)
     keep = keep.contiguous()
     stream = native.stream_ptr(dev)
     nt = num_tiles(n)
-    counts = torch.empty(max(nt, 1), dtype=torch.int32, device=dev)
-    offsets = torch.empty(nt + 1, dtype=torch.int32, device=dev)
-    native.check(lib.srt_compact_prepare(ptr(keep), n, ptr(counts),
-                                         ptr(offsets), stream),
-                 "srt_compact_prepare")
-    m = int(offsets[nt].item())
-    cols = []
-    for c in batch.columns:
-        c = _contig(c)
-        out = _empty_like_rows(c, m)
-        native.check(lib.srt_compact_column(
-            ptr(keep), n, ptr(offsets), ptr(c.data), ptr(out.data),
-            ptr(c.validity), ptr(out.validity), ptr(c.lengths),
-            ptr(out.lengths), c.row_bytes, stream), "srt_compact_column")
-        cols.append(out)
+    # the tile offsets (int32[nt + 1]), then each tile's list of kept rows
+    # (uint16[nt * TILE]) from a 16-byte boundary
+    head = -(-(nt + 1) // 4) * 4
+    scratch = torch.empty(head + nt * TILE // 2, dtype=torch.int32,
+                          device=dev)
+    rows = scratch.data_ptr() + 4 * head
+    status = native.lookback_status(_STATUS, dev, stream, nt)
+    native.check(lib.srt_compact_count(ptr(keep), n, scratch.data_ptr(),
+                                       rows, ptr(status), stream),
+                 "srt_compact_count")
+    srcs = [_contig(c) for c in batch.columns]
+    m = int(scratch[nt].item())
+    outs = [_empty_like_rows(c, m) for c in srcs]
+    if m > 0 and srcs:
+        words = gather_table(srcs, outs)
+        host, dev_tab = native.param_table(
+            words, len(words) > COMPACT_PARAM_WORDS, dev)
+        native.check(lib.srt_compact_copy(
+            host.buffer_info()[0], len(words), len(srcs), ptr(dev_tab),
+            rows, n, scratch.data_ptr(), stream), "srt_compact_copy")
     compact.launches += 1
-    return ColumnBatch(cols, m, batch.schema, batch.device)
+    return ColumnBatch(outs, m, batch.schema, batch.device)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +197,8 @@ GATHER_SMALL_WORDS = 480
 GATHER_PARAM_WORDS = 4000
 native.share_limits("gather", (GATHER_COL_WORDS, GATHER_TILE, GATHER_RUN,
                                GATHER_SMALL_WORDS, GATHER_PARAM_WORDS))
+native.share_limits("compact", (TILE, GATHER_COL_WORDS, COMPACT_SMALL_WORDS,
+                                COMPACT_PARAM_WORDS))
 
 
 def vec_bytes(row_bytes: int, *addresses: int) -> int:

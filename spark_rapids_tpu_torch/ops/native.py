@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "build", "lib", "share_limits", "stream_ptr", "check",
-           "param_table", "NVCC_FLAGS"]
+           "param_table", "lookback_status", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -66,8 +66,9 @@ _L = ctypes.c_int64
 #: entries, which report a library's constants)
 _SIGNATURES = {
     "compact": {
-        "srt_compact_prepare": [_P, _L, _P, _P, _P],
-        "srt_compact_column": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "srt_compact_count": [_P, _L, _P, _P, _P, _P],
+        "srt_compact_copy": [_P, _L, _I, _P, _P, _L, _P, _P],
+        "srt_compact_limits": [_P, _I],
     },
     "gather": {
         "srt_gather": [_P, _L, _I, _P, _P, _L, _P],
@@ -92,9 +93,10 @@ _SIGNATURES = {
                                   _P, _P, _P],
     },
     "join_probe": {
-        "srt_join_build_keys": [_P, _P, _P, _L, _I, _P, _P, _P],
-        "srt_join_search": [_P, _P, _L, _P, _L, _P, _I, _I, _P, _P, _P, _P,
-                            _P],
+        "srt_join_build_keys": [_P, _P, _P, _L, _I, _P, _P, _P, _I, _P],
+        "srt_join_search": [_P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _P, _P,
+                            _P, _P, _P, _I, _P, _P],
+        "srt_join_probe_limits": [_P, _I],
     },
     "join_ids": {
         "srt_join_key_ids": [_P, _P, _I, _I, _P, _I, _I, _L, _L, _P, _P,
@@ -291,6 +293,22 @@ def param_table(words, copy: bool, device):
     host = array.array("q", words)
     return host, (torch.tensor(words, dtype=torch.int64).to(device)
                   if copy else None)
+
+
+def lookback_status(store: dict, device, stream: int, ntiles: int):
+    """The uint64 status of a kernel's decoupled look-back
+    (``csrc/common.cuh`` ``lookback_*``) on ``device`` and ``stream``,
+    kept in ``store``: at least ``ntiles + 2`` words, zero between
+    launches (the last tile of each launch clears what it used), so a
+    caller never clears it; grown as needed."""
+    import torch
+    key = (device.index, stream)
+    st = store.get(key)
+    if st is None or st.numel() < ntiles + 2:
+        st = torch.zeros(max(ntiles + 2, 1024), dtype=torch.int64,
+                         device=device)
+        store[key] = st
+    return st
 
 
 def check(rc: int, what: str) -> None:

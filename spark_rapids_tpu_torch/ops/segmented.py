@@ -472,13 +472,7 @@ _STATUS: dict = {}
 
 
 def _status(dev, stream: int, ntiles: int) -> torch.Tensor:
-    key = (dev.index, stream)
-    st = _STATUS.get(key)
-    if st is None or st.numel() < ntiles + 2:
-        st = torch.zeros(max(ntiles + 2, 1024), dtype=torch.int64,
-                         device=dev)
-        _STATUS[key] = st
-    return st
+    return native.lookback_status(_STATUS, dev, stream, ntiles)
 
 
 def _segment_flags(cols, n: int, dev, first: int = 1,

@@ -348,7 +348,7 @@ def test_fast_probe_and_expand_match_plain(dev, jt, dtype):
               J.join_indices_from_probe.launches)
     prep = J.build_prepare_fast(rb, 0)
     _assert_tensors_equal(prep, J.build_prepare_fast_plain(rb, 0))
-    arrays, total = J.probe_fast(lb, 0, *prep, jt)
+    arrays, total = J.probe_fast(lb, 0, *prep, jt, layout=prep.layout)
     want, wtotal = J.probe_fast_plain(lb, 0, *prep, jt)
     _assert_tensors_equal(arrays, want)
     assert int(total.item()) == int(wtotal.item()) > 0
@@ -1902,3 +1902,195 @@ def test_packed_batch_decodes_in_one_launch(dev):
     for a, b in zip(got, ColumnBatch.from_arrow(rb, dev, codec=False)
                     .columns):
         _same(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K2 as two launches a call, K5 over its search layout with K7's offsets
+# ---------------------------------------------------------------------------
+
+def _compact_batch(dev, rng, n: int):
+    """_record_batch's columns (a wide string: the chunk path) and an
+    int8 and a narrow string column (one load a row)."""
+    rb = _record_batch(rng, n)
+    narrow = np.array(["", "a", "ab", "abc"], dtype=object)
+    rb = pa.RecordBatch.from_arrays(
+        list(rb.columns) + [
+            pa.array(rng.integers(-100, 100, n).astype(np.int8),
+                     mask=rng.random(n) < 0.1),
+            pa.array(list(narrow[rng.integers(0, 4, n)]), type=pa.string(),
+                     mask=rng.random(n) < 0.1)],
+        names=list(rb.schema.names) + ["b8", "s4"])
+    return ColumnBatch.from_arrow(rb, dev)
+
+
+@pytest.mark.parametrize("share", [0.0, 0.03, 0.5, 1.0])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, (1 << 20) + 1])
+def test_compact_two_launches_match_plain(dev, n, share):
+    """K2 at its tile edges and past the column split (2^20 + 1 rows: 257
+    tiles), every keep share: exact against the plain version, one count
+    a call, the status left zero, a second call on the same status the
+    same."""
+    rng = np.random.default_rng(n + int(share * 100))
+    pb = _compact_batch(dev, rng, n)
+    keep = torch.from_numpy(rng.random(n) < share).to(dev)
+    before = K.compact.launches
+    got, want = K.compact(pb, keep), K.compact_plain(pb, keep)
+    assert K.compact.launches == before + (1 if n else 0)
+    assert got.num_rows == want.num_rows == int(keep.sum())
+    for a, b in zip(got.columns, want.columns):
+        _same(a, b)
+    again = K.compact(pb, keep)
+    for a, b in zip(again.columns, want.columns):
+        _same(a, b)
+    assert all(int(s.abs().sum()) == 0 for s in K._STATUS.values())
+
+
+def test_compact_long_table_and_split_groups(dev):
+    """A table past the large parameter struct (a device copy) and a call
+    of one group a tile (past the split's 264 tiles)."""
+    rng = np.random.default_rng(8)
+    ncols = K.COMPACT_PARAM_WORDS // K.GATHER_COL_WORDS + 1
+    n = 5000
+    rb = pa.RecordBatch.from_arrays(
+        [pa.array(rng.integers(0, 99, n).astype(np.int16),
+                  mask=rng.random(n) < 0.1) for _ in range(ncols)],
+        names=[f"c{i}" for i in range(ncols)])
+    pb = ColumnBatch.from_arrow(rb, dev)
+    keep = torch.from_numpy(rng.random(n) < 0.4).to(dev)
+    for a, b in zip(K.compact(pb, keep).columns,
+                    K.compact_plain(pb, keep).columns):
+        _same(a, b)
+    n = 300 * 4096 + 7
+    pb = _compact_batch(dev, rng, n)
+    keep = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    for a, b in zip(K.compact(pb, keep).columns,
+                    K.compact_plain(pb, keep).columns):
+        _same(a, b)
+
+
+def _probe_case(dev, J, lb, rb, jts):
+    """K5 over its layout, K7 over its offsets, against the plain
+    versions: the offsets the exclusive sum of out_cnt, no K7 scan, the
+    status left zero."""
+    before = (J.build_prepare_fast.launches, J._offsets_cuda.launches)
+    prep = J.build_prepare_fast(rb, 0)
+    assert isinstance(prep, J.PreparedBuild) and prep.layout is not None
+    _assert_tensors_equal(prep, J.build_prepare_fast_plain(rb, 0))
+    for jt in jts:
+        want, wtotal = J.probe_fast_plain(lb, 0, *prep, jt)
+        arrays, total = J.probe_fast(lb, 0, *prep, jt, layout=prep.layout)
+        _assert_tensors_equal(arrays, want)
+        assert int(total.item()) == int(wtotal.item())
+        oc = arrays[3].to(torch.int64)
+        assert torch.equal(arrays.offsets.to(torch.int64), torch.cat(
+            [oc.new_zeros(1), torch.cumsum(oc, 0)]))
+        n = int(total.item())
+        if n:
+            _assert_tensors_equal(
+                J.join_indices_from_probe(lb.num_rows, arrays, jt, n),
+                J.join_indices_plain(lb.num_rows, want, jt, n))
+    assert (J.build_prepare_fast.launches, J._offsets_cuda.launches) == (
+        before[0] + 1, before[1])
+    assert all(int(s.abs().sum()) == 0 for s in J._STATUS.values())
+
+
+def _int_side(dev, keys, null_p, rng):
+    return ColumnBatch.from_arrow(pa.RecordBatch.from_arrays(
+        [pa.array(keys, mask=rng.random(len(keys)) < null_p)],
+        names=["k"]), dev)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.int64])
+def test_probe_layout_levels_match_plain(dev, dtype):
+    """Build sizes on both sides of each level of the layout (the stage's
+    capacity, one past, F times it, one past), the dtype's max a genuine
+    key, nulls on both sides, 2 x 4096 + 1 stream rows."""
+    from spark_rapids_tpu_torch.ops import join as J
+    item = np.dtype(dtype).itemsize
+    cap, f = J.STAGE_BYTES // item, J.NODE_BYTES // item
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(item)
+    for nb in (cap, cap + 1, cap * f, cap * f + 1):
+        hi = min(int(info.max), 4 * nb)
+        keys = rng.integers(int(info.min), hi, nb).astype(dtype)
+        keys[rng.random(nb) < 0.02] = info.max
+        rb = _int_side(dev, keys, 0.01, rng)
+        probe = np.concatenate([rng.choice(keys, 6000), rng.integers(
+            int(info.min), hi, 2193)]).astype(dtype)
+        probe[:5] = info.max
+        lb = _int_side(dev, probe, 0.04, rng)
+        jts = ("semi", "anti") if item == 1 and nb > cap * 2 else (
+            "inner", "left", "semi", "anti")
+        _probe_case(dev, J, lb, rb, jts)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, (1 << 20) + 1])
+def test_probe_stream_edges_and_4096_matches(dev, n):
+    """Stream batches at the tile's edges against a build where one key
+    matches 4096 rows, an empty build and a one-row build; repeated calls
+    on one status array."""
+    from spark_rapids_tpu_torch.ops import join as J
+    rng = np.random.default_rng(n)
+    bkeys = np.concatenate([np.full(4096, 7), np.arange(20_000, 529_000),
+                            [2 ** 31 - 1]]).astype(np.int32)
+    lk = rng.choice(np.array([7, 8, 20_001, 528_999, 2 ** 31 - 1, -5],
+                             np.int32), n,
+                    p=[0.002, 0.2, 0.3, 0.3, 0.1, 0.098])
+    lk[0] = 7
+    lb = _int_side(dev, lk, 0.1, rng)
+    jts = ("inner", "left", "semi", "anti")
+    _probe_case(dev, J, lb, _int_side(dev, rng.permutation(bkeys), 0.0,
+                                      rng), jts)
+    for nb in (0, 1):
+        _probe_case(dev, J, lb, _int_side(dev, np.full(nb, 7, np.int32),
+                                          0.0, rng), jts)
+
+
+@pytest.mark.parametrize("nr", [700, 70_000])
+@pytest.mark.parametrize("jt", ["inner", "left", "semi", "anti", "full"])
+def test_k5_paths_run_no_k7_scan(dev, jt, nr):
+    """The rank path (K6 -> K1 -> K3 -> K5, its sorted ids' layout staged
+    whole or, past the search's shared memory, its levels built for the
+    call) writes the offsets too, full outer's anti search the tail's: K7
+    scans nothing on any K5 path."""
+    from spark_rapids_tpu_torch.ops import join as J
+    rng = np.random.default_rng(47)
+    nl = 20_000
+    lb = ColumnBatch.from_arrow(_join_side(rng, nl, 500), dev)
+    rb = ColumnBatch.from_arrow(_join_side(rng, nr, 500), dev)
+    cap = J.STAGE_BYTES // 4
+    levels = J.rank_layout.launches + (nr > cap) + (jt == "full" and nl > cap)
+    before = (J._offsets_cuda.launches, J.join_search.launches,
+              J.join_indices_from_probe.launches)
+    arrays, total = J.join_probe(lb, rb, [1, 0], [1, 0], jt)
+    want, wtotal = J.join_probe_plain(lb, rb, [1, 0], [1, 0], jt)
+    _assert_tensors_equal(arrays, want)
+    n = int(total.item())
+    assert n == int(wtotal.item()) > 0
+    _assert_tensors_equal(J.join_indices_from_probe(lb.num_rows, arrays, jt,
+                                                    n),
+                          J.join_indices_plain(lb.num_rows, want, jt, n))
+    assert (J._offsets_cuda.launches, J.join_search.launches,
+            J.join_indices_from_probe.launches) == (
+        before[0], before[1] + (2 if jt == "full" else 1), before[2] + 1)
+    assert J.rank_layout.launches == levels
+
+
+def test_k5_k7_refuse_a_missing_layout_or_offsets(dev):
+    """On the card K5's search needs the sorted keys' layout and K7 the
+    offsets K5 wrote: without them each raises, and nothing launches."""
+    from spark_rapids_tpu_torch.ops import join as J
+    rng = np.random.default_rng(3)
+    lb = _int_side(dev, rng.integers(0, 60, 700).astype(np.int32), 0.0, rng)
+    rb = _int_side(dev, rng.integers(0, 50, 300).astype(np.int32), 0.0, rng)
+    prep = J.build_prepare_fast(rb, 0)
+    before = (J.join_search.launches, J.join_indices_from_probe.launches,
+              J._offsets_cuda.launches)
+    with pytest.raises(ValueError, match="search layout"):
+        J.probe_fast(lb, 0, *prep, "inner")
+    want, wtotal = J.probe_fast_plain(lb, 0, *prep, "inner")
+    with pytest.raises(ValueError, match="offsets K5's search wrote"):
+        J.join_indices_from_probe(lb.num_rows, want, "inner",
+                                  int(wtotal.item()))
+    assert (J.join_search.launches, J.join_indices_from_probe.launches,
+            J._offsets_cuda.launches) == before
