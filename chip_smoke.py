@@ -34,7 +34,16 @@ Phases (any failure exits non-zero; no phase's error is caught):
    q6's other build sides (item, date_dim, customer_address) through the
    wrapper and the kernel alone; the rank path's search (its sorted ids
    new each call, their layout built for the call) at q6's and q24's
-   shapes; K1
+   shapes; K7 under every join type at q6's first join and at a
+   many-to-many shape (8.66M slots), timed at both through the wrapper in
+   turns with its plain version and torch.repeat_interleave, its C entry
+   alone and its kernel alone (one expand_kernel a call, the full-outer
+   tail in the same launch: the library exports no tail entry), and its
+   own one-launch offsets scan (offsets_kernel); K10 (in phase 6) at
+   2^20 rows, P = 8 and 200, the order alone and with K3's gather, in
+   turns with the plain versions and the library calls, its two C entry
+   points alone and its kernels alone (one upsweep_kernel and one
+   scatter_kernel a call, K3's gather_kernel; no scan, no memset); K1
    at q1's keys (2^24 rows) and at mixed int64/f64/int32/W16-string keys
    (2^22 rows, two orders) with the plan its wrapper derived (the varying
    bits, words and digit passes), timed in turns beside its plain version
@@ -78,7 +87,11 @@ Phases (any failure exits non-zero; no phase's error is caught):
    be above 0 after it, but for K7's matched-build bitmap, which only a
    full outer join runs; and K7's own offsets scan
    (``join._offsets_cuda``, which only K14 takes) must stay at 0 (K5's
-   search writes the offsets K7 reads);
+   search writes the offsets K7 reads); from here on every C entry of
+   K7's and K10's libraries is counted, and every path must make one
+   ``srt_join_expand`` a K7 call (the full-outer tail inside it) and one
+   ``srt_partition_upsweep`` and one ``srt_partition_scatter`` a K10
+   call up to 255 partitions (no scan, no counts kernel);
 6. the shuffle exchange (K9 murmur3 partition ids, K10 partition
    grouping: both held against their plain versions at 2^24 rows), then
    three paths over the generator's default layout (2^20-row files, 28
@@ -1738,12 +1751,89 @@ def _check_expand(torch, J, lb, rb, jts, what):
         _assert_same_tensors(torch, (m,), (mw,), f"matched {what} {jt}")
 
 
+def _expand_entry(torch, arrays, cl: int, jt: str, total: int):
+    """K7's C entry point alone on outputs allocated once: ``(run, both)``,
+    ``both`` the int32 [2, total] li and ri."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops.kernels import ptr
+    lib = native.lib("join_expand")
+    start, cnt, rperm, out_cnt, unmatched = arrays
+    dev = out_cnt.device
+    both = torch.empty((2, total), dtype=torch.int32, device=dev)
+    cr = 0 if unmatched is None else unmatched.numel()
+    args = (ptr(arrays.offsets), cl, ptr(cnt), ptr(start), ptr(rperm),
+            total, int(jt not in ("semi", "anti")), ptr(unmatched),
+            ptr(arrays.uoffsets), cr, ptr(both[0]), ptr(both[1]),
+            native.stream_ptr(dev))
+
+    def run(_keep=(arrays, both)):
+        native.check(lib.srt_join_expand(*args), "srt_join_expand")
+    return run, both
+
+
+def _expand_bytes(arrays, jt: str, total: int) -> int:
+    """K7's bytes for this data: the offsets read once, cnt and start
+    only for the rows with slots, one build-permutation entry a matched
+    slot, li and ri written once (and the full-outer tail's flags and
+    offsets)."""
+    start, cnt, _perm, out_cnt, unmatched = arrays
+    cl = out_cnt.numel()
+    rows = int((out_cnt > 0).sum())
+    matched = (int(cnt.long().minimum(out_cnt.long()).sum())
+               if jt not in ("semi", "anti") else 0)
+    tail = 0 if unmatched is None else 8 * unmatched.numel() + 4
+    return 4 * (cl + 1) + 8 * rows + 4 * matched + 8 * total + tail
+
+
+def _time_expand(torch, J, label: str, arrays, cl: int, total: int,
+                 reps: int = 20) -> dict:
+    """K7 at one shape of an inner join: the wrapper in turns with its
+    plain version and torch.repeat_interleave (the best of two rounds),
+    the C entry alone, and the kernel alone (torch.profiler: one
+    expand_kernel a call, nothing else)."""
+    rows = torch.arange(cl, dtype=torch.int32, device=arrays[3].device)
+
+    def wrapper():
+        return J.join_indices_from_probe(cl, arrays, "inner", total)
+    run, both = _expand_entry(torch, arrays, cl, "inner", total)
+    run()
+    got = wrapper()
+    if not (torch.equal(both[0], got[0]) and torch.equal(both[1], got[1])):
+        raise AssertionError(f"{label}: the C entry differs")
+    saved = J.join_indices_from_probe.launches
+    t = _in_turns(torch, {
+        "ms": wrapper,
+        "plain_ms": lambda: J.join_indices_plain(cl, arrays, "inner",
+                                                 total),
+        "library_ms": lambda: torch.repeat_interleave(
+            rows, arrays[3], output_size=total)}, reps=reps)
+    t["entry_ms"] = _time_ms(torch, run, reps=reps)
+    t["kernel_ms"] = _one_kernel_ms(torch, label, wrapper, "expand_kernel")
+    J.join_indices_from_probe.launches = saved
+    t["bytes"] = _expand_bytes(arrays, "inner", total)
+    t["total"] = total
+    t["bound_ms"] = _bound_ms(t["bytes"])
+    km = ("not measured" if t["kernel_ms"] is None
+          else f"{t['kernel_ms']:.4f}")
+    print(f"[{label}] stream={cl} out={total}: ms={t['ms']:.4f} (the C "
+          f"entry alone {t['entry_ms']:.4f}, the kernel alone {km}) "
+          f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+          f"(torch.repeat_interleave, left indices only) bound_ms="
+          f"{t['bound_ms']:.4f} ({t['bytes']} bytes); in turns, the best "
+          f"of two rounds", flush=True)
+    return t
+
+
 def check_expand(torch, dev, rng) -> dict:
     """K7 at q6's first join (2^20 stream rows, ~1.4% matched once each)
     and a many-to-many shape (0-16 matches per row plus one key that
-    matches 2^16 build rows), every join type."""
+    matches 2^16 build rows), every join type; timed at both through the
+    wrapper, its C entry and its kernel alone.  The library exports no
+    tail entry: the full-outer tail is in the expansion's launch."""
     from spark_rapids_tpu_torch.ops import join as J
     from spark_rapids_tpu_torch.ops import native
+    if hasattr(native.lib("join_expand"), "srt_join_tail"):
+        raise AssertionError("join_expand still exports srt_join_tail")
     ns = 1 << 20
     stream = _int_batch(torch, rng.integers(0, 2192, ns).astype(np.int32),
                         rng.random(ns) >= 0.02, dev)
@@ -1761,44 +1851,53 @@ def check_expand(torch, dev, rng) -> dict:
     many = _int_batch(torch, skeys, np.ones(ns, dtype=np.bool_), dev)
     _check_expand(torch, J, many, build, _STREAM_JOIN_TYPES, "many")
     arrays, total = J.join_probe_plain(many, build, [0], [0], "inner")
-    arrays = _with_offsets(torch, J, arrays)
-    n_many = int(total.item())
-    many_ms = _time_ms(torch, lambda: J.join_indices_from_probe(
-        ns, arrays, "inner", n_many))
-    # q6's shape, timed over the offsets K5 wrote (as the paths run it),
-    # and beside it K7's own three-launch scan of the same counts, which
-    # K5's search spares
+    many_t = _time_expand(torch, J, "K7 expand many-to-many",
+                          _with_offsets(torch, J, arrays), ns,
+                          int(total.item()))
+    del arrays
+    # q6's shape, over the offsets K5 wrote (as the paths run it), and
+    # beside it K7's own one-launch scan of the same counts, which K5's
+    # search spares
     prep = J.build_prepare_fast(dates, 0)
     arrays, total = J.probe_fast(stream, 0, *prep, "inner",
                                  layout=prep.layout)
     n = int(total.item())
-    ms = _time_ms(torch, lambda: J.join_indices_from_probe(
-        ns, arrays, "inner", n), reps=20)
+    q6 = _time_expand(torch, J, "K7 expand q6", arrays, ns, n)
     lib7 = native.lib("join_expand")
     sp = native.stream_ptr(dev)
-    scan_ms = _time_ms(torch, lambda: J._offsets_cuda(lib7, arrays[3], sp),
-                       reps=20)
-    plain_ms = _time_ms(torch, lambda: J.join_indices_plain(
-        ns, arrays, "inner", n), reps=20)
-    out_cnt = arrays[3]
-    rows = torch.arange(ns, dtype=torch.int32, device=dev)
-    lib_ms = _time_ms(torch, lambda: torch.repeat_interleave(
-        rows, out_cnt, output_size=n), reps=20)
-    # out_cnt read per stream row; cnt, start and the build permutation
-    # read only for the rows with output; li and ri written per output row
-    nbytes = ns * 4 + n * (4 + 4 + 4) + n * 8
-    print(f"[K7 expand] q6 stream={ns} out={n} ms={ms:.4f} (its own "
-          f"offsets scan of these counts, spared: {scan_ms:.4f}) "
-          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-          f"(torch.repeat_interleave, left indices only) "
-          f"bound_ms={_bound_ms(nbytes):.4f}; many-to-many out={n_many} "
-          f"ms={many_ms:.4f}; every join type equal", flush=True)
+
+    def scan():
+        return J._offsets_cuda(lib7, arrays[3], sp)
+    got = scan()
+    oc = arrays[3].to(torch.int64)
+    if not torch.equal(got.to(torch.int64), torch.cat(
+            [oc.new_zeros(1), torch.cumsum(oc, 0)])):
+        raise AssertionError("K7's own offsets scan differs from cumsum")
+    saved = J._offsets_cuda.launches
+    scan_ms = _time_ms(torch, scan, reps=20)
+    scan_kernel_ms = _one_kernel_ms(torch, "K7 offsets scan", scan,
+                                    "offsets_kernel")
+    J._offsets_cuda.launches = saved
+    skm = ("not measured" if scan_kernel_ms is None
+           else f"{scan_kernel_ms:.4f}")
+    print(f"[K7 expand] q6 out={n}: every join type equal at both shapes; "
+          f"K7's own offsets scan of q6's counts (one launch, spared on "
+          f"the join paths): {scan_ms:.4f} ms, the kernel alone {skm}",
+          flush=True)
     return dict(name="join_expand", route="cuda",
                 source="spark_rapids_tpu_torch/csrc/join_expand.cu",
                 replaces="spark_rapids_tpu/ops/join.py:216",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms, k7_scan_ms=scan_ms)
+                max_abs_err=0.0, ms=q6["ms"], plain_ms=q6["plain_ms"],
+                bound_ms=q6["bound_ms"], bound_by="bytes",
+                library_ms=q6["library_ms"], entry_ms=q6["entry_ms"],
+                kernel_ms=q6["kernel_ms"], k7_scan_ms=scan_ms,
+                k7_scan_kernel_ms=scan_kernel_ms,
+                k7_many_out=many_t["total"],
+                k7_many_ms=many_t["ms"], k7_many_plain_ms=many_t["plain_ms"],
+                k7_many_library_ms=many_t["library_ms"],
+                k7_many_entry_ms=many_t["entry_ms"],
+                k7_many_kernel_ms=many_t["kernel_ms"],
+                k7_many_bound_ms=many_t["bound_ms"], k7_q6_out=n)
 
 
 # ---------------------------------------------------------------------------
@@ -1926,10 +2025,90 @@ _SHUFFLE_ENTRIES = ("partition_ids_for_keys", "group_by_part")
 _OFF_Q6_PATH = ("matched_build_rows", "murmur3_columns")
 
 
+class _CEntries:
+    """The C-level launches of K7 and K10 on the paths: ``native.lib`` is
+    wrapped so that every call of an ``srt_*`` entry point of
+    ``join_expand`` and ``partition_group`` is counted by name (each such
+    entry launches one kernel, none on an empty input).  A path must run
+    one ``srt_join_expand`` a K7 call, the full-outer tail included (the
+    library has no tail entry), and one ``srt_partition_upsweep`` and one
+    ``srt_partition_scatter`` a K10 call up to 255 partitions (a scatter
+    a byte of the bucket past it): no one-block scan, no counts kernel.
+    Installed once the kernel checks are over, so no timed call pays the
+    count."""
+    LIBS = {"join_expand": "join_expand", "partition_group": "group_by_part"}
+
+    def __init__(self):
+        self.calls = {lib: {} for lib in self.LIBS}
+        self.passes = 0
+
+    def install(self) -> None:
+        from spark_rapids_tpu_torch.ops import native
+        from spark_rapids_tpu_torch.ops import partition as P
+        if hasattr(native.lib("join_expand"), "srt_join_tail"):
+            raise AssertionError("join_expand still exports srt_join_tail")
+        real = native.lib
+        rec = self
+
+        class Counting:
+            def __init__(self, dll, name):
+                self._dll, self._calls = dll, rec.calls[name]
+
+            def __getattr__(self, fn):
+                f = getattr(self._dll, fn)
+                if not fn.startswith("srt_") or fn.endswith("_limits"):
+                    return f
+
+                def call(*args):
+                    self._calls[fn] = self._calls.get(fn, 0) + 1
+                    if fn == "srt_partition_upsweep":
+                        rec.passes += len(P.group_passes(args[2]))
+                    return f(*args)
+                return call
+
+        def lib(name):
+            dll = real(name)
+            return Counting(dll, name) if name in self.LIBS else dll
+        native.lib = lib
+
+    def reset(self, entries) -> None:
+        for lib, entry in self.LIBS.items():
+            if entry in entries:
+                self.calls[lib].clear()
+                if lib == "partition_group":
+                    self.passes = 0
+
+    def check(self, got: dict, query: str) -> None:
+        """Against the wrapper counts of one path's cold run."""
+        if "join_expand" in got:
+            c = self.calls["join_expand"]
+            k7 = got["join_expand"]["join_indices_from_probe"]
+            if c.get("srt_join_expand", 0) != k7:
+                raise AssertionError(f"{query}: {k7} K7 calls made the C "
+                                     f"launches {c}, not one each")
+        if "group_by_part" in got:
+            c = self.calls["partition_group"]
+            k10 = got["group_by_part"]["group_by_part"]
+            up = c.get("srt_partition_upsweep", 0)
+            sc = c.get("srt_partition_scatter", 0)
+            if up != k10 or sc != self.passes or set(c) - {
+                    "srt_partition_upsweep", "srt_partition_scatter"}:
+                raise AssertionError(f"{query}: {k10} K10 calls made the C "
+                                     f"launches {c} ({self.passes} passes)")
+
+    def summary(self, entries) -> str:
+        return str({lib: dict(self.calls[lib]) for lib, e in
+                    self.LIBS.items() if e in entries})
+
+
+_C_ENTRIES = _CEntries()
+
+
 def _reset_counters(entries) -> None:
     for name in entries:
         for w in _counters()[name].values():
             w.launches = 0
+    _C_ENTRIES.reset(entries)
 
 
 #: counters that may or may not be 0 on any path: the rank path's
@@ -1947,6 +2126,7 @@ def _read_counters(entries, query: str, off_path=()) -> dict:
         for k, v in group.items():
             if v <= 0 and k not in off_path and k not in _WHERE_NEEDED:
                 raise AssertionError(f"{query} ran without launching {k}")
+    _C_ENTRIES.check(got, query)
     return got
 
 
@@ -2155,6 +2335,7 @@ def run_q6(torch, warm: int) -> dict:
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = _read_counters(entries, "q6", _OFF_Q6_PATH + _MAY_DICT)
+    c_launches = _C_ENTRIES.summary(entries)
     # K5's search writes the offsets K7 reads: K7's own scan runs not once
     k7_scans = J._offsets_cuda.launches
     if k7_scans != 0:
@@ -2171,7 +2352,8 @@ def run_q6(torch, warm: int) -> dict:
           f"warm_s={[round(x, 3) for x in warm_s]} "
           f"rows_per_s_warm={n / min(warm_s) if warm_s else 0:.0f} "
           f"cold_peak_bytes={peak} warm_peak_bytes={peaks} "
-          f"launches={launches} k7_offsets_scans={k7_scans}", flush=True)
+          f"launches={launches} k7_offsets_scans={k7_scans} "
+          f"k7_c_launches={c_launches}", flush=True)
     return launches
 
 
@@ -2281,10 +2463,101 @@ def _check_grouping(torch, P, batch, ids, parts: int, what: str) -> None:
                                  "from the plain version")
 
 
+def _group_entry(torch, ids, parts: int):
+    """K10's C entry points alone (the upsweep, then a scatter a pass) on
+    outputs and a scratch allocated once: ``(run, perm, counts)``."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import partition as P
+    from spark_rapids_tpu_torch.ops.kernels import ptr
+    lib = native.lib("partition_group")
+    n, dev = ids.numel(), ids.device
+    sp = native.stream_ptr(dev)
+    scratch = native.lookback_status(
+        P._STATUS, dev, sp, (P.scratch_words(n, parts) + 1) // 2)
+    cs = torch.empty((2, parts), dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    outs = [perm] if len(P.group_passes(parts)) == 1 else [
+        torch.empty_like(perm), perm]
+
+    def run(_keep=(ids, scratch, cs, outs)):
+        native.check(lib.srt_partition_upsweep(
+            ptr(ids), n, parts, ptr(scratch), ptr(cs[0]), ptr(cs[1]), sp),
+            "srt_partition_upsweep")
+        src = None
+        for p, out in enumerate(outs):
+            native.check(lib.srt_partition_scatter(
+                ptr(ids), n, parts, p, ptr(src), ptr(out), ptr(scratch),
+                sp), "srt_partition_scatter")
+            src = out
+    return run, perm, cs[0]
+
+
+def _time_group(torch, P, one, parts: int) -> dict:
+    """K10 at one map batch (2^20 rows of one nullable int32 column): the
+    order alone (``partition_order``) and with K3's gather
+    (``group_by_part``), in turns with their plain versions and the
+    library calls (the best of two rounds), the C entry points alone, and
+    the kernels alone (torch.profiler: one upsweep_kernel and one
+    scatter_kernel a call, and K3's gather_kernel; nothing else)."""
+    m = one.num_rows
+    ids = P.partition_ids_for_keys(one, [0], parts)
+    leaves = _leaves(one.columns)
+    run, perm, counts = _group_entry(torch, ids, parts)
+    run()
+    want = P._order_plain(ids, parts)
+    if not (torch.equal(perm, want[0]) and torch.equal(counts, want[1])):
+        raise AssertionError(f"K10 P={parts}: the C entries differ")
+
+    def library():
+        order = torch.argsort(ids, stable=True)
+        torch.bincount(ids, minlength=parts)
+        return [t.index_select(0, order) for t in leaves]
+
+    def order_library():
+        order = torch.argsort(ids, stable=True)
+        return order, torch.bincount(ids, minlength=parts)
+    saved = P.group_by_part.launches
+    t = _in_turns(torch, {
+        "ms": lambda: P.group_by_part(one, ids, parts),
+        "plain_ms": lambda: P.group_by_part_plain(one, ids, parts),
+        "library_ms": library,
+        "order_ms": lambda: P.partition_order(ids, parts),
+        "order_plain_ms": lambda: P._order_plain(ids, parts),
+        "order_library_ms": order_library}, reps=20)
+    t["entry_ms"] = _time_ms(torch, run, reps=20)
+    k10 = {"upsweep_kernel": 1, "scatter_kernel": 1}
+    t["kernels"] = _kernels_ms(torch, f"K10 P={parts}",
+                               lambda: P.partition_order(ids, parts), k10)
+    t["k3_kernels"] = _kernels_ms(
+        torch, f"K10 P={parts} with K3",
+        lambda: P.group_by_part(one, ids, parts),
+        dict(k10, gather_kernel=1))
+    P.group_by_part.launches = saved
+    # the order alone: the ids read twice, the permutation written, the
+    # counts and starts written; with K3 also the column read and written
+    t["order_bytes"] = 3 * 4 * m + 2 * 4 * parts
+    t["bytes"] = m * 4 + 2 * _nbytes(leaves) + 2 * 4 * parts
+    fmt = ("not measured" if t["kernels"] is None else
+           {k: round(v, 4) for k, v in t["kernels"].items()})
+    fmt3 = ("not measured" if t["k3_kernels"] is None else
+            {k: round(v, 4) for k, v in t["k3_kernels"].items()})
+    print(f"[K10 group by part] rows={m} P={parts}: with K3's gather "
+          f"ms={t['ms']:.4f} (kernels alone {fmt3}) plain_ms="
+          f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+          f"(argsort(stable) + bincount + index_select) bound_ms="
+          f"{_bound_ms(t['bytes']):.4f}; the order alone ms="
+          f"{t['order_ms']:.4f} (the C entries alone {t['entry_ms']:.4f}, "
+          f"the kernels alone {fmt}) plain_ms={t['order_plain_ms']:.4f} "
+          f"library_ms={t['order_library_ms']:.4f} (argsort(stable) + "
+          f"bincount) bound_ms={_bound_ms(t['order_bytes']):.4f}; in "
+          f"turns, the best of two rounds", flush=True)
+    return t
+
+
 def check_group_by_part(torch, dev, rng) -> dict:
     """K10 at 2^24 rows with P = 8 and 200 and with one skewed partition,
     exact against its plain version; timed at the repartition path's map
-    batch (2^20 rows of one nullable int32 column, P = 8)."""
+    batch (2^20 rows of one nullable int32 column) at P = 8 and 200."""
     from spark_rapids_tpu_torch.ops import partition as P
     n = SHUFFLE_CHECK_ROWS
     big = _shuffle_keys(torch, rng, n, dev)
@@ -2298,32 +2571,30 @@ def check_group_by_part(torch, dev, rng) -> dict:
     m = MAP_BATCH_ROWS
     batch = _shuffle_keys(torch, rng, m, dev)
     one = _batch_of(torch, [batch.columns[0]], dev)
-    ids = P.partition_ids_for_keys(one, [0], 8)
-    ms = _time_ms(torch, lambda: P.group_by_part(one, ids, 8), reps=20)
-    plain_ms = _time_ms(torch, lambda: P.group_by_part_plain(one, ids, 8),
-                        reps=20)
-    leaves = _leaves(one.columns)
-
-    def library():
-        order = torch.argsort(ids, stable=True)
-        torch.bincount(ids, minlength=8)
-        return [t.index_select(0, order) for t in leaves]
-
-    lib_ms = _time_ms(torch, library, reps=20)
-    # ids and the column read once, the grouped column written once, the
-    # counts and starts written
-    nbytes = m * 4 + 2 * _nbytes(leaves) + 2 * 8 * 4
+    t8 = _time_group(torch, P, one, 8)
+    t200 = _time_group(torch, P, one, 200)
     print(f"[K10 group by part] checked {n} rows at P=8, P=200 and one "
-          f"skewed partition: equal; timed rows={m} P=8 (with the K3 "
-          f"gather) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{lib_ms:.4f} (argsort(stable) + bincount + index_select) "
-          f"bound_ms={_bound_ms(nbytes):.4f}", flush=True)
+          f"skewed partition: equal", flush=True)
+    extra = {}
+    for parts, t in ((8, t8), (200, t200)):
+        extra.update({
+            f"k10_p{parts}_ms": t["ms"], f"k10_p{parts}_order_ms":
+            t["order_ms"], f"k10_p{parts}_entry_ms": t["entry_ms"],
+            f"k10_p{parts}_kernels_ms": t["kernels"],
+            f"k10_p{parts}_k3_kernels_ms": t["k3_kernels"],
+            f"k10_p{parts}_order_plain_ms": t["order_plain_ms"],
+            f"k10_p{parts}_order_library_ms": t["order_library_ms"],
+            f"k10_p{parts}_order_bound_ms": _bound_ms(t["order_bytes"]),
+            f"k10_p{parts}_bound_ms": _bound_ms(t["bytes"])})
+    extra["k10_p200_plain_ms"] = t200["plain_ms"]
+    extra["k10_p200_library_ms"] = t200["library_ms"]
     return dict(name="group_by_part", route="cuda",
                 source="spark_rapids_tpu_torch/csrc/partition_group.cu",
                 replaces="spark_rapids_tpu/exec/exchange.py:62",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib_ms)
+                max_abs_err=0.0, ms=t8["ms"], plain_ms=t8["plain_ms"],
+                bound_ms=_bound_ms(t8["bytes"]), bound_by="bytes",
+                library_ms=t8["library_ms"], entry_ms=t8["entry_ms"],
+                **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -2424,7 +2695,8 @@ def _drive(torch, label: str, make_df, check, entries, warm: int,
     print(f"[{label}] {describe(rows)}; cold_s={cold:.3f} "
           f"warm_s={[round(x, 3) for x in warm_s]} cold_peak_bytes="
           f"{cold_peak} warm_peak_bytes={peaks} held_after_bytes={held} "
-          f"launches={launches}", flush=True)
+          f"launches={launches} k7_k10_c_launches="
+          f"{_C_ENTRIES.summary(entries)}", flush=True)
     return launches
 
 
@@ -7146,6 +7418,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_window_glue(torch, dev, rng)
     torch.cuda.empty_cache()
+    _C_ENTRIES.install()
     paths = {"q1": run_q1(torch, args.sf, args.warm)}
     torch.cuda.empty_cache()
     paths["q6_onefile"] = run_q6(torch, args.warm)
@@ -7221,7 +7494,7 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         row.update({k: v for k, v in e.items() if k.startswith(
             ("kernel_ms", "entry_ms", "one_key_", "k1_", "k2_", "k3_",
-             "k4_", "k5_", "k6_", "k7_", "k8a_", "k12c_"))})
+             "k4_", "k5_", "k6_", "k7_", "k8a_", "k10_", "k12c_"))})
         row["launches_by_path"] = {p: c[counters[0]]
                                    for p, c in by_path.items()}
         row["launches_by_counter"] = {

@@ -44,7 +44,14 @@ unpacked with ``git archive`` into a git-ignored directory):
         PYTHONPATH=$t python3 spark_rapids_tpu_torch/bench/sort_pack_times.py
     done
 
-``--only-k2-k5`` times K2 and K5 alone.
+``--only-k2-k5`` times K2 and K5 alone.  ``--only-k7-k10`` times K7
+(q6's first join over the offsets K5 wrote, and a many-to-many join of
+~8.66M slots) and K10 (a 2^20-row map batch at P = 8 and 200, the order
+alone and with K3's gather) alone: the wrapper, the C entry points alone
+(either tree's: one ``srt_join_expand`` with the full-outer tail's
+arguments or without; ``srt_partition_upsweep`` and a scatter a pass, or
+one ``srt_partition_group``) and the kernels' device time a call, beside
+torch.repeat_interleave and argsort(stable) + bincount (+ index_select).
 """
 from __future__ import annotations
 
@@ -550,6 +557,191 @@ def _time_k5(torch, out: dict, dev) -> None:
     out["k5_matched"] = int(total.item())
 
 
+def _int_side(torch, dev, keys, valid):
+    """One nullable int32 key column as a batch."""
+    import numpy as np
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    keys = np.where(valid, keys, 0).astype(np.int32)
+    return ColumnBatch([DeviceColumn(
+        torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev),
+        T.IntegerType())], len(keys), None, dev)
+
+
+def _expand_entry(torch, arrays, cl: int, total: int):
+    """K7's C entry alone (an inner join), outputs allocated once: the one
+    ``srt_join_expand`` launch with the tail's arguments, or (an older
+    tree) its expansion entry, whose tail was a second entry."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops.kernels import ptr
+    lib = native.lib("join_expand")
+    start, cnt, rperm, out_cnt, _u = arrays
+    dev = out_cnt.device
+    both = torch.empty((2, total), dtype=torch.int32, device=dev)
+    head = (ptr(arrays.offsets), cl, ptr(cnt), ptr(start), ptr(rperm),
+            total, 1)
+    if "srt_join_tail" in native._SIGNATURES["join_expand"]:
+        args = head + (ptr(both[0]), ptr(both[1]), native.stream_ptr(dev))
+    else:
+        args = head + (None, None, 0, ptr(both[0]), ptr(both[1]),
+                       native.stream_ptr(dev))
+
+    def run(_keep=(arrays, both)):
+        lib.srt_join_expand(*args)
+    return run, both
+
+
+def _time_k7(torch, out: dict, dev) -> None:
+    """K7 at q6's first join (2^20 int32 stream rows, 2% null, against
+    31 date keys: ~14.6K slots) over the offsets K5's search wrote, and at
+    a many-to-many shape (2^20 stream rows against 10,000 keys matching
+    0-16 build rows each and one key matching 2^16: ~8.66M slots) over
+    offsets from a cumsum: the wrapper (checked against the plain
+    version), its C entry alone and its kernel alone (torch.profiler),
+    beside torch.repeat_interleave of the stream rows."""
+    import numpy as np
+    from spark_rapids_tpu_torch.ops import join as J
+    rng = np.random.default_rng(20261018)
+    ns = 1 << 20
+    stream = _int_side(torch, dev, rng.integers(0, 2192, ns),
+                       rng.random(ns) >= 0.02)
+    dates = _int_side(torch, dev, np.arange(31), np.ones(31, bool))
+    prep = J.build_prepare_fast(dates, 0)
+    q6, total = J.probe_fast(stream, 0, *prep, "inner", layout=prep.layout)
+    reps = rng.integers(0, 17, 10_000)
+    bkeys = np.concatenate([np.repeat(np.arange(10_000), reps),
+                            np.full(1 << 16, 10_000)])
+    build = _int_side(torch, dev, rng.permutation(bkeys),
+                      np.ones(bkeys.size, bool))
+    skeys = rng.integers(0, 10_000, ns)
+    skeys[rng.choice(ns, 4, replace=False)] = 10_000
+    many = _int_side(torch, dev, skeys, np.ones(ns, bool))
+    arrays, mtotal = J.join_probe_plain(many, build, [0], [0], "inner")
+    oc = arrays[3].to(torch.int64)
+    arrays = J.ProbeArrays(tuple(arrays), torch.cat(
+        [oc.new_zeros(1), torch.cumsum(oc, 0)]).to(torch.int32))
+    rows = torch.arange(ns, dtype=torch.int32, device=dev)
+    for name, arr, n in (("q6", q6, int(total.item())),
+                         ("many", arrays, int(mtotal.item()))):
+        def wrapper(arr=arr, n=n):
+            return J.join_indices_from_probe(ns, arr, "inner", n)
+        got = wrapper()
+        want = J.join_indices_plain(ns, arr, "inner", n)
+        run, both = _expand_entry(torch, arr, ns, n)
+        run()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) or not (
+                torch.equal(both[0], want[0])
+                and torch.equal(both[1], want[1])):
+            raise AssertionError(f"K7 differs from its plain version "
+                                 f"({name})")
+        t = _best(torch, {"k7": wrapper, "entry": run,
+                          "lib": lambda arr=arr, n=n: torch.repeat_interleave(
+                              rows, arr[3], output_size=n)})
+        out[f"k7_{name}_ms"] = t["k7"]
+        out[f"k7_{name}_entry_ms"] = t["entry"]
+        out[f"k7_{name}_kernel_ms"] = _kernels_device_ms(
+            torch, wrapper, "expand_kernel")
+        out[f"k7_{name}_device_ms"] = _kernels_device_ms(torch, wrapper)
+        out[f"k7_{name}_repeat_interleave_ms"] = t["lib"]
+        out[f"k7_{name}_out"] = n
+
+
+def _group_entry(torch, ids, parts: int):
+    """K10's C entry points alone, outputs and scratch allocated once:
+    ``srt_partition_upsweep`` and a scatter a pass, or (an older tree)
+    the one ``srt_partition_group`` entry with its histogram and scan
+    scratch."""
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops import partition as P
+    from spark_rapids_tpu_torch.ops.kernels import ptr
+    lib = native.lib("partition_group")
+    n, dev = ids.numel(), ids.device
+    sp = native.stream_ptr(dev)
+    cs = torch.empty((2, parts), dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    if "srt_partition_group" in native._SIGNATURES["partition_group"]:
+        nt = -(-n // 4096)
+        m = (parts + 1) * nt
+        hist = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+        offsets = torch.empty(m + 1, dtype=torch.int32, device=dev)
+
+        def one(_keep=(hist, offsets, cs, perm)):
+            lib.srt_partition_group(ptr(ids), n, parts, ptr(hist),
+                                    ptr(offsets), ptr(cs[0]), ptr(cs[1]),
+                                    ptr(perm), sp)
+        return one, perm
+    scratch = native.lookback_status(
+        P._STATUS, dev, sp, (P.scratch_words(n, parts) + 1) // 2)
+    outs = [perm] if len(P.group_passes(parts)) == 1 else [
+        torch.empty_like(perm), perm]
+
+    def two(_keep=(scratch, cs, outs)):
+        lib.srt_partition_upsweep(ptr(ids), n, parts, ptr(scratch),
+                                  ptr(cs[0]), ptr(cs[1]), sp)
+        src = None
+        for p, o in enumerate(outs):
+            lib.srt_partition_scatter(ptr(ids), n, parts, p, ptr(src),
+                                      ptr(o), ptr(scratch), sp)
+            src = o
+    return two, perm
+
+
+def _time_k10(torch, out: dict, dev) -> None:
+    """K10 at a 2^20-row map batch of one nullable int32 column, P = 8 and
+    200: the order alone (``partition_order``) and with K3's gather
+    (``group_by_part``), both checked against the plain version, the C
+    entry points alone, the kernels' device time a call (torch.profiler),
+    beside argsort(stable) + bincount (+ index_select of the leaves)."""
+    import numpy as np
+    from spark_rapids_tpu_torch.ops import partition as P
+    rng = np.random.default_rng(10)
+    m = 1 << 20
+    one = _int_side(torch, dev, rng.integers(0, 1 << 30, m),
+                    rng.random(m) >= 0.05)
+    leaves = [one.columns[0].data, one.columns[0].validity]
+    for parts in (8, 200):
+        ids = torch.from_numpy(rng.integers(0, parts, m).astype(
+            np.int32)).to(dev)
+        want = P._order_plain(ids, parts)
+        got = P.partition_order(ids, parts)
+        grouped = P.group_by_part(one, ids, parts)[0]
+        run, perm = _group_entry(torch, ids, parts)
+        run()
+        same = (all(torch.equal(a, b) for a, b in zip(got, want))
+                and torch.equal(perm, want[0])
+                and torch.equal(grouped.columns[0].data,
+                                one.columns[0].data[want[0].long()]))
+        if not same:
+            raise AssertionError(f"K10 differs from its plain version "
+                                 f"(P={parts})")
+
+        def library(ids=ids, parts=parts):
+            order = torch.argsort(ids, stable=True)
+            torch.bincount(ids, minlength=parts)
+            return [x.index_select(0, order) for x in leaves]
+
+        def order_library(ids=ids, parts=parts):
+            return (torch.argsort(ids, stable=True),
+                    torch.bincount(ids, minlength=parts))
+
+        def order(ids=ids, parts=parts):
+            return P.partition_order(ids, parts)
+
+        def group(ids=ids, parts=parts):
+            return P.group_by_part(one, ids, parts)
+        t = _best(torch, {"order": order, "group": group, "entry": run,
+                          "order_lib": order_library, "lib": library})
+        key = f"k10_p{parts}"
+        out[f"{key}_order_ms"] = t["order"]
+        out[f"{key}_ms"] = t["group"]
+        out[f"{key}_entry_ms"] = t["entry"]
+        out[f"{key}_order_device_ms"] = _kernels_device_ms(torch, order)
+        out[f"{key}_device_ms"] = _kernels_device_ms(torch, group)
+        out[f"{key}_argsort_bincount_ms"] = t["order_lib"]
+        out[f"{key}_argsort_bincount_index_select_ms"] = t["lib"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -572,6 +764,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     out = {"card": card, "package": os.path.dirname(pkg.__file__)}
     native.build(["compact", "join_probe", "join_expand"])
+    if "--only-k7-k10" in sys.argv[1:]:
+        _time_k7(torch, out, dev)
+        _time_k10(torch, out, dev)
+        print(json.dumps(out), flush=True)
+        return 0
     _time_k2(torch, out, dev)
     _time_k5(torch, out, dev)
     if "--only-k2-k5" in sys.argv[1:]:

@@ -7,11 +7,10 @@
 // passes outputs and scratch as torch tensors) and return cudaGetLastError().
 //
 // Tiling: a tile is kThreads * kItems consecutive rows handled by one block.
-// Flag scans (K7's own offsets, partition and window segments) run in two
-// steps: a per-tile count, then one single-block exclusive scan over the
-// tile counts; K4's boundary pass, K2's count and K5's search instead count
-// and scan in one launch with the decoupled look-back below.  The
-// scatter/reduce kernels recompute the in-tile ranks, so the scanned row
+// K4's boundary pass, K2's count, K5's search and K7's own offsets count and
+// scan in one launch with the decoupled look-back below; K12a's window
+// segments still scan their tile counts in one block (scan_exclusive_kernel).
+// The scatter/reduce kernels recompute the in-tile ranks, so the scanned row
 // positions are never written out.
 #pragma once
 
@@ -106,22 +105,6 @@ inline ColDesc make_desc(const void* src_data, void* dst_data,
   return c;
 }
 
-// counts[t] = number of nonzero flags in tile t (striped, coalesced reads).
-__global__ void tile_count_kernel(const uint8_t* __restrict__ flag,
-                                  int64_t n, int32_t* __restrict__ counts) {
-  using BlockReduce = cub::BlockReduce<int, kThreads>;
-  __shared__ typename BlockReduce::TempStorage tmp;
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  int c = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + (int64_t)k * kThreads + threadIdx.x;
-    if (i < n) c += flag[i] != 0;
-  }
-  const int total = BlockReduce(tmp).Sum(c);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
-}
-
 // One block: out[i] = sum(in[0..i)) for i in [0, m], so out[m] is the total.
 __global__ void scan_exclusive_kernel(const int32_t* __restrict__ in,
                                       int32_t* __restrict__ out, int64_t m) {
@@ -150,16 +133,6 @@ __global__ void scan_exclusive_kernel(const int32_t* __restrict__ in,
     carry += agg;
   }
   if (threadIdx.x == 0) out[m] = carry;
-}
-
-// tile_offsets[t] = flags set in tiles before t; tile_offsets[ntiles] =
-// the total.  tile_counts is scratch of ntiles ints.
-inline void flag_scan(const uint8_t* flag, int64_t n, int32_t* tile_counts,
-                      int32_t* tile_offsets, cudaStream_t stream) {
-  const int nt = num_tiles(n);
-  if (nt > 0) tile_count_kernel<<<nt, kThreads, 0, stream>>>(flag, n, tile_counts);
-  scan_exclusive_kernel<<<1, kScanThreads, 0, stream>>>(tile_counts,
-                                                        tile_offsets, nt);
 }
 
 // Decoupled look-back (Merrill and Garland's single-pass prefix scan) over

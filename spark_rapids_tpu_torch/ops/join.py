@@ -22,9 +22,9 @@ the search layout, the probe with per-join-type counts, their offsets
 and the batch total),
 ``csrc/join_ids.cu`` (K6: flags between neighbouring sorted rows' words ->
 dense ids, scattered back to the rows) and
-``csrc/join_expand.cu`` (K7: one binary search per output slot over the
-offsets K5 wrote, the full-outer tail, the matched-build bitmap, and the
-exclusive scan that K14's emit counts take).
+``csrc/join_expand.cu`` (K7: a merge-path expansion over the offsets K5
+wrote with the full-outer tail, one launch a call; the matched-build
+bitmap; and the one-launch exclusive scan that K14's emit counts take).
 Beside each is its plain PyTorch version; a wrapper takes it only for a
 tensor on the CPU and counts its kernel launches in ``.launches``.
 
@@ -598,42 +598,55 @@ join_indices_from_probe.launches = 0
 
 
 def _indices_cuda(cl: int, probe_arrays, join_type: str, total: int):
+    """K7 on the card: one launch of ``srt_join_expand`` over the offsets
+    K5 wrote, the full-outer tail in the same launch; ``li`` and ``ri``
+    are two views of one allocation."""
     lib = native.lib("join_expand")
     start, cnt, rsort_perm, out_cnt, unmatched_r = probe_arrays
     dev = out_cnt.device
     take_right = join_type not in ("semi", "anti")
-    stream = native.stream_ptr(dev)
     offsets = getattr(probe_arrays, "offsets", None)
     uoff = getattr(probe_arrays, "uoffsets", None)
     if offsets is None or (unmatched_r is not None and uoff is None):
         raise ValueError("K7 on the card takes the offsets K5's search "
                          "wrote (ProbeArrays from probe_fast or join_probe)")
-    li = torch.empty(total, dtype=torch.int32, device=dev)
-    ri = torch.empty(total, dtype=torch.int32, device=dev)
+    both = torch.empty((2, total), dtype=torch.int32, device=dev)
+    li, ri = both[0], both[1]
+    cr = 0 if unmatched_r is None else unmatched_r.numel()
     native.check(lib.srt_join_expand(
         ptr(offsets), cl, ptr(cnt), ptr(start), ptr(rsort_perm), total,
-        int(take_right), ptr(li), ptr(ri), stream), "srt_join_expand")
-    if unmatched_r is not None:
-        native.check(lib.srt_join_tail(
-            ptr(unmatched_r), ptr(uoff), unmatched_r.numel(),
-            ptr(offsets[cl:]), ptr(li), ptr(ri), stream), "srt_join_tail")
+        int(take_right), ptr(unmatched_r), ptr(uoff), cr, ptr(li), ptr(ri),
+        native.stream_ptr(dev)), "srt_join_expand")
     join_indices_from_probe.launches += 1
     return li, ri
 
 
+#: threads and items of an expansion block, rows a tile of K7's own
+#: offsets scan (csrc/join_expand.cu ``kExpThreads``, ``kExpItems``,
+#: ``kTile``)
+EXPAND_THREADS = 256
+EXPAND_ITEMS = 8
+OFFSETS_TILE = 4096
+native.share_limits("join_expand", (EXPAND_THREADS, EXPAND_ITEMS,
+                                    OFFSETS_TILE))
+
+#: the look-back status of K7's own offsets scan by (device, stream)
+_SCAN_STATUS: dict = {}
+
+
 def _offsets_cuda(lib, counts: torch.Tensor, stream) -> torch.Tensor:
     """int32[n + 1]: exclusive scan of ``counts``, the total last (K7's
-    ``srt_join_offsets``, which K14's emit offsets take and no join path
-    runs: K5's search writes its offsets)."""
+    ``srt_join_offsets``, one launch with a decoupled look-back, which
+    K14's emit offsets take and no join path runs: K5's search writes
+    its offsets)."""
     counts = counts.contiguous()
     n = counts.numel()
     dev = counts.device
-    nt = num_tiles(n)
-    sums = torch.empty(max(nt, 1), dtype=torch.int32, device=dev)
-    toff = torch.empty(nt + 1, dtype=torch.int32, device=dev)
     out = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    native.check(lib.srt_join_offsets(ptr(counts), n, ptr(sums),
-                                      ptr(toff), ptr(out), stream),
+    status = native.lookback_status(_SCAN_STATUS, dev, stream,
+                                    max(-(-n // OFFSETS_TILE), 1))
+    native.check(lib.srt_join_offsets(ptr(counts), n, ptr(status),
+                                      ptr(out), stream),
                  "srt_join_offsets")
     _offsets_cuda.launches += 1
     return out

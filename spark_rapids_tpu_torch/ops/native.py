@@ -104,17 +104,20 @@ _SIGNATURES = {
         "srt_join_ids_limits": [_P, _I],
     },
     "join_expand": {
-        "srt_join_offsets": [_P, _L, _P, _P, _P, _P],
-        "srt_join_expand": [_P, _L, _P, _P, _P, _L, _I, _P, _P, _P],
-        "srt_join_tail": [_P, _P, _L, _P, _P, _P, _P],
+        "srt_join_offsets": [_P, _L, _P, _P, _P],
+        "srt_join_expand": [_P, _L, _P, _P, _P, _L, _I, _P, _P, _L, _P, _P,
+                            _P],
         "srt_join_mark": [_P, _L, _P, _P],
+        "srt_join_expand_limits": [_P, _I],
     },
     "hash_partition": {
         "srt_hash_partition": [_P, _P, _P, _P, _P, _I, _L, _P,
                                ctypes.c_uint, _I, _P, _P],
     },
     "partition_group": {
-        "srt_partition_group": [_P, _L, _I, _P, _P, _P, _P, _P, _P],
+        "srt_partition_upsweep": [_P, _L, _I, _P, _P, _P, _P],
+        "srt_partition_scatter": [_P, _L, _I, _I, _P, _P, _P, _P],
+        "srt_partition_group_limits": [_P, _I],
     },
     "window_segments": {
         "srt_window_segments": [_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -12,10 +12,12 @@ from :func:`partition_order`; the rest of the distributed plane
 * K9, ``csrc/hash_partition.cu``: one thread per row folds every key
   column into the running uint32 murmur3 seed, in key order, and writes
   ``pmod(int32(h), P)`` (or the hash itself for :class:`Murmur3Hash`).
-* K10, ``csrc/partition_group.cu``: a stable counting sort of the row
-  indices by partition id (per-tile histogram, one scan over P x tiles,
-  a warp-per-tile stable scatter) plus ``counts`` and exclusive
-  ``starts``; the columns are then gathered through K3.
+* K10, ``csrc/partition_group.cu``: a stable onesweep counting sort of
+  the row indices by partition id in two launches (an upsweep whose last
+  block writes ``counts``, the exclusive ``starts`` and the digit bases;
+  a scatter with a decoupled look-back per bucket; past 255 partitions a
+  scatter for each byte of the bucket); the columns are then gathered
+  through K3.
 
 Beside each kernel is its plain PyTorch version.  A wrapper takes it only
 for a tensor on the CPU; on a CUDA tensor it launches its kernel or
@@ -36,7 +38,7 @@ from spark_rapids_tpu_torch.expr.hashing import (DEFAULT_SEED, murmur3_val,
                                                  to_int32)
 from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops.kernels import (gather_columns, gather_plain,
-                                                num_tiles, ptr, slice_rows)
+                                                ptr, slice_rows)
 
 __all__ = ["partition_ids_for_keys", "partition_ids_plain",
            "murmur3_columns", "group_by_part", "group_by_part_plain",
@@ -52,9 +54,24 @@ _KINDS = ((T.ByteType, _I8), (T.ShortType, _I16),
 #: key columns one launch of K9 folds (csrc/hash_partition.cu kMaxKeys);
 #: more keys chain launches through the running hash
 _MAX_KEYS = 16
-#: most partitions K10 groups into: its scatter keeps 4 warps x (P + 1)
-#: int32 counters in shared memory (227 KB a block on the H100)
-MAX_PARTS = 232448 // 16 - 1
+#: rows a tile of K10, the most buckets (P + 1) one stable pass sorts,
+#: the most passes, the most partitions and the uint32 words of the
+#: scratch's head, before the look-back states (csrc/partition_group.cu
+#: ``kPartTile``, ``kRadix``, ``kMaxPasses``, ``kMaxParts``,
+#: ``kStatusWord``)
+GROUP_TILE = 4096
+ONE_PASS_BUCKETS = 256
+MAX_PASSES = 2
+MAX_PARTS = 14527
+SCRATCH_HEAD_WORDS = 15044
+native.share_limits("partition_group", (GROUP_TILE, ONE_PASS_BUCKETS,
+                                        MAX_PASSES, MAX_PARTS,
+                                        SCRATCH_HEAD_WORDS))
+
+#: K10's scratch by (device, stream): its global counts and the
+#: upsweep's ticket (the head's first MAX_PARTS + 2 words) zero between
+#: calls (the upsweep's last block clears them), grown as needed
+_STATUS: dict = {}
 
 
 def _kind(dt: T.DataType) -> int:
@@ -222,7 +239,27 @@ def partition_order(ids: torch.Tensor, num_parts: int):
     return _order_cuda(ids, num_parts)
 
 
+def group_passes(num_parts: int) -> list:
+    """The digit values of each of K10's scatter passes for ``num_parts``
+    partitions: the bucket (P + 1 of them) as one digit up to
+    :data:`ONE_PASS_BUCKETS`, else its low byte, then its high byte."""
+    nbk = num_parts + 1
+    if nbk <= ONE_PASS_BUCKETS:
+        return [nbk]
+    return [ONE_PASS_BUCKETS, ((nbk - 1) >> 8) + 1]
+
+
+def scratch_words(n: int, num_parts: int) -> int:
+    """uint32 words of K10's scratch for ``n`` rows: the head, then every
+    pass's uint64 look-back state a tile and digit value."""
+    nt = -(-n // GROUP_TILE)
+    return SCRATCH_HEAD_WORDS + 2 * nt * sum(group_passes(num_parts))
+
+
 def _order_cuda(ids: torch.Tensor, num_parts: int):
+    """K10 on the card: ``srt_partition_upsweep`` (counts, starts, the
+    digit bases), then ``srt_partition_scatter`` once a pass (once up to
+    255 partitions), over a scratch kept per device and stream."""
     lib = native.lib("partition_group")
     if ids.dtype != torch.int32 or ids.dim() != 1:
         raise ValueError(f"ids must be int32[n], got {ids.dtype}"
@@ -233,17 +270,23 @@ def _order_cuda(ids: torch.Tensor, num_parts: int):
     n = ids.shape[0]
     ids = ids.contiguous()
     dev = ids.device
-    nt = num_tiles(n)
-    m = (num_parts + 1) * nt
-    hist = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
-    offsets = torch.empty(m + 1, dtype=torch.int32, device=dev)
-    counts = torch.empty(num_parts, dtype=torch.int32, device=dev)
-    starts = torch.empty(num_parts, dtype=torch.int32, device=dev)
+    stream = native.stream_ptr(dev)
+    scratch = native.lookback_status(
+        _STATUS, dev, stream, (scratch_words(n, num_parts) + 1) // 2)
+    cs = torch.empty((2, num_parts), dtype=torch.int32, device=dev)
+    counts, starts = cs[0], cs[1]
     perm = torch.empty(n, dtype=torch.int32, device=dev)
-    native.check(lib.srt_partition_group(
-        ptr(ids), n, num_parts, ptr(hist), ptr(offsets), ptr(counts),
-        ptr(starts), ptr(perm), native.stream_ptr(dev)),
-        "srt_partition_group")
+    native.check(lib.srt_partition_upsweep(
+        ptr(ids), n, num_parts, ptr(scratch), ptr(counts), ptr(starts),
+        stream), "srt_partition_upsweep")
+    passes = len(group_passes(num_parts))
+    outs = [perm] if passes == 1 else [torch.empty_like(perm), perm]
+    src = None
+    for p, out in enumerate(outs):
+        native.check(lib.srt_partition_scatter(
+            ptr(ids), n, num_parts, p, ptr(src), ptr(out), ptr(scratch),
+            stream), "srt_partition_scatter")
+        src = out
     group_by_part.launches += 1
     return perm, counts, starts
 

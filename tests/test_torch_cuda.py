@@ -543,6 +543,147 @@ def test_group_by_part_matches_plain(dev, num_parts, shape):
         _same(a, b)
 
 
+def _probe_arrays(rng, cl: int, cr: int, jt: str, shape: str, dev):
+    """Probe arrays of ``cl`` stream rows against ``cr`` build rows with
+    the offsets K5 writes, drawn directly: ``fuzz`` (most rows without a
+    match, the rest 1-20), ``zeros`` (stretches of rows without output
+    longer than a block's share), ``giant`` (one row matching 2^16 build
+    rows), ``unmatched`` (nothing matches: for full outer every build row
+    is in the tail).  Returns (ProbeArrays, total)."""
+    from spark_rapids_tpu_torch.ops import join as J
+    if jt == "cross":
+        cnt = np.full(cl, cr, np.int64)
+        start = np.zeros(cl, np.int64)
+        perm = np.arange(cr)
+    else:
+        cnt = np.where(rng.random(cl) < 0.6, 0, rng.integers(1, 21, cl))
+        if shape == "zeros":
+            cnt[rng.random(cl) < 0.9995] = 0
+        elif shape == "giant" and cl:
+            cnt[rng.integers(0, cl)] = 1 << 16
+        elif shape == "unmatched":
+            cnt[:] = 0
+        cnt = np.minimum(cnt, cr)
+        start = (rng.random(cl) * (cr - cnt + 1)).astype(np.int64)
+        perm = rng.permutation(cr)
+    out = {"inner": cnt, "cross": cnt, "left": np.maximum(cnt, 1),
+           "full": np.maximum(cnt, 1), "semi": (cnt > 0).astype(np.int64),
+           "anti": (cnt == 0).astype(np.int64)}[jt]
+    unmatched = None
+    if jt == "full":
+        unmatched = (np.ones(cr, np.int64) if shape == "unmatched"
+                     else (rng.random(cr) < 0.3).astype(np.int64))
+
+    def on(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    def offsets(c):
+        return on(np.concatenate([[0], np.cumsum(c)]))
+    arrays = J.ProbeArrays(
+        (on(start), on(cnt), on(perm), on(out),
+         None if unmatched is None else on(unmatched)), offsets(out),
+        None if unmatched is None else offsets(unmatched))
+    total = int(out.sum()) + (0 if unmatched is None else
+                              int(unmatched.sum()))
+    return arrays, total
+
+
+_EXPAND_TYPES = ["inner", "left", "semi", "anti", "full", "cross"]
+
+
+def _expand_like_plain(arrays, cl: int, jt: str, total: int):
+    """One K7 call against its plain version: one launch a call, every
+    slot written (the output starts as a pattern no slot holds)."""
+    from spark_rapids_tpu_torch.ops import join as J
+    before = J.join_indices_from_probe.launches
+    got = J.join_indices_from_probe(cl, arrays, jt, total)
+    assert J.join_indices_from_probe.launches == before + 1
+    want = J.join_indices_plain(cl, arrays, jt, total)
+    assert got[0].shape == (total,) and got[1].shape == (total,)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("cl", [0, 1, 4095, 4096, 4097, (1 << 16) + 1,
+                                (1 << 20) + 1])
+@pytest.mark.parametrize("jt", _EXPAND_TYPES)
+def test_expand_merge_path_edges_match_plain(dev, jt, cl):
+    """K7's merge-path expansion at stream sizes around its block shares
+    and tiles, every join type; the full-outer tail in the same launch."""
+    rng = np.random.default_rng(cl + len(jt))
+    cr = 3 if jt == "cross" else 5_000
+    arrays, total = _probe_arrays(rng, cl, cr, jt, "fuzz", dev)
+    # a stale output pattern in the allocator: each slot must be written
+    junk = torch.full((2 * total + 4096,), -7, dtype=torch.int32,
+                      device=dev)
+    del junk
+    _expand_like_plain(arrays, cl, jt, total)
+
+
+@pytest.mark.parametrize("shape", ["zeros", "giant", "unmatched"])
+@pytest.mark.parametrize("jt", _EXPAND_TYPES[:5])
+def test_expand_skew_and_empty_stretches_match_plain(dev, jt, shape):
+    """Rows without output over many blocks' shares, one row of 2^16
+    slots spread over 32 blocks, and a full outer join whose build rows
+    are all unmatched."""
+    rng = np.random.default_rng(len(shape) * 7 + len(jt))
+    cl = (1 << 18) + 3
+    arrays, total = _probe_arrays(rng, cl, 1 << 17, jt, shape, dev)
+    _expand_like_plain(arrays, cl, jt, total)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 65_537])
+def test_k7_offsets_scan_matches_cumsum(dev, n):
+    """K7's own offsets scan (K14's emit offsets): one launch with the
+    look-back, its status left zero."""
+    from spark_rapids_tpu_torch.ops import join as J
+    from spark_rapids_tpu_torch.ops import native
+    rng = np.random.default_rng(n)
+    c = torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)).to(dev)
+    before = J._offsets_cuda.launches
+    for _ in range(2):
+        got = J._offsets_cuda(native.lib("join_expand"), c,
+                              native.stream_ptr(dev))
+        want = torch.cat([c.new_zeros(1, dtype=torch.int64),
+                          torch.cumsum(c.to(torch.int64), 0)])
+        assert torch.equal(got.to(torch.int64), want)
+    assert J._offsets_cuda.launches == before + 2
+    assert all(not s.any() for s in J._SCAN_STATUS.values())
+
+
+def _order_like_plain(ids, num_parts: int):
+    from spark_rapids_tpu_torch.ops import partition as P
+    want = P._order_plain(ids, num_parts)
+    for _ in range(2):  # the second call on the scratch the first left
+        before = P.group_by_part.launches
+        got = P.partition_order(ids, num_parts)
+        assert P.group_by_part.launches == before + 1
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, (1 << 20) + 1])
+@pytest.mark.parametrize("num_parts", [1, 8, 200, 255, 256, 5000, None])
+def test_group_order_edges_match_plain(dev, num_parts, n):
+    """K10's onesweep order, stable, with ids outside [0, P), at the tile
+    edges, one pass up to 255 partitions and two past it, up to
+    MAX_PARTS (None)."""
+    from spark_rapids_tpu_torch.ops import partition as P
+    parts = P.MAX_PARTS if num_parts is None else num_parts
+    rng = np.random.default_rng(n + parts)
+    ids = rng.integers(-2, parts + 2, n).astype(np.int32)
+    ids[rng.random(n) < 0.01] = np.iinfo(np.int32).min
+    _order_like_plain(torch.from_numpy(ids).to(dev), parts)
+
+
+@pytest.mark.parametrize("num_parts", [1, 8, 300])
+def test_group_order_one_bucket_matches_plain(dev, num_parts):
+    """Every row in one partition, then every row outside [0, P)."""
+    n = (1 << 20) + 17
+    for v in (num_parts - 1, num_parts):
+        _order_like_plain(torch.full((n,), v, dtype=torch.int32,
+                                     device=dev), num_parts)
+
+
 def test_exchange_paths_on_cuda_match_cpu(dev, tmp_path):
     """q6 in a multi-file layout with the adaptive layer on (map side
     coalesced: K9/K10 do not run) and off (they run), and the

@@ -12,10 +12,11 @@ the leaf sector of the sorted keys, a gallop where a key's run leaves the
 sector; the
 clipped range, the join type's count, and the tile's exclusive offsets of
 the counts from the decoupled look-back, with the int64 total written by
-the last tile.  K7's ``srt_join_expand`` and ``srt_join_tail`` then read
-those offsets instead of K7's own scan.  Here numpy executes the layout,
-the searches and the look-back as the kernels' blocks would, on CPU memory
-by address, standing in for the libraries under ``_build_prepare_cuda``,
+the last tile.  K7's ``srt_join_expand`` (the full-outer tail in the
+same launch) then reads those offsets instead of K7's own scan.  Here
+numpy executes the layout, the searches and the look-back as the
+kernels' blocks would, on CPU memory by address, standing in for the
+libraries under ``_build_prepare_cuda``,
 ``_search_cuda`` and ``_indices_cuda``.  The results must equal the plain
 versions and the JAX package's ``build_prepare_fast``/``probe_fast``/
 ``join_probe``; every output is written once, the look-back status is left
@@ -209,7 +210,7 @@ class FakeProbe:
         return 0
 
     # -- K7 ----------------------------------------------------------------
-    def srt_join_offsets(self, v, n, tile_sums, tile_offsets, out, stream):
+    def srt_join_offsets(self, v, n, status, out, stream):
         self.calls.append("offsets")
         c = _mem(v, n, np.int32).astype(np.int64)
         o = _mem(out, n + 1, np.int32)
@@ -218,7 +219,10 @@ class FakeProbe:
         return 0
 
     def srt_join_expand(self, offsets, cl, cnt, start, rperm, m,
-                        take_right, li, ri, stream):
+                        take_right, unmatched, uoff, cr, li, ri, stream):
+        """The expansion and, given the unmatched build rows, the
+        full-outer tail: one launch (the blocks' walk is executed in
+        tests/test_torch_expand_plan.py)."""
         self.calls.append("expand")
         off = _mem(offsets, cl + 1, np.int32).astype(np.int64)
         j = np.arange(min(m, int(off[cl])))
@@ -238,18 +242,14 @@ class FakeProbe:
             rv = np.full(j.size, -1)
         _mem(ri, m, np.int32)[j] = rv
         self._count(ri, m, j)
-        return 0
-
-    def srt_join_tail(self, unmatched, uoff, cr, total_left, li, ri, stream):
-        self.calls.append("tail")
-        u = _mem(unmatched, cr, np.int32) != 0
-        base = int(_mem(total_left, 1, np.int32)[0])
-        slot = base + _mem(uoff, cr, np.int32)[u].astype(np.int64)
-        m = base + int(u.sum())
-        _mem(li, m, np.int32)[slot] = -1
-        _mem(ri, m, np.int32)[slot] = np.flatnonzero(u)
-        self._count(li, m, slot)
-        self._count(ri, m, slot)
+        if unmatched:
+            u = _mem(unmatched, cr, np.int32) != 0
+            base = int(off[cl])
+            slot = base + _mem(uoff, cr, np.int32)[u].astype(np.int64)
+            _mem(li, m, np.int32)[slot] = -1
+            _mem(ri, m, np.int32)[slot] = np.flatnonzero(u)
+            self._count(li, m, slot)
+            self._count(ri, m, slot)
         return 0
 
 
@@ -470,7 +470,7 @@ def test_rank_path_full_outer_takes_the_search_offsets(fake, nl, nr):
     assert n == int(wo.sum()) + int(wu.sum())
     calls = len(fake.calls)
     got = pj._indices_cuda(lid.size, arrays, "full", n)
-    assert fake.calls[calls:] == ["expand", "tail"]
+    assert fake.calls[calls:] == ["expand"]
     _eq(got, pj.join_indices_plain(
         lid.size, (ws, wc, rperm, wo, wu), "full", n), "full indices")
     _written_once(fake)
